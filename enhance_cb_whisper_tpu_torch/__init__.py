@@ -1,0 +1,14 @@
+"""enhance_cb_whisper_tpu_torch — the PyTorch/CUDA port of enhance_cb_whisper_tpu.
+
+The JAX package beside it is the reference: every module here mirrors the
+path and name of its JAX counterpart (``ops/mel.py`` ↔ ``ops/mel.py``, ...)
+and is held against it by ``tests/test_torch_*.py``.
+
+This first slice covers the shortform CB-Whisper main path on one NVIDIA
+H100: mel front end (hand-written CUDA kernel ``csrc/mel.cu``) → Whisper
+encoder → catalog keyword spotting → biased beam/greedy decode → entity
+recall.  The package imports torch and numpy, never jax, flax or the JAX
+package: the numpy-only helpers it needs are copied in.
+"""
+
+__version__ = "0.1.0"

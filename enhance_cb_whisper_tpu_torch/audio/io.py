@@ -1,0 +1,71 @@
+"""Host-side audio IO and Whisper feature prep (port of
+enhance_cb_whisper_tpu/audio/io.py).
+
+* :func:`read_wav` decodes PCM WAV with the stdlib (mono mix-down);
+* :func:`prepare_features` mirrors WhisperFeatureExtractor's padding and
+  attention-mask semantics (pad/truncate to 30 s for shortform, pad to a
+  hop multiple for longform) on top of the mel front end, which runs on
+  ``device`` — the fused CUDA kernel on the card.
+
+Resampling and non-WAV decoding (the C++ resampler, ffmpeg) are not ported
+yet: audio must already be 16 kHz.
+"""
+
+from __future__ import annotations
+
+import wave
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..ops.mel import HOP_LENGTH, N_SAMPLES, log_mel_spectrogram
+
+
+def read_wav(path: str) -> Tuple[np.ndarray, int]:
+    """Returns (waveform [n_samples] float32 in [-1, 1] mono, sample_rate)."""
+    with wave.open(path, "rb") as w:
+        n_channels = w.getnchannels()
+        width = w.getsampwidth()
+        rate = w.getframerate()
+        raw = w.readframes(w.getnframes())
+    if width == 2:
+        data = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
+    elif width == 4:
+        data = np.frombuffer(raw, dtype="<i4").astype(np.float32) / 2147483648.0
+    elif width == 1:
+        data = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128.0) / 128.0
+    elif width == 3:
+        b = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 3)
+        ints = b[:, 0].astype(np.int32) | (b[:, 1].astype(np.int32) << 8) | (b[:, 2].astype(np.int32) << 16)
+        ints = np.where(ints >= 1 << 23, ints - (1 << 24), ints)
+        data = ints.astype(np.float32) / float(1 << 23)
+    else:
+        raise ValueError(f"unsupported WAV sample width: {width}")
+    if n_channels > 1:
+        data = data.reshape(-1, n_channels).mean(axis=1)
+    return data, rate
+
+
+def prepare_features(
+    waveform: np.ndarray, n_mels: int = 80, device="cpu"
+) -> Tuple[torch.Tensor, np.ndarray]:
+    """(input_features [1, n_mels, T] on ``device``, frame attention mask
+    [1, T]): <=30 s audio is padded/truncated to exactly 30 s; longer audio
+    is padded to a hop multiple with the true-sample mask."""
+    n = waveform.shape[-1]
+    if n <= N_SAMPLES:
+        padded = np.zeros((N_SAMPLES,), np.float32)
+        padded[:n] = waveform[:N_SAMPLES]
+        mask = np.zeros((N_SAMPLES,), np.int32)
+        mask[: min(n, N_SAMPLES)] = 1
+    else:
+        target = ((n + HOP_LENGTH - 1) // HOP_LENGTH) * HOP_LENGTH
+        padded = np.zeros((target,), np.float32)
+        padded[:n] = waveform
+        mask = np.zeros((target,), np.int32)
+        mask[:n] = 1
+    audio = torch.from_numpy(padded[None]).to(device)
+    features = log_mel_spectrogram(audio, n_mels=n_mels)
+    frame_mask = mask[::HOP_LENGTH][: features.shape[-1]]
+    return features, frame_mask[None]

@@ -1,0 +1,105 @@
+"""Weight conversion from the JAX package's layouts to this port's.
+
+* :func:`from_jax_whisper_params` — the JAX Whisper pytree (plain dicts,
+  HF names, linear kernels ``[in, out]``, conv kernels ``[W, C_in, C_out]``
+  for ``NWC`` convs; layers either a list or stacked ``[L, ...]`` arrays for
+  ``lax.scan``) → the nested torch dict of :mod:`.models.whisper`
+  (``nn.Linear``/``F.conv1d`` layouts, layers as a list).
+* :func:`from_flax_resnet_variables` — flax ``KWSModel`` variables
+  (``params`` + ``batch_stats``; NHWC convs with ``[kh, kw, in, out]``
+  kernels) → a ``state_dict`` for :class:`.models.kws.KWSModel` (NCHW,
+  ``[out, in, kh, kw]``).
+
+Inputs are numpy arrays (or anything ``np.asarray`` accepts).
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+_LINEARS = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")
+_CONVS = ("conv1", "conv2")
+
+
+def _unstack(layers: Any) -> list:
+    """Stacked scan layout (dict of [L, ...] arrays) → list of layer dicts."""
+    if isinstance(layers, list):
+        return layers
+
+    def first_leaf(tree):
+        return first_leaf(next(iter(tree.values()))) if isinstance(tree, dict) else tree
+
+    def take(tree, i):
+        if isinstance(tree, dict):
+            return {k: take(v, i) for k, v in tree.items()}
+        return np.asarray(tree)[i]
+
+    n = np.asarray(first_leaf(layers)).shape[0]
+    return [take(layers, i) for i in range(n)]
+
+
+def _convert_tree(tree: Any, name: Optional[str], device) -> Any:
+    if isinstance(tree, dict):
+        out = {}
+        for key, value in tree.items():
+            if key == "weight" and not isinstance(value, dict):
+                arr = np.asarray(value, dtype=np.float32)
+                if name in _LINEARS:
+                    arr = arr.T  # [in, out] → [out, in]
+                elif name in _CONVS:
+                    arr = arr.transpose(2, 1, 0)  # [W, C_in, C_out] → [C_out, C_in, W]
+                out[key] = torch.tensor(arr, device=device)
+            elif key == "layers":
+                out[key] = [_convert_tree(layer, None, device) for layer in _unstack(value)]
+            else:
+                out[key] = _convert_tree(value, key, device)
+        return out
+    return torch.tensor(np.asarray(tree, dtype=np.float32), device=device)
+
+
+def from_jax_whisper_params(params: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """JAX Whisper params (stacked or unstacked) → torch params on ``device``."""
+    return {side: _convert_tree(params[side], side, device) for side in ("encoder", "decoder")}
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    flat = {}
+    for key, value in tree.items():
+        path = f"{prefix}.{key}" if prefix else key
+        if isinstance(value, Mapping):  # dict or flax FrozenDict
+            flat.update(_flatten(value, path))
+        else:
+            flat[path] = np.asarray(value, dtype=np.float32)
+    return flat
+
+
+def from_flax_resnet_variables(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``KWSModel`` variables → ``KWSModel.state_dict()`` entries.
+
+    Module names match one to one (``model.feature_extractor.embedder.
+    convolution``, ``...stage_0_block_0.layer_1.normalization``,
+    ``model.classifier``); only the leaf names and layouts change."""
+    state: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(variables["params"]).items():
+        module, leaf = path.rsplit(".", 1)
+        if leaf == "kernel" and arr.ndim == 4:
+            state[f"{module}.weight"] = torch.tensor(arr.transpose(3, 2, 0, 1))
+        elif leaf == "kernel" and arr.ndim == 2:
+            state[f"{module}.weight"] = torch.tensor(arr.T)
+        elif leaf == "scale":
+            state[f"{module}.weight"] = torch.tensor(arr)
+        elif leaf == "bias":
+            state[f"{module}.bias"] = torch.tensor(arr)
+        else:
+            raise ValueError(f"unexpected flax parameter {path}")
+    for path, arr in _flatten(variables.get("batch_stats", {})).items():
+        module, leaf = path.rsplit(".", 1)
+        names = {"mean": "running_mean", "var": "running_var"}
+        if leaf not in names:
+            raise ValueError(f"unexpected flax batch statistic {path}")
+        state[f"{module}.{names[leaf]}"] = torch.tensor(arr)
+    return state

@@ -1,0 +1,183 @@
+"""Beam search and greedy decoding for Whisper (port of
+enhance_cb_whisper_tpu/decoding/beam.py).
+
+HF's modern (transformers >= 4.49) beam-search semantics, as in the JAX
+package:
+
+* scores accumulate log-softmax values with the processor masks applied
+  after normalization;
+* eos candidates ranked < num_beams retire into the finished set with score
+  ``total / (generated_len + 1)**length_penalty`` — the length WITHOUT the
+  decoder prompt and WITH the retiring token; eos stays in the sequence;
+* a batch is done once all K finished slots are filled and the best running
+  score, normalized at the current generated length, cannot beat the worst
+  finished score (``early_stopping=False``);
+* at max_length the running beams retire through the same normalization.
+
+The JAX ``while_loop`` is a Python loop here.  Conventions kept: the cache
+arrives positioned at ``prompt_len - 1`` and the first step re-feeds the
+final prompt token.  The self-attention cache is reordered by beam index
+each step (``index_select`` over its written prefix) instead of the JAX
+package's ancestry map.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Tuple
+
+import torch
+
+from .logits_process import NEG_INF, LogitsProcessorConfig, apply_logits_processors
+from .topk import exact_top_k
+
+# decode_fn(tokens_chunk [N, 1], cache, ctx) -> (logits [N, vocab], cache)
+DecodeFn = Callable[[torch.Tensor, Any, Any], Tuple[torch.Tensor, Any]]
+
+
+def _gather_beams(cache: dict, rows: torch.Tensor, length: int) -> None:
+    """Reorder the cache's batch·beam rows by ``rows`` [B·K], in place, over
+    the written prefix ``[:length]`` of every K/V slab."""
+    for layer in cache["layers"]:
+        for name in ("k", "v"):
+            slab = layer[name]
+            slab[:, :length] = slab[:, :length].index_select(0, rows)
+
+
+@torch.no_grad()
+def beam_search(
+    decode_fn: DecodeFn,
+    prompt: torch.Tensor,  # [B, P] decoder input ids (int64)
+    prompt_len: int,
+    cache: Any,  # cache with leading dim B*K, prefilled with the prompt
+    ctx: Any,  # per-segment decode context (cross KV etc.)
+    processors: LogitsProcessorConfig,
+    num_beams: int = 5,
+    max_length: int = 448,
+    length_penalty: float = 1.0,
+    pad_token_id: int = 50257,
+    eos_token_id: int = 50257,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (sequences [B, max_length] right-padded, scores [B])."""
+    device = prompt.device
+    batch, plen = prompt.shape
+    K = num_beams
+    V = processors.vocab_size
+
+    tokens = torch.full((batch, K, max_length), pad_token_id, dtype=torch.long, device=device)
+    tokens[:, :, :plen] = prompt[:, None, :]
+    running_scores = torch.full((batch, K), NEG_INF, dtype=torch.float32, device=device)
+    running_scores[:, 0] = 0.0
+    fin_tokens = torch.full_like(tokens, pad_token_id)
+    fin_scores = torch.full((batch, K), NEG_INF, dtype=torch.float32, device=device)
+    fin_flags = torch.zeros((batch, K), dtype=torch.bool, device=device)
+    done = torch.zeros((batch,), dtype=torch.bool, device=device)
+    rank = torch.arange(2 * K, device=device)[None, :]
+    row_base = (torch.arange(batch, device=device) * K)[:, None]
+
+    def normalize(scores: torch.Tensor, length: int) -> torch.Tensor:
+        denom = torch.tensor(float(length), dtype=torch.float32, device=device) ** length_penalty
+        return scores / denom
+
+    cur_len = prompt_len
+    while cur_len < max_length and not bool(done.all()):
+        last = tokens[:, :, cur_len - 1].reshape(batch * K, 1)
+        logits, cache = decode_fn(last, cache, ctx)
+        logprobs = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        logprobs = apply_logits_processors(
+            processors, logprobs, tokens.reshape(batch * K, max_length), cur_len, prompt_len,
+        ).reshape(batch, K, V)
+        total = logprobs + running_scores[:, :, None]  # [B, K, V]
+
+        # per-beam top-2K, then top-2K of the K*2K pool: the global top-2K
+        # of the flattened [K*V] axis with the same (beam-major) tie order
+        per_scores, per_token = exact_top_k(total.reshape(batch * K, V), 2 * K)
+        pool_scores = per_scores.reshape(batch, K * 2 * K)
+        pool_token = per_token.reshape(batch, K * 2 * K)
+        cand_scores, pool_sel = exact_top_k(pool_scores, 2 * K)  # [B, 2K]
+        cand_beam = pool_sel // (2 * K)
+        cand_token = torch.gather(pool_token, 1, pool_sel)
+        is_eos = cand_token == eos_token_id
+
+        # retire eos candidates (rank < K) into the finished set
+        gen_len = cur_len + 1 - prompt_len
+        eligible = is_eos & (rank < K) & ~done[:, None]
+        cand_fin_score = torch.where(
+            eligible, normalize(cand_scores, gen_len), torch.full_like(cand_scores, NEG_INF)
+        )
+        cand_sequences = torch.gather(
+            tokens, 1, cand_beam[:, :, None].expand(batch, 2 * K, max_length)
+        ).clone()
+        cand_sequences[:, :, cur_len] = eos_token_id
+
+        merged_scores = torch.cat([fin_scores, cand_fin_score], dim=1)  # [B, 3K]
+        merged_tokens = torch.cat([fin_tokens, cand_sequences], dim=1)
+        merged_flags = torch.cat([fin_flags, eligible], dim=1)
+        fin_scores, top_idx = exact_top_k(merged_scores, K)
+        fin_tokens = torch.gather(merged_tokens, 1, top_idx[:, :, None].expand(batch, K, max_length))
+        fin_flags = torch.gather(merged_flags, 1, top_idx)
+
+        # the next K running beams: best non-eos candidates in rank order
+        running_eligible = torch.where(is_eos, torch.full_like(cand_scores, NEG_INF), cand_scores)
+        new_running, sel = exact_top_k(running_eligible, K)
+        sel_beam = torch.gather(cand_beam, 1, sel)  # [B, K]
+        sel_token = torch.gather(cand_token, 1, sel)
+        new_tokens = torch.gather(tokens, 1, sel_beam[:, :, None].expand(batch, K, max_length)).clone()
+        new_tokens[:, :, cur_len] = sel_token
+        _gather_beams(cache, (row_base + sel_beam).reshape(-1), cur_len)
+
+        # frozen batches keep their previous state
+        tokens = torch.where(done[:, None, None], tokens, new_tokens)
+        running_scores = torch.where(done[:, None], running_scores, new_running)
+
+        best_possible = normalize(running_scores[:, 0], gen_len)
+        worst_finished = fin_scores.amin(dim=1)
+        done = done | ((fin_flags.sum(dim=1) >= K) & (worst_finished >= best_possible))
+        cur_len += 1
+
+    # finalize: running beams retire through the same normalization and
+    # compete with the finished hypotheses; done batches keep finished only
+    running_norm = normalize(running_scores, cur_len - prompt_len)
+    running_norm = torch.where(done[:, None], torch.full_like(running_norm, NEG_INF), running_norm)
+    all_scores = torch.cat([fin_scores, running_norm], dim=1)  # [B, 2K]
+    all_tokens = torch.cat([fin_tokens, tokens], dim=1)
+    best = torch.argmax(all_scores, dim=1)
+    sequences = all_tokens[torch.arange(batch, device=device), best]
+    scores = all_scores[torch.arange(batch, device=device), best]
+    return sequences, scores
+
+
+@torch.no_grad()
+def greedy_search(
+    decode_fn: DecodeFn,
+    prompt: torch.Tensor,  # [B, P]
+    prompt_len: int,
+    cache: Any,  # prefilled, leading dim B
+    ctx: Any,
+    processors: LogitsProcessorConfig,
+    max_length: int = 448,
+    pad_token_id: int = 50257,
+    eos_token_id: int = 50257,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy decode; returns (sequences [B, max_length], sum of the
+    log-softmax of the PROCESSED scores over generated tokens incl. eos [B])."""
+    device = prompt.device
+    batch, plen = prompt.shape
+    tokens = torch.full((batch, max_length), pad_token_id, dtype=torch.long, device=device)
+    tokens[:, :plen] = prompt
+    sum_lp = torch.zeros((batch,), dtype=torch.float32, device=device)
+    finished = torch.zeros((batch,), dtype=torch.bool, device=device)
+
+    cur_len = prompt_len
+    while cur_len < max_length and not bool(finished.all()):
+        logits, cache = decode_fn(tokens[:, cur_len - 1 : cur_len], cache, ctx)
+        processed = apply_logits_processors(
+            processors, logits.to(torch.float32), tokens, cur_len, prompt_len
+        )
+        next_tok = torch.argmax(processed, dim=-1)
+        tok_lp = torch.gather(torch.log_softmax(processed, dim=-1), 1, next_tok[:, None])[:, 0]
+        next_tok = torch.where(finished, torch.full_like(next_tok, pad_token_id), next_tok)
+        sum_lp = sum_lp + torch.where(finished, torch.zeros_like(tok_lp), tok_lp)
+        tokens[:, cur_len] = next_tok
+        finished = finished | (next_tok == eos_token_id)
+        cur_len += 1
+    return tokens, sum_lp

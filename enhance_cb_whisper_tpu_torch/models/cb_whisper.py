@@ -1,0 +1,270 @@
+"""CB-Whisper: contextual-biasing ASR with on-the-fly keyword spotting
+(port of enhance_cb_whisper_tpu/models/cb_whisper.py, shortform batch-1).
+
+Per utterance: ONE encoder forward yields both the L2-normalized layer
+stack (keyword spotting) and the encoding that feeds cross-attention (when
+the KWS encoder is the ASR encoder); the whole catalog is scored against the
+stack; class-1 argmax keywords become the decoder prompt; beam search
+decodes; entity recall and bootstrap CIs are computed at the end.
+
+Deviation from the JAX package: spotting has NO broad ``except Exception``
+(JAX cb_whisper.py:333-336, :350-352).  A failing encoder, scorer or kernel
+raises instead of silently yielding an empty prompt, so a broken run cannot
+pass.  Tokenization is injected (``prompt_ids_fn`` / ``decode_fn``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..catalog.database import KeywordCatalog, device_put_catalog, make_catalog_score_fn
+from ..decoding.generate import GenerationOptions, WhisperGenerator
+from ..metrics import entity_recall, evaluate_with_conf_int
+from ..ops.resize import resize_matrix
+from ..runtime.profiler import RTFxMeter
+from .kws import KWSModel
+from .whisper import WhisperConfig, encoder_kws_stack
+
+
+@dataclasses.dataclass
+class CBWhisperConfig:
+    """Mirror of the reference hyperparameters."""
+
+    prompt: bool = True
+    oracle: str = "kws"  # kws | gold | random
+    kws_features_size: Tuple[int, int] = (150, 750)
+    keyword_prompt_prepend: str = "("
+    keyword_prompt_append: str = ")"
+    keyword_separator: str = " "
+
+
+class CBWhisper:
+    def __init__(
+        self,
+        config: CBWhisperConfig,
+        whisper_config: WhisperConfig,
+        whisper_params: Dict[str, Any],
+        kws_model: KWSModel,
+        catalog: KeywordCatalog,
+        generation_options: GenerationOptions,
+        prompt_ids_fn: Callable[[str], List[int]],
+        decode_fn: Callable[[Sequence[int]], str],
+        encoder_params: Optional[Dict[str, Any]] = None,
+        encoder_config: Optional[WhisperConfig] = None,
+        kws_layer_slice: Tuple[int, int] = (10, 22),
+        device="cpu",
+    ):
+        """``whisper_params``/``encoder_params`` are torch parameter dicts on
+        ``device`` (:func:`..convert.from_jax_whisper_params`); ``kws_model``
+        is moved to ``device`` and put in eval mode."""
+        self.config = config
+        self.whisper_config = whisper_config
+        self.device = torch.device(device)
+        self.kws_model = kws_model.to(self.device).eval()
+        self.catalog = catalog
+        self.opts = generation_options
+        self.prompt_ids_fn = prompt_ids_fn
+        self.decode_fn = decode_fn
+        self.kws_layer_slice = kws_layer_slice
+        self.oracle_buffer: List[str] = []
+
+        self.generator = WhisperGenerator(whisper_config, whisper_params, device=self.device)
+        self.encoder_params = encoder_params if encoder_params is not None else whisper_params
+        self.encoder_config = encoder_config or whisper_config
+        # single-encode fusion: when the KWS encoder IS the ASR encoder, one
+        # forward per segment yields both the KWS stack and the encoding
+        self.encode_fused = encoder_params is None and (
+            encoder_config is None or encoder_config == whisper_config
+        )
+        self._score_fn = make_catalog_score_fn(
+            lambda images: self.kws_model(images).logits, out_size=config.kws_features_size
+        )
+        self._catalog_dev = None
+        self._utt_w = torch.from_numpy(
+            resize_matrix(self.encoder_config.max_source_positions,
+                          config.kws_features_size[1], antialias=False)
+        ).to(self.device)
+
+    # -------------------------------------------------------- keyword spotting
+
+    def _ensure_catalog(self):
+        if self._catalog_dev is None:
+            self._catalog_dev = device_put_catalog(
+                self.catalog, out_h=self.config.kws_features_size[0], chunk=8, device=self.device
+            )
+
+    def _score_to_keywords(self, stacks: torch.Tensor) -> List[List[str]]:
+        """Catalog scoring + argmax-class-1 dedupe, per segment of ``stacks``
+        [n_seg, L, T_enc, D]."""
+        n = self.catalog.num_keywords
+        mask = self.catalog.mask[:n].astype(bool)
+        out = []
+        for seg in range(stacks.shape[0]):
+            _, logits = self._score_fn(self._catalog_dev, stacks[seg], self._utt_w)
+            hits = (torch.argmax(logits[:n], dim=-1) == 1).cpu().numpy() & mask
+            keywords = [self.catalog.keywords[i] for i in np.nonzero(hits)[0]]
+            out.append(list(dict.fromkeys(keywords)))
+        return out
+
+    def _features(self, input_features) -> torch.Tensor:
+        return torch.as_tensor(input_features, dtype=torch.float32, device=self.device)
+
+    @torch.no_grad()
+    def spot_keywords(self, input_features) -> List[List[str]]:
+        """Detected keyword strings per segment (argmax class 1, deduped)."""
+        self._ensure_catalog()
+        stacks = encoder_kws_stack(
+            self.encoder_params, self._features(input_features), self.encoder_config,
+            layer_slice=self.kws_layer_slice,
+        )
+        return self._score_to_keywords(stacks)
+
+    @torch.no_grad()
+    def encode_and_spot(self, input_features, start_of_prev: bool = False):
+        """The generator's fused hook: (prompt token ids per segment,
+        cross-attention encoding [n_seg, T_enc, D]) from one encoder forward."""
+        self._ensure_catalog()
+        stacks, enc = encoder_kws_stack(
+            self.generator.params, self._features(input_features), self.whisper_config,
+            layer_slice=self.kws_layer_slice, return_encoding=True,
+        )
+        keywords = self._score_to_keywords(stacks)
+        return self._format_prompt_tokens(keywords, start_of_prev), enc
+
+    def keyword_spotting(self, input_features, start_of_prev: bool = False) -> List[List[int]]:
+        """The generate() callback: prompt token ids per segment."""
+        num_segments = input_features.shape[0]
+        if not self.config.prompt:
+            return [[] for _ in range(num_segments)]
+        if self.config.oracle == "kws":
+            keywords = self.spot_keywords(input_features)
+        else:
+            keywords = [list(self.oracle_buffer) for _ in range(num_segments)]
+        return self._format_prompt_tokens(keywords, start_of_prev)
+
+    def _format_prompt_tokens(self, keywords: List[List[str]], start_of_prev: bool) -> List[List[int]]:
+        """Wrap detected keywords in the prompt template and tokenize."""
+        cfg = self.config
+        out = []
+        for kwds in keywords:
+            if kwds:
+                text = (
+                    cfg.keyword_prompt_prepend
+                    + cfg.keyword_separator.join(kwds)
+                    + cfg.keyword_prompt_append
+                )
+                ids = list(self.prompt_ids_fn(text))
+                if not start_of_prev:
+                    ids = ids[1:]  # strip <|startofprev|>
+                out.append(ids)
+            else:
+                out.append([])
+        return out
+
+    def _encode_spot_hook(self):
+        use = self.encode_fused and self.config.prompt and self.config.oracle == "kws"
+        return self.encode_and_spot if use else None
+
+    # ----------------------------------------------------------------- forward
+
+    def forward(self, input_features, attention_mask: Optional[np.ndarray] = None,
+                oracle: Optional[List[str]] = None) -> str:
+        """Transcribe one utterance (<= 30 s) with contextual biasing; returns
+        the stripped transcript string."""
+        self.oracle_buffer = oracle or []
+        tokens = self.generator.generate(
+            self._features(input_features),
+            self.opts,
+            attention_mask=attention_mask,
+            keyword_spotting=self.keyword_spotting,
+            encode_spot=self._encode_spot_hook(),
+        )
+        return self.decode_fn(tokens[0]).strip()
+
+    # -------------------------------------------------------------------- test
+
+    def run_test(
+        self,
+        dataset,
+        mel_fn: Callable[[dict], Tuple[Any, Optional[np.ndarray]]],
+        num_bootstraps: int = 1000,
+        rng: Optional[np.random.Generator] = None,
+        predictions_out: Optional[list] = None,
+    ) -> Dict[str, float]:
+        """Entity recall over an eval dataset, one utterance at a time.
+        ``mel_fn(item) -> (features, attention_mask)`` supplies the log-mel
+        input (e.g. :func:`..audio.io.prepare_features` on the item's audio)."""
+        rng = rng or np.random.default_rng(0)
+        meter = RTFxMeter()
+        preds, refs, mentions, speakers = [], [], [], []
+        for idx in range(len(dataset)):
+            item = dataset[idx]
+            meter.start()
+            features, attention_mask = mel_fn(item)
+            labels = np.asarray(item["hotword_labels"])
+            if self.config.oracle == "gold":
+                oracle = [self.catalog.keywords[i] for i in np.nonzero(labels)[0]]
+            elif self.config.oracle == "random":
+                negatives = [i for i in range(len(self.catalog.keywords)) if not labels[i]]
+                pick = rng.choice(negatives, size=int(labels.sum()), replace=False)
+                oracle = [self.catalog.keywords[i] for i in pick]
+            else:
+                oracle = []
+            preds.append(self.forward(features, attention_mask, oracle))
+            # 100 mel frames per second of audio (hop 160 @ 16 kHz)
+            n_frames = (
+                int(np.asarray(attention_mask).sum())
+                if attention_mask is not None
+                else features.shape[-1]
+            )
+            meter.stop(audio_seconds=n_frames / 100.0)
+            self._collect_refs(item, refs, mentions, speakers)
+        if predictions_out is not None:
+            predictions_out.extend(preds)
+        return self._finalize_test(preds, refs, mentions, speakers, num_bootstraps, meter)
+
+    def _collect_refs(self, item, refs, mentions, speakers):
+        refs.append(item["transcript"])
+        if item.get("keywords") is not None:
+            mentions.append([{**kw, "ner_tag": "UNK"} for kw in item["keywords"]])
+        else:
+            mentions.append(
+                [
+                    {
+                        "mention": kw,
+                        "total_offset": m.start(),
+                        "end_offset": m.end(),
+                        "ner_tag": "UNK",
+                    }
+                    for kw in self.catalog.keywords
+                    for m in re.finditer(re.escape(kw), item["transcript"])
+                ]
+            )
+        speakers.append(item.get("speaker"))
+
+    def _finalize_test(self, preds, refs, mentions, speakers, num_bootstraps, meter):
+        def f_recall(labels, samples, samples2=None):
+            refs_, mentions_ = zip(*labels)
+            return entity_recall(
+                preds=list(samples), refs=list(refs_), mentions=list(mentions_),
+                ner_tags="ALL", char_split=True,
+            )["ALL"]
+
+        conditions = None
+        if speakers[0] is not None:
+            speaker2id = {s: i for i, s in enumerate(set(speakers))}
+            conditions = [speaker2id[s] for s in speakers]
+        center, (lb, ub) = evaluate_with_conf_int(
+            list(preds), f_recall, list(zip(refs, mentions)), conditions,
+            num_bootstraps=num_bootstraps, alpha=5,
+        )
+        results = {"Entity Recall": center, "Entity Recall LB": lb, "Entity Recall UB": ub}
+        print(f"throughput: {meter.summary()}")
+        results["RTFx"] = meter.rtfx
+        print(results)
+        return results
