@@ -3,20 +3,37 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, then:
+Builds the port's CUDA kernels from the sources in this checkout (one nvcc
+per source, started together), then:
 
-A. holds the fused mel kernel (csrc/mel.cu) against its plain torch version
-   on the card: [4, 480000] at 80 and 128 mels and a 37 s [2, 592000]
-   batch, rtol 1e-4 / atol 1e-5 (the JAX package's Pallas-kernel tolerance);
-B. checks the CUDA path against the CPU path on a tiny random CB-Whisper
-   (identical keywords and transcripts), then drives the main path —
-   ``CBWhisper.run_test`` over three synthetic utterances of 5-30 s — at
-   whisper-medium widths (random weights from a numpy seed), with the
-   12-channel ResNet-50 KWS scorer at 150x750, layer slice (10, 22), a
-   100-keyword catalog and beam-5 fp32 decoding, counting the kernel's
-   launches over exactly that run;
-C. times the kernel and its plain version (median of CUDA-event timings)
-   at [1, 480000] and [8, 480000].
+A.  holds the fused mel kernel K1 (csrc/mel.cu) against its plain torch
+    version on the card: [4, 480000] at 80 and 128 mels and a 37 s
+    [2, 592000] batch, rtol 1e-4 / atol 1e-5 (the JAX package's
+    Pallas-kernel tolerance);
+A2. holds the fused s8 matmul + requant kernel K2 (csrc/matmul_s8.cu)
+    against its plain version at every shape the int8 ResNet-50 scorer
+    gives it (22 launches per chunk of 8 keyword maps at 150x750, 9
+    distinct shapes) and a ragged M, with ReLU on and off, with and
+    without a residual: zero differing int8 codes allowed;
+B.  checks the CUDA path against the CPU path on a tiny random CB-Whisper,
+    in fp32 and with int8 spotting on a K2-eligible ResNet (identical
+    keywords and transcripts, K2 launched on the card), then drives the
+    main path — ``CBWhisper.run_test`` over three synthetic utterances of
+    5-30 s — at whisper-medium widths (random weights from a numpy seed)
+    with the 12-channel ResNet-50 KWS scorer at 150x750, layer slice
+    (10, 22), a 100-keyword catalog and beam-5 fp32 decoding: once with the
+    fp32 scorer, once with the int8 scorer (``enable_int8_spotting``,
+    calibrated on a warm-up utterance, stages 1-3 on K2), counting each
+    kernel's launches over exactly each ``run_test``;
+D.  runs the paper-1 KWS eval (``KWSEngine.test``) on the same ResNet-50
+    over the 100-keyword catalog and 8 utterance stacks of 300-1500 frames,
+    in fp32 and after ``enable_int8_scoring``: P/R/F1 with bootstrap CIs,
+    the share of decisions that flip, the time per pair, K2's launches;
+C.  times K1 and K2 and their plain versions on the card: K1 at
+    [1, 480000] and [8, 480000] (median of CUDA-event timings of eager
+    calls), K2 at each shape of a chunk (median of CUDA-event timings of
+    CUDA-graph replays, i.e. device time without host gaps, and of eager
+    calls).
 
 Any failure raises and exits non-zero.  The line before the last is the
 kernel summary as JSON, the last line the device as JSON.  Needs one card;
@@ -30,6 +47,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -37,6 +55,14 @@ SEED = 0
 RTOL, ATOL = 1e-4, 1e-5
 KERNEL_SOURCE = "enhance_cb_whisper_tpu_torch/csrc/mel.cu"
 REPLACES = "enhance_cb_whisper_tpu/ops/mel_pallas.py:56"
+K2_SOURCE = "enhance_cb_whisper_tpu_torch/csrc/matmul_s8.cu"
+K2_REPLACES = "enhance_cb_whisper_tpu/ops/matmul_s8.py:61"
+S8_STAGES = ("stage_1", "stage_2", "stage_3")
+KWS_SIZE = (150, 750)
+CHUNK = 8  # keyword maps per scorer call (CBWhisper and KWSEngine)
+N_KW = 100
+# published peaks of one H100 SXM (dense): HBM bytes/s, FP32 FLOP/s, int8 OP/s
+HBM_RATE, FP32_RATE, INT8_RATE = 3.35e12, 67e12, 1979e12
 
 
 def _audio(batch: int, n_samples: int, rng: np.random.Generator) -> np.ndarray:
@@ -57,6 +83,26 @@ def _close(got, want):
     ok = bool((diff <= ATOL + RTOL * want.abs()).all())
     rel = (diff / want.abs().clamp_min(1e-30)).max().item()
     return diff.max().item(), rel, ok
+
+
+def _stacks(rng: np.random.Generator, n: int, n_layers: int, frames, dim: int):
+    """L2-normalized random hidden-state stacks [n_layers, T, dim]."""
+    out = []
+    for i in range(n):
+        s = rng.standard_normal((n_layers, frames(i), dim)).astype(np.float32)
+        out.append(s / np.linalg.norm(s, axis=-1, keepdims=True))
+    return out
+
+
+def build_kernels() -> None:
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, mel_cuda
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(mel_cuda.build), pool.submit(matmul_s8_cuda.build)]:
+            job.result()
+    print(f"build: {KERNEL_SOURCE} and {K2_SOURCE} compiled in parallel and loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def phase_a(device) -> float:
@@ -86,8 +132,102 @@ def phase_a(device) -> float:
     return worst
 
 
-def _tiny_pipeline(device):
-    """A tiny random CB-Whisper (the CPU tests' dims) on ``device``."""
+def k2_launch_shapes(cfg, size=KWS_SIZE, batch=CHUNK):
+    """(M, K, N, residual) of every K2 launch of one int8 ResNet forward
+    over ``batch`` maps with ``S8_STAGES`` on the kernel (models/quant.py):
+    each bottleneck's layer_0 reduce at its input resolution, and the fused
+    tail of each block without a shortcut whose next block is on K2 too."""
+    def conv(n, k, s):
+        return (n + 2 * (k // 2) - k) // s + 1
+
+    h, w = conv(size[0], 7, 2), conv(size[1], 7, 2)  # stem
+    h, w = conv(h, 3, 2), conv(w, 3, 2)  # max-pool 3x3 stride 2 pad 1
+    plan, in_ch = [], cfg.embedding_size
+    for stage, (width, depth) in enumerate(zip(cfg.hidden_sizes, cfg.depths)):
+        for block in range(depth):
+            stride = (2 if stage > 0 or cfg.downsample_in_first_stage else 1) if block == 0 else 1
+            plan.append((f"stage_{stage}", in_ch, width, stride, h, w))
+            h, w = conv(h, 3, stride), conv(w, 3, stride)
+            in_ch = width
+    shapes = []
+    for i, (stage, c_in, width, stride, h, w) in enumerate(plan):
+        if stage not in S8_STAGES:
+            continue
+        shapes.append((batch * h * w, c_in, width // 4, False))
+        shortcut = c_in != width or stride != 1
+        if not shortcut and i + 1 < len(plan) and plan[i + 1][0] in S8_STAGES:
+            shapes.append((batch * h * w, width // 4, width, True))
+    return shapes
+
+
+def _k2_inputs(rng, m, k, n, residual, device):
+    """K2's operands with the JAX package's test distributions."""
+    import torch
+
+    def put(a):
+        return torch.from_numpy(a).to(device)
+
+    x = put(rng.integers(-127, 128, (m, k)).astype(np.int8))
+    w_nk = put(rng.integers(-127, 128, (n, k)).astype(np.int8))
+    scale = put((rng.uniform(0.5, 2.0, n) * 1e-4).astype(np.float32))
+    bias = put(rng.normal(0, 0.5, n).astype(np.float32))
+    res = {}
+    if residual:
+        res = dict(residual=put(rng.integers(-127, 128, (m, n)).astype(np.int8)),
+                   res_scale=put((rng.uniform(0.5, 2.0, n) * 1e-3).astype(np.float32)))
+    return x, w_nk.t(), scale, bias, res
+
+
+def phase_a2(device, shapes):
+    """K2 against its plain version; returns (differing codes, max |code diff|)."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda
+    from enhance_cb_whisper_tpu_torch.ops.matmul_s8 import matmul_s8_requant_plain
+
+    rng = np.random.default_rng(SEED + 4)
+    distinct = sorted({(m, k, n) for m, k, n, _ in shapes}) + [(14293, 512, 128)]
+    print(f"phase A2: {len(shapes)} K2 launches per chunk of {CHUNK} maps at {KWS_SIZE}, "
+          f"{len(distinct) - 1} distinct shapes, plus a ragged M")
+    total, worst = 0, 0
+    for m, k, n in distinct:
+        counts = []
+        for residual in (False, True):
+            x, w, scale, bias, res = _k2_inputs(rng, m, k, n, residual, device)
+            for relu in (True, False):
+                got = matmul_s8_cuda.matmul_s8_requant(x, w, scale, bias, relu=relu, **res)
+                torch.cuda.synchronize()
+                want = matmul_s8_requant_plain(x, w, scale, bias, relu=relu, **res)
+                diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+                counts.append(int((diff > 0).sum()))
+                worst = max(worst, int(diff.max()))
+                if len(torch.unique(got)) < 10:
+                    raise RuntimeError(f"K2 codes at {(m, k, n)} are degenerate")
+        total += sum(counts)
+        print(f"phase A2: K2 vs plain (M, K, N)={(m, k, n)}: differing codes "
+              f"{counts} of {m * n} each (relu on/off x residual off/on)")
+    if total:
+        raise RuntimeError(f"K2 disagrees with its plain version in {total} codes")
+    return total, worst
+
+
+def _unzero_residual_bn(kws, value: float = 0.2) -> None:
+    """``init_kws_model`` zeroes the last BatchNorm of each residual branch,
+    so its folded int8 weights would be all zero and K2's fused tails would
+    compute nothing; give those BNs a nonzero scale."""
+    import torch
+
+    last = "layer_2.normalization" if kws.config.layer_type == "bottleneck" else "layer_1.normalization"
+    with torch.no_grad():
+        for name, module in kws.named_modules():
+            if name.endswith(last):
+                module.weight.fill_(value)
+
+
+def _tiny_pipeline(device, resnet=None, class1_shift: float = 0.0):
+    """A tiny random CB-Whisper (the CPU tests' dims) on ``device``; a given
+    ``resnet`` gets nonzero residual-branch BNs (for the int8 path) and its
+    class-1 bias lowered by ``class1_shift``."""
     import torch
 
     from enhance_cb_whisper_tpu_torch.catalog.database import KeywordCatalog
@@ -106,14 +246,16 @@ def _tiny_pipeline(device):
     rng = np.random.default_rng(SEED)
     params = from_jax_whisper_params(init_whisper_params(rng, cfg), device)
     keywords = [f"kw{i}" for i in range(6)]
-    stacks = []
-    for _ in keywords:
-        s = rng.standard_normal((2, int(rng.integers(3, 12)), 64)).astype(np.float32)
-        stacks.append(s / np.linalg.norm(s, axis=-1, keepdims=True))
-    kws = init_kws_model(
-        ResNetConfig(num_channels=2, embedding_size=8, hidden_sizes=(8, 16, 24, 32), depths=(1, 1, 1, 1)),
-        torch.Generator().manual_seed(SEED),
-    )
+    stacks = _stacks(rng, len(keywords), 2, lambda i: int(rng.integers(3, 12)), 64)
+    if resnet is None:
+        kws = init_kws_model(
+            ResNetConfig(num_channels=2, embedding_size=8, hidden_sizes=(8, 16, 24, 32), depths=(1, 1, 1, 1)),
+            torch.Generator().manual_seed(SEED))
+    else:
+        kws = init_kws_model(resnet, torch.Generator().manual_seed(SEED))
+        _unzero_residual_bn(kws)
+        with torch.no_grad():
+            kws.model.classifier.bias[1] -= class1_shift
     opts = GenerationOptions(
         decoder_start_token_id=3, language_token_id=10, task_token_id=11, no_timestamps_token_id=100,
         prev_sot_token_id=99, eos_token_id=2, pad_token_id=0, max_initial_timestamp_index=10,
@@ -128,57 +270,90 @@ def _tiny_pipeline(device):
     )
 
 
-def phase_b_reference(device) -> None:
-    """CUDA path (mel kernel, cuBLAS/cuDNN fp32) vs the CPU path (plain
-    mel) of the same tiny model: identical keywords and transcripts."""
+def _tiny_runs(device, waves, make, int8: bool):
+    """(spotted keywords, transcripts) per device, and K2 launches on the card."""
     from enhance_cb_whisper_tpu_torch.audio.io import prepare_features
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda
 
-    rng = np.random.default_rng(SEED + 1)
-    waves = [(rng.standard_normal(int(16000 * s)) * 0.1).astype(np.float32) for s in (6.0, 21.0)]
-    results = {}
+    results, launches = {}, 0
     for dev in ("cpu", device):
-        cb = _tiny_pipeline(dev)
+        cb = make(dev)
+        if int8:
+            cb.enable_int8_spotting(calibration_batches=1, s8_1x1=("stage_1",))
+        matmul_s8_cuda.launches = 0
         spotted, preds = [], []
         for wav in waves:
             features, _ = prepare_features(wav, n_mels=80, device=dev)
             spotted.append(cb.spot_keywords(features))
             preds.append(cb.forward(features))
+        launches = matmul_s8_cuda.launches
         results[str(dev)] = (spotted, preds)
-    cpu, gpu = results["cpu"], results[str(device)]
+    return results["cpu"], results[str(device)], launches
+
+
+def phase_b_reference(device) -> None:
+    """CUDA path (kernels, cuBLAS/cuDNN fp32) vs the CPU path (plain
+    versions) of the same tiny model: identical keywords and transcripts,
+    with the fp32 scorer and with the int8 one on a K2-eligible ResNet."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.audio.io import prepare_features
+    from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
+    from enhance_cb_whisper_tpu_torch.models.whisper import encoder_kws_stack
+
+    rng = np.random.default_rng(SEED + 1)
+    waves = [(rng.standard_normal(int(16000 * s)) * 0.1).astype(np.float32) for s in (6.0, 21.0)]
+    cpu, gpu, _ = _tiny_runs(device, waves, _tiny_pipeline, int8=False)
     print(f"phase B reference: tiny model cpu vs cuda keywords={gpu[0]} transcripts equal={cpu[1] == gpu[1]}")
     if cpu != gpu:
         raise RuntimeError(f"CUDA path disagrees with the CPU path: {gpu} vs {cpu}")
 
+    # int8: stage_1 widths are 128-multiples, so its 1x1 convs take K2.  A
+    # random head decides all keywords alike; shift its class-1 bias into
+    # the widest gap between the fp32 margins (CPU, both waves), so the
+    # decisions differ by keyword and sit far from the threshold
+    k2_tiny = ResNetConfig(num_channels=2, embedding_size=32, hidden_sizes=(128, 512), depths=(1, 3))
+    cb = _tiny_pipeline("cpu", k2_tiny)
+    cb._ensure_catalog()
+    margins = []
+    with torch.no_grad():
+        for wav in waves:
+            stack = encoder_kws_stack(cb.encoder_params, prepare_features(wav, device="cpu")[0],
+                                      cb.encoder_config, layer_slice=cb.kws_layer_slice)
+            _, logits = cb._score_fn(cb._catalog_dev, stack[0], cb._utt_w)
+            margins.extend((logits[:6, 1] - logits[:6, 0]).tolist())
+    m = np.sort(margins)
+    inner = range(len(m) // 4, len(m) - len(m) // 4)
+    gap = max(inner, key=lambda i: m[i + 1] - m[i])
+    shift = float(m[gap] + m[gap + 1]) / 2
+    cpu, gpu, launches = _tiny_runs(
+        device, waves, lambda dev: _tiny_pipeline(dev, k2_tiny, class1_shift=shift), int8=True)
+    print(f"phase B reference int8: tiny model (K2-eligible ResNet, s8_1x1=stage_1) cpu vs cuda "
+          f"keywords={gpu[0]} transcripts equal={cpu[1] == gpu[1]}; class-1 shift {shift!r} in a "
+          f"margin gap of {float(m[gap + 1] - m[gap])!r}; K2 launches on the card {launches}")
+    if cpu != gpu:
+        raise RuntimeError(f"int8 CUDA path disagrees with the CPU path: {gpu} vs {cpu}")
+    if launches <= 0:
+        raise RuntimeError("the int8 CUDA path never launched K2")
 
-def phase_b_slice(device):
-    """The main path at whisper-medium widths; returns the K1 launch count
-    of exactly the run_test call."""
+
+def _medium_pipeline(device):
+    """whisper-medium + the 12-channel ResNet-50 scorer, random weights."""
     import torch
 
-    from enhance_cb_whisper_tpu_torch.audio.io import prepare_features
     from enhance_cb_whisper_tpu_torch.catalog.database import KeywordCatalog
     from enhance_cb_whisper_tpu_torch.convert import from_jax_whisper_params
     from enhance_cb_whisper_tpu_torch.decoding.generate import GenerationOptions
     from enhance_cb_whisper_tpu_torch.models.cb_whisper import CBWhisper, CBWhisperConfig
     from enhance_cb_whisper_tpu_torch.models.kws import init_kws_model
     from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
-    from enhance_cb_whisper_tpu_torch.models.whisper import (
-        WhisperConfig,
-        encoder_kws_stack,
-        init_whisper_params,
-    )
-    from enhance_cb_whisper_tpu_torch.ops import mel_cuda
+    from enhance_cb_whisper_tpu_torch.models.whisper import WhisperConfig, init_whisper_params
 
-    t0 = time.perf_counter()
     config = WhisperConfig()  # whisper-medium: 51865 vocab, d 1024, 24+24 layers, 16 heads
     rng = np.random.default_rng(SEED)
     params = from_jax_whisper_params(init_whisper_params(rng, config), device)
-    n_kw = 100
-    stacks = []
-    for _ in range(n_kw):
-        s = rng.standard_normal((12, int(rng.integers(4, 20)), config.d_model)).astype(np.float32)
-        stacks.append(s / np.linalg.norm(s, axis=-1, keepdims=True))
-    keywords = [f"kw{i}" for i in range(n_kw)]
+    stacks = _stacks(rng, N_KW, 12, lambda i: int(rng.integers(4, 20)), config.d_model)
+    keywords = [f"kw{i}" for i in range(N_KW)]
     kws = init_kws_model(ResNetConfig.from_version("resnet-50", num_channels=12),
                          torch.Generator().manual_seed(SEED))
     opts = GenerationOptions(
@@ -193,14 +368,54 @@ def phase_b_slice(device):
         decode_fn=lambda toks: " ".join(map(str, toks)),
         kws_layer_slice=(10, 22), device=device,
     )
-    torch.cuda.synchronize()
-    print(f"phase B: whisper-medium + ResNet-50 KWS built in {time.perf_counter() - t0:.1f} s")
+    return cb, config, opts, kws, stacks
 
-    # instrumentation: segments scored, keywords, tokens and the time of
-    # each stage, per utterance (each stage ends in a device synchronisation)
+
+def _drive_slice(cb, config, opts, dataset, device, label, int8_stages=None):
+    """Warm up, then ``run_test`` over ``dataset`` with each stage timed;
+    returns per-utterance marks and the launches of each kernel over
+    exactly the ``run_test`` call."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.audio.io import prepare_features
+    from enhance_cb_whisper_tpu_torch.models.whisper import encoder_kws_stack
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, mel_cuda
+
     scored, spotted, generated, marks = [], [], [], []
-    score_fn, score_to_keywords = cb._score_fn, cb._score_to_keywords
+    score_to_keywords = cb._score_to_keywords
     encode_and_spot, generate = cb.encode_and_spot, cb.generator.generate
+
+    def mel_fn(item):
+        marks.append({"start": time.perf_counter()})
+        out = prepare_features(item["audio"], n_mels=config.num_mel_bins, device=device)
+        torch.cuda.synchronize()
+        marks[-1]["mel_end"] = time.perf_counter()
+        return out
+
+    # a random head says "present" for every keyword or for none (keyword
+    # to keyword, its logit margin varies far less than its offset); centre
+    # its class-1 bias on the catalog's median margin over a warm-up
+    # utterance so the spotter passes some keywords and not others
+    warm = cb.generator._pad_segment(mel_fn(dataset[0])[0])
+    cb._ensure_catalog()
+    with torch.no_grad():
+        stack = encoder_kws_stack(cb.generator.params, warm, config, layer_slice=cb.kws_layer_slice)
+        _, logits = cb._score_fn(cb._catalog_dev, stack[0], cb._utt_w)
+        margin = logits[:N_KW, 1] - logits[:N_KW, 0]
+        cb.kws_model.model.classifier.bias[1] -= margin.median()
+    if int8_stages is not None:
+        # calibrate on the warm-up utterance: with the default of 4 and three
+        # utterances the int8 scorer would never take over
+        cb.enable_int8_spotting(calibration_batches=1, s8_1x1=int8_stages)
+    # warm-up utterance (cuBLAS/cuDNN handles and heuristics; int8
+    # calibration), not counted
+    cb.forward(warm)
+    torch.cuda.synchronize()
+    if int8_stages is not None and cb._int8_pending:
+        raise RuntimeError("int8 spotting did not calibrate on the warm-up utterance")
+    marks.clear()
+
+    score_fn = cb._score_fn
 
     def counted_score(catalog_dev, utt_stack, utt_w):
         probs, logits = score_fn(catalog_dev, utt_stack, utt_w)
@@ -234,6 +449,46 @@ def phase_b_slice(device):
     cb._score_fn, cb._score_to_keywords = counted_score, recorded_keywords
     cb.encode_and_spot, cb.generator.generate = timed_encode_and_spot, recorded_generate
 
+    mel_cuda.launches = 0
+    matmul_s8_cuda.launches = 0
+    t_run = time.perf_counter()
+    results = cb.run_test(dataset, mel_fn, num_bootstraps=100)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches}
+    del cb._score_to_keywords, cb.encode_and_spot, cb.generator.generate
+    cb._score_fn = score_fn
+
+    for i, (item, m) in enumerate(zip(dataset, marks)):
+        decode = m["end"] - m["spot_end"]
+        print(f"phase B {label}: utterance {i}: {len(item['audio']) / 16000:.2f} s audio, "
+              f"wall {m['end'] - m['start']!r} s = mel {m['mel_end'] - m['start']!r} s "
+              f"+ encode and spot {m['spot_end'] - m['spot_start']!r} s "
+              f"+ prefill and beam-5 decode {decode!r} s ({decode / max(generated[i], 1) * 1e3!r} ms "
+              f"per generated token); {generated[i]} generated tokens, "
+              f"{len(spotted[i])} keywords spotted {spotted[i][:5]}")
+    print(f"phase B {label}: run_test {t_end - t_run!r} s for {len(dataset)} utterances, of which "
+          f"entity recall and bootstrap CIs {t_end - marks[-1]['end']!r} s; entity recall "
+          f"{results['Entity Recall']!r} [{results['Entity Recall LB']!r}, {results['Entity Recall UB']!r}]; "
+          f"mel kernel launches {launches['mel']}; K2 launches {launches['k2']}; "
+          f"segments scored {len(scored)} x {scored[0] if scored else 0} keywords")
+    if launches["mel"] < len(dataset):
+        raise RuntimeError(f"mel kernel launched {launches['mel']} times for {len(dataset)} utterances")
+    if not (len(scored) == len(spotted) == len(generated) == len(marks) == len(dataset)):
+        raise RuntimeError("not every segment was scored and decoded")
+    return marks, launches, scored
+
+
+def phase_b_slice(device, k2_per_chunk: int):
+    """The main path at whisper-medium widths, fp32 then int8 scoring.
+    Returns (fp32 launches, int8 launches, ResNet-50 model, catalog stacks)."""
+    import torch
+
+    t0 = time.perf_counter()
+    cb, config, opts, kws, stacks = _medium_pipeline(device)
+    torch.cuda.synchronize()
+    print(f"phase B: whisper-medium + ResNet-50 KWS built in {time.perf_counter() - t0:.1f} s")
+
     rng = np.random.default_rng(SEED + 2)
     dataset = []
     for i, seconds in enumerate((5.5, 17.25, 29.75)):
@@ -241,57 +496,150 @@ def phase_b_slice(device):
         dataset.append({
             "audio": wav,
             "transcript": f"kw{i} appears in utterance {i}",
-            "hotword_labels": np.eye(n_kw, dtype=np.int64)[i],
+            "hotword_labels": np.eye(N_KW, dtype=np.int64)[i],
             "speaker": f"s{i % 2}",
         })
 
-    def mel_fn(item):
-        marks.append({"start": time.perf_counter()})
-        out = prepare_features(item["audio"], n_mels=config.num_mel_bins, device=device)
+    fp32_marks, fp32_launches, _ = _drive_slice(cb, config, opts, dataset, device, "fp32")
+    # the int8 slice's weights: residual-branch BNs no longer zero
+    _unzero_residual_bn(kws)
+    int8_marks, int8_launches, scored = _drive_slice(
+        cb, config, opts, dataset, device, "int8", int8_stages=S8_STAGES)
+    chunks = -(-scored[0] // CHUNK)
+    expected = k2_per_chunk * chunks * len(dataset)
+    for i, (f, q) in enumerate(zip(fp32_marks, int8_marks)):
+        print(f"phase B: utterance {i}: encode and spot int8 {q['spot_end'] - q['spot_start']!r} s "
+              f"vs fp32 {f['spot_end'] - f['spot_start']!r} s")
+    print(f"phase B int8: K2 launches over run_test {int8_launches['k2']} = {k2_per_chunk} per chunk "
+          f"x {chunks} chunks x {len(dataset)} segments expected {expected}")
+    if int8_launches["k2"] < expected:
+        raise RuntimeError(f"K2 launched {int8_launches['k2']} times, expected {expected}")
+    if fp32_launches["k2"] != 0:
+        raise RuntimeError("the fp32 scorer launched K2")
+    return fp32_launches, int8_launches, kws, stacks
+
+
+def _device_breakdown(label, fn) -> None:
+    """Device time of ``fn()`` by kernel family (torch.profiler) beside its
+    wall time: cuDNN convolutions, K2, GEMMs, the rest.  The second of two
+    profiled calls is read (the first pays the tracer's start-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
         torch.cuda.synchronize()
-        marks[-1]["mel_end"] = time.perf_counter()
-        return out
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    families = {"K2 matmul_s8_requant": 0.0, "convolutions (cuDNN)": 0.0,
+                "GEMMs (cuBLAS/CUTLASS, 1x1 convs among them)": 0.0, "other kernels": 0.0}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0)
+        name = evt.key.lower()
+        if "matmul_s8_requant" in name:
+            families["K2 matmul_s8_requant"] += us
+        elif "conv" in name or "cudnn" in name:
+            families["convolutions (cuDNN)"] += us
+        elif "gemm" in name or "cutlass" in name:
+            families["GEMMs (cuBLAS/CUTLASS, 1x1 convs among them)"] += us
+        else:
+            families["other kernels"] += us
+    device_ms = sum(families.values()) / 1e3
+    parts = ", ".join(f"{k} {v / 1e3!r} ms" for k, v in families.items())
+    print(f"{label}: wall {wall_ms!r} ms under the profiler, device {device_ms!r} ms "
+          f"(idle share {1 - device_ms / wall_ms!r}): {parts}")
 
-    # a random head says "present" for every keyword or for none (keyword
-    # to keyword, its logit margin varies far less than its offset); centre
-    # its class-1 bias on the catalog's median margin over a warm-up
-    # utterance so the spotter passes some keywords and not others
-    warm = cb.generator._pad_segment(mel_fn(dataset[0])[0])
-    cb._ensure_catalog()
+
+class _EvalSet:
+    """A KWS eval dataset: catalog + utterance stacks with labels."""
+
+    def __init__(self, catalog, items):
+        self.catalog, self.items = catalog, items
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+class _EvalModule:
+    def __init__(self, dataset):
+        self.test_dataset = dataset
+
+    def setup(self, stage):
+        pass
+
+
+def phase_d(device, kws, stacks, k2_per_chunk: int) -> dict:
+    """The paper-1 KWS eval at full width, fp32 then int8."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.catalog.database import KeywordCatalog
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda
+    from enhance_cb_whisper_tpu_torch.runtime.kws_engine import KWSEngine
+
+    rng = np.random.default_rng(SEED + 5)
+    catalog = KeywordCatalog.from_arrays([f"kw{i}" for i in range(N_KW)], stacks)
+    frames = np.linspace(300, 1500, 8).astype(int)
+    utts = _stacks(rng, len(frames), 12, lambda i: int(frames[i]), stacks[0].shape[-1])
+    items = []
+    for i, utt in enumerate(utts):
+        labels = np.zeros(N_KW, np.int64)
+        labels[rng.choice(N_KW, size=int(rng.integers(2, 6)), replace=False)] = 1
+        items.append({"utt_hs": utt, "hotword_labels": labels,
+                      "hotword_mask": catalog.mask[:N_KW].copy(), "speaker": f"s{i % 3}"})
+    dataset = _EvalSet(catalog, items)
+    module = _EvalModule(dataset)
+    engine = KWSEngine(kws.config, features_size=KWS_SIZE, device=device)
+    # centre the class-1 bias on this data's median margin (see phase B)
+    _, logits = engine.score_utterance(kws, dataset, utts[0])
     with torch.no_grad():
-        stack = encoder_kws_stack(cb.generator.params, warm, config, layer_slice=cb.kws_layer_slice)
-        _, logits = score_fn(cb._catalog_dev, stack[0], cb._utt_w)
-        margin = logits[:n_kw, 1] - logits[:n_kw, 0]
-        kws.model.classifier.bias[1] -= margin.median()
-    # warm-up utterance (cuBLAS/cuDNN handles and heuristics), not counted
-    cb.forward(warm)
-    torch.cuda.synchronize()
-    scored.clear(); spotted.clear(); generated.clear(); marks.clear()
+        kws.model.classifier.bias[1] -= float(np.median(logits[:, 1] - logits[:, 0]))
 
-    mel_cuda.launches = 0
-    t_run = time.perf_counter()
-    results = cb.run_test(dataset, mel_fn, num_bootstraps=100)
-    torch.cuda.synchronize()
-    t_end = time.perf_counter()
-    launches = mel_cuda.launches
-
-    for i, (item, m) in enumerate(zip(dataset, marks)):
-        decode = m["end"] - m["spot_end"]
-        print(f"phase B: utterance {i}: {len(item['audio']) / 16000:.2f} s audio, "
-              f"wall {m['end'] - m['start']!r} s = mel {m['mel_end'] - m['start']!r} s "
-              f"+ encode and spot {m['spot_end'] - m['spot_start']!r} s "
-              f"+ prefill and beam-5 decode {decode!r} s ({decode / max(generated[i], 1) * 1e3!r} ms "
-              f"per generated token); {generated[i]} generated tokens, "
-              f"{len(spotted[i])} keywords spotted {spotted[i][:5]}")
-    print(f"phase B: run_test {t_end - t_run!r} s for {len(dataset)} utterances, of which "
-          f"entity recall and bootstrap CIs {t_end - marks[-1]['end']!r} s; entity recall "
-          f"{results['Entity Recall']!r} [{results['Entity Recall LB']!r}, {results['Entity Recall UB']!r}]; "
-          f"mel kernel launches {launches}; segments scored {len(scored)} x {scored[0] if scored else 0} keywords")
-    if launches < len(dataset):
-        raise RuntimeError(f"mel kernel launched {launches} times for {len(dataset)} utterances")
-    if not (len(scored) == len(spotted) == len(generated) == len(marks) == len(dataset)):
-        raise RuntimeError("not every segment was scored and decoded")
-    return launches
+    out = {}
+    for mode in ("fp32", "int8"):
+        variables = kws
+        if mode == "int8":
+            t0 = time.perf_counter()
+            variables = engine.enable_int8_scoring(kws, dataset, calibration_batches=4,
+                                                   s8_1x1=S8_STAGES)
+            torch.cuda.synchronize()
+            print(f"phase D: int8 quantization + calibration on 4 utterances "
+                  f"{time.perf_counter() - t0!r} s")
+        engine._eval_dataset(variables, dataset)  # warm-up
+        torch.cuda.synchronize()
+        _device_breakdown(f"phase D {mode}: one utterance ({catalog.num_padded // CHUNK} chunks)",
+                          lambda: engine.score_utterance(variables, dataset, utts[-1]))
+        matmul_s8_cuda.launches = 0
+        t0 = time.perf_counter()
+        preds, targets, _, loss = engine._eval_dataset(variables, dataset)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = matmul_s8_cuda.launches
+        results = engine.test(variables, module)
+        if not (np.isfinite(preds).all() and preds.shape == (len(items) * N_KW,)
+                and all(np.isfinite(v) for v in results.values())):
+            raise RuntimeError(f"KWS eval {mode} produced invalid output")
+        out[mode] = (preds, results, launches)
+        print(f"phase D {mode}: P {results['Precision']!r} [{results['Precision_LB']!r}, "
+              f"{results['Precision_UB']!r}] R {results['Recall']!r} [{results['Recall_LB']!r}, "
+              f"{results['Recall_UB']!r}] F1 {results['F1']!r} [{results['F1_LB']!r}, "
+              f"{results['F1_UB']!r}]; loss {loss!r}; {seconds!r} s for {len(items)} utterances x "
+              f"{N_KW} keywords = {seconds / (len(items) * N_KW) * 1e3!r} ms per pair; "
+              f"K2 launches {launches}")
+    flips = float(np.mean((out["fp32"][0] >= 0.5) != (out["int8"][0] >= 0.5)))
+    expected = k2_per_chunk * -(-catalog.num_padded // CHUNK) * len(items)
+    print(f"phase D: decisions at 0.5 that flip between fp32 and int8: {flips!r} of "
+          f"{len(out['fp32'][0])} pairs; max |p_int8 - p_fp32| "
+          f"{float(np.abs(out['int8'][0] - out['fp32'][0]).max())!r}; K2 launches expected {expected}")
+    if out["int8"][2] < expected or out["fp32"][2] != 0:
+        raise RuntimeError(f"KWS eval K2 launches {out['int8'][2]}, expected {expected}")
+    return out
 
 
 def _median_ms(fn, reps: int = 25) -> float:
@@ -308,6 +656,24 @@ def _median_ms(fn, reps: int = 25) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _graph_ms(fn, calls: int = 10, reps: int = 15) -> float:
+    """Device time of one ``fn()``: ``calls`` calls captured in a CUDA graph,
+    median over ``reps`` replays, so host launch gaps are not timed."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return _median_ms(graph.replay, reps) / calls
 
 
 def phase_c(device):
@@ -331,6 +697,59 @@ def phase_c(device):
     return out
 
 
+def k1_bound_ms(n_samples: int = 480000, n_mels: int = 80):
+    """Least time of K1 at [1, n_samples]: DFT + power + filterbank FP32
+    operations over the FP32 peak, against audio in + mel out over HBM."""
+    frames, bins = n_samples // 160, 201
+    ops = frames * (400 * bins * 2 * 2 + bins * 3 + bins * n_mels * 2)
+    bytes_ = n_samples * 4 + frames * n_mels * 4
+    return max(ops / FP32_RATE, bytes_ / HBM_RATE) * 1e3, ops, bytes_
+
+
+def phase_c_k2(device, shapes):
+    """K2 and its plain version at each shape of a chunk: device time (CUDA
+    graph) and eager wrapper time, summed over the chunk's 22 launches;
+    the byte and operation bound of the same work.  No single PyTorch call
+    computes an s8 matmul with this requant epilogue: no library time."""
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda
+    from enhance_cb_whisper_tpu_torch.ops.matmul_s8 import matmul_s8_requant_plain
+
+    rng = np.random.default_rng(SEED + 6)
+    totals = {"ms": 0.0, "plain_ms": 0.0, "eager_ms": 0.0, "plain_eager_ms": 0.0,
+              "bound_ms": 0.0, "ops": 0, "bytes": 0}
+    per_shape = {}
+    for shape in shapes:
+        per_shape.setdefault(shape, 0)
+        per_shape[shape] += 1
+    for (m, k, n, residual), count in per_shape.items():
+        x, w, scale, bias, res = _k2_inputs(rng, m, k, n, residual, device)
+        kernel = lambda: matmul_s8_cuda.matmul_s8_requant(x, w, scale, bias, **res)  # noqa: E731
+        plain = lambda: matmul_s8_requant_plain(x, w, scale, bias, **res)  # noqa: E731
+        p1, k1, k2, p2 = (_graph_ms(f) for f in (plain, kernel, kernel, plain))
+        ms, plain_ms = statistics.median([k1, k2]), statistics.median([p1, p2])
+        eager, plain_eager = _median_ms(kernel), _median_ms(plain)
+        ops = 2 * m * n * k
+        bytes_ = m * k + k * n + m * n + 2 * 4 * n + ((m * n + 4 * n) if residual else 0)
+        bound = max(ops / INT8_RATE, bytes_ / HBM_RATE) * 1e3
+        line = (f"phase C: K2 (M, K, N)={(m, k, n)} residual={residual} x{count} per chunk: "
+                f"device {ms!r} ms ({k1!r}, {k2!r}), plain {plain_ms!r} ms ({p1!r}, {p2!r}) "
+                f"[CUDA-graph replays]; eager wrapper {eager!r} ms, plain {plain_eager!r} ms; "
+                f"bound {bound!r} ms ({bytes_} B, {ops} int8 ops)")
+        print(line)
+        totals["ms"] += ms * count
+        totals["plain_ms"] += plain_ms * count
+        totals["eager_ms"] += eager * count
+        totals["plain_eager_ms"] += plain_eager * count
+        totals["bound_ms"] += bound * count
+        totals["ops"] += ops * count
+        totals["bytes"] += bytes_ * count
+    print(f"phase C: K2 per chunk of {CHUNK} maps ({len(shapes)} launches): device {totals['ms']!r} ms, "
+          f"plain {totals['plain_ms']!r} ms; eager {totals['eager_ms']!r} ms, plain eager "
+          f"{totals['plain_eager_ms']!r} ms; bound {totals['bound_ms']!r} ms "
+          f"({totals['bytes']} B, {totals['ops']} int8 ops: bytes-bound)")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -342,16 +761,22 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
 
-    from enhance_cb_whisper_tpu_torch.ops import mel_cuda
+    from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
 
-    t0 = time.perf_counter()
-    mel_cuda.build()
-    print(f"build: {KERNEL_SOURCE} compiled and loaded in {time.perf_counter() - t0:.1f} s")
+    t_start = time.perf_counter()
+    build_kernels()
+    shapes = k2_launch_shapes(ResNetConfig.from_version("resnet-50", num_channels=12))
 
     max_abs_err = phase_a(device)
+    mismatches, k2_err = phase_a2(device, shapes)
     phase_b_reference(device)
-    launches = phase_b_slice(device)
+    fp32_launches, int8_launches, kws, stacks = phase_b_slice(device, len(shapes))
+    phase_d(device, kws, stacks, len(shapes))
     times = phase_c(device)
+    k2 = phase_c_k2(device, shapes)
+    k1_bound, _, _ = k1_bound_ms()
+    print(f"phase C: K1 bound at [1, 480000] {k1_bound!r} ms (FP32 operations)")
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -359,10 +784,15 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi)
     ms, plain_ms = times[1]
-    print(json.dumps({"kernels": [{
-        "name": "log10_mel", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": launches, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-    }]}))
+    print(json.dumps({"kernels": [
+        {"name": "log10_mel", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
+         "launches": fp32_launches["mel"], "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": k1_bound, "bound_by": "operations", "library_ms": None},
+        {"name": "matmul_s8_requant", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+         "launches": int8_launches["k2"], "max_abs_err": k2_err, "mismatches": mismatches,
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

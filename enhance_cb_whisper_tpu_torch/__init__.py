@@ -4,11 +4,15 @@ The JAX package beside it is the reference: every module here mirrors the
 path and name of its JAX counterpart (``ops/mel.py`` ↔ ``ops/mel.py``, ...)
 and is held against it by ``tests/test_torch_*.py``.
 
-This first slice covers the shortform CB-Whisper main path on one NVIDIA
-H100: mel front end (hand-written CUDA kernel ``csrc/mel.cu``) → Whisper
-encoder → catalog keyword spotting → biased beam/greedy decode → entity
-recall.  The package imports torch and numpy, never jax, flax or the JAX
-package: the numpy-only helpers it needs are copied in.
+Slice 1 covers the shortform CB-Whisper main path on one NVIDIA H100: mel
+front end (hand-written CUDA kernel ``csrc/mel.cu``) → Whisper encoder →
+catalog keyword spotting → biased beam/greedy decode → entity recall.
+Slice 2 adds int8 keyword spotting (``models/quant.py``, whose bottleneck
+1×1 convolutions run the hand-written kernel ``csrc/matmul_s8.cu``) for
+CB-Whisper and the paper-1 KWS eval (``runtime/kws_engine.py``).  Entry
+points run on the card unless the caller passes ``device="cpu"``.  The
+package imports torch and numpy, never jax, flax or the JAX package: the
+numpy-only helpers it needs are copied in.
 """
 
 __version__ = "0.1.0"

@@ -48,7 +48,7 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
 
 
 def prepare_features(
-    waveform: np.ndarray, n_mels: int = 80, device="cpu"
+    waveform: np.ndarray, n_mels: int = 80, device="cuda"
 ) -> Tuple[torch.Tensor, np.ndarray]:
     """(input_features [1, n_mels, T] on ``device``, frame attention mask
     [1, T]): <=30 s audio is padded/truncated to exactly 30 s; longer audio

@@ -35,6 +35,7 @@ class KeywordCatalog:
     hs: np.ndarray  # [N_pad, L, T_k_max, D] zero-padded
     frames: np.ndarray  # [N_pad] int, true frame count (>=1)
     mask: np.ndarray  # [N_pad] 1.0 = real non-ghost keyword
+    group_size: int = 100  # the reference's keywords per group (per-group loss)
 
     @property
     def num_keywords(self) -> int:
@@ -84,8 +85,51 @@ class KeywordCatalog:
         return w
 
 
+def calibration_sim_maps(
+    catalog: KeywordCatalog,
+    utt_stack: np.ndarray,  # [L, T_u, D] L2-normalized
+    out_size: Tuple[int, int] = (150, 750),
+    n: int = 8,
+) -> np.ndarray:
+    """[n, L, out_h, out_w] real similarity maps of the first ``n`` non-ghost
+    keywords vs one utterance — the representative inputs for int8
+    activation-scale calibration (:mod:`..models.quant`).  Host-side numpy
+    replica of the scorer's fold-resize-into-matmul math: the JAX package's
+    einsums, written as batched BLAS matmuls (f32 sums in another order)."""
+    out_h, out_w = out_size
+    utt_stack = np.asarray(utt_stack, np.float32)
+    utt_r = resize_matrix(utt_stack.shape[1], out_w, antialias=False) @ utt_stack  # [L, out_w, D]
+    utt_t = np.ascontiguousarray(utt_r.transpose(0, 2, 1))  # [L, D, out_w]
+    maps = []
+    for i in range(catalog.num_padded):
+        if catalog.mask[i] == 0:
+            continue
+        t = int(catalog.frames[i])
+        kw_r = resize_matrix(t, out_h, antialias=False) @ catalog.hs[i, :, :t]  # [L, out_h, D]
+        maps.append(kw_r @ utt_t)
+        if len(maps) == n:
+            break
+    if not maps:
+        raise ValueError("catalog has no non-ghost keywords to calibrate on")
+    return np.stack(maps).astype(np.float32)
+
+
+def calibration_sim_maps_multi(
+    catalog: KeywordCatalog,
+    utt_stacks,  # sequence of [L, T_u, D] stacks
+    out_size: Tuple[int, int] = (150, 750),
+    n_per_utt: int = 8,
+) -> np.ndarray:
+    """Calibration maps over several utterances or segments: the static
+    scale is a max over every (keyword, utterance) pair, so more
+    calibration batches can only widen it."""
+    return np.concatenate(
+        [calibration_sim_maps(catalog, np.asarray(u), out_size, n=n_per_utt) for u in utt_stacks]
+    )
+
+
 def device_put_catalog(catalog: KeywordCatalog, out_h: int = 150, chunk: int = 100,
-                       device="cpu") -> dict:
+                       device="cuda") -> dict:
     """Pad the catalog to a chunk multiple and move it to ``device``."""
     n_pad = _round_up(catalog.num_padded, chunk)
     extra = n_pad - catalog.num_padded

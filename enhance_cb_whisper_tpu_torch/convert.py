@@ -9,8 +9,15 @@
   (``params`` + ``batch_stats``; NHWC convs with ``[kh, kw, in, out]``
   kernels) → a ``state_dict`` for :class:`.models.kws.KWSModel` (NCHW,
   ``[out, in, kh, kw]``).
+* :func:`from_jax_quantized_params` — the JAX int8 ResNet pytree
+  (``models/quant.py``: per conv ``wq`` int8 ``[kh, kw, in, out]``, ``s_w``
+  and ``b`` f32 ``[out]``; the head's ``kernel``/``bias``; optional
+  ``act_scales``) → the same tree on ``device`` with ``wq`` as
+  ``[out, in, kh, kw]``.
 
-Inputs are numpy arrays (or anything ``np.asarray`` accepts).
+Inputs are numpy arrays (or anything ``np.asarray`` accepts).  The
+functions that place tensors put them on the card unless the caller asks
+for another device.
 """
 
 from __future__ import annotations
@@ -61,7 +68,7 @@ def _convert_tree(tree: Any, name: Optional[str], device) -> Any:
     return torch.tensor(np.asarray(tree, dtype=np.float32), device=device)
 
 
-def from_jax_whisper_params(params: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+def from_jax_whisper_params(params: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """JAX Whisper params (stacked or unstacked) → torch params on ``device``."""
     return {side: _convert_tree(params[side], side, device) for side in ("encoder", "decoder")}
 
@@ -103,3 +110,24 @@ def from_flax_resnet_variables(variables: Dict[str, Any]) -> Dict[str, torch.Ten
             raise ValueError(f"unexpected flax batch statistic {path}")
         state[f"{module}.{names[leaf]}"] = torch.tensor(arr)
     return state
+
+
+def from_jax_quantized_params(qparams: Mapping, device="cuda") -> Dict[str, Any]:
+    """JAX int8 ResNet pytree → the port's (:mod:`.models.quant`) on ``device``."""
+    out: Dict[str, Any] = {}
+    for key, value in qparams.items():
+        if key == "act_scales":
+            out[key] = {site: float(s) for site, s in value.items()}
+        elif key == "classifier":
+            out[key] = {k: torch.tensor(np.asarray(v, np.float32), device=device)
+                        for k, v in value.items()}
+        elif "wq" in value:
+            wq = np.asarray(value["wq"], np.int8).transpose(3, 2, 0, 1)
+            out[key] = {
+                "wq": torch.from_numpy(np.ascontiguousarray(wq)).to(device),
+                "s_w": torch.tensor(np.asarray(value["s_w"], np.float32), device=device),
+                "b": torch.tensor(np.asarray(value["b"], np.float32), device=device),
+            }
+        else:
+            out[key] = from_jax_quantized_params(value, device)
+    return out

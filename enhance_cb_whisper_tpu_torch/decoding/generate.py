@@ -88,7 +88,7 @@ class WhisperGenerator:
     ``params`` is the torch parameter dict of :mod:`..models.whisper`
     (:func:`..convert.from_jax_whisper_params`), already on ``device``."""
 
-    def __init__(self, config: WhisperConfig, params: Dict[str, Any], device="cpu"):
+    def __init__(self, config: WhisperConfig, params: Dict[str, Any], device="cuda"):
         self.config = config
         self.params = params
         self.device = torch.device(device)

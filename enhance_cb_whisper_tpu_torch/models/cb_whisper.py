@@ -6,6 +6,8 @@ stack (keyword spotting) and the encoding that feeds cross-attention (when
 the KWS encoder is the ASR encoder); the whole catalog is scored against the
 stack; class-1 argmax keywords become the decoder prompt; beam search
 decodes; entity recall and bootstrap CIs are computed at the end.
+:meth:`CBWhisper.enable_int8_spotting` swaps the fp32 ResNet scorer for
+the int8 one after a lazy calibration on the first segments.
 
 Deviation from the JAX package: spotting has NO broad ``except Exception``
 (JAX cb_whisper.py:333-336, :350-352).  A failing encoder, scorer or kernel
@@ -22,12 +24,18 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..catalog.database import KeywordCatalog, device_put_catalog, make_catalog_score_fn
+from ..catalog.database import (
+    KeywordCatalog,
+    calibration_sim_maps_multi,
+    device_put_catalog,
+    make_catalog_score_fn,
+)
 from ..decoding.generate import GenerationOptions, WhisperGenerator
 from ..metrics import entity_recall, evaluate_with_conf_int
 from ..ops.resize import resize_matrix
 from ..runtime.profiler import RTFxMeter
 from .kws import KWSModel
+from .quant import calibrate_act_scales, make_quantized_kws_apply, quantize_resnet_classifier
 from .whisper import WhisperConfig, encoder_kws_stack
 
 
@@ -57,11 +65,12 @@ class CBWhisper:
         encoder_params: Optional[Dict[str, Any]] = None,
         encoder_config: Optional[WhisperConfig] = None,
         kws_layer_slice: Tuple[int, int] = (10, 22),
-        device="cpu",
+        device="cuda",
     ):
         """``whisper_params``/``encoder_params`` are torch parameter dicts on
         ``device`` (:func:`..convert.from_jax_whisper_params`); ``kws_model``
-        is moved to ``device`` and put in eval mode."""
+        is moved to ``device`` and put in eval mode.  The card is the
+        default: a CPU run passes ``device="cpu"``."""
         self.config = config
         self.whisper_config = whisper_config
         self.device = torch.device(device)
@@ -84,6 +93,7 @@ class CBWhisper:
         self._score_fn = make_catalog_score_fn(
             lambda images: self.kws_model(images).logits, out_size=config.kws_features_size
         )
+        self._int8_pending = False
         self._catalog_dev = None
         self._utt_w = torch.from_numpy(
             resize_matrix(self.encoder_config.max_source_positions,
@@ -98,9 +108,51 @@ class CBWhisper:
                 self.catalog, out_h=self.config.kws_features_size[0], chunk=8, device=self.device
             )
 
+    def enable_int8_spotting(self, calibration_batches: int = 4, s8_1x1=()):
+        """Switch per-segment keyword spotting to the int8 quantized ResNet
+        (:mod:`.quant`).  Calibration is lazy: the stacks of the first
+        ``calibration_batches`` scored segments are kept, and the segments
+        scored before that set is full go through the fp32 scorer; the
+        segment that fills it sets the static activation scales (maxes over
+        all of them) and is the first the int8 scorer scores.  ``s8_1x1``
+        names the stages whose bottleneck 1×1 convs run the fused s8 kernel
+        (the JAX package reads that set from ``ECW_S8_PALLAS``)."""
+        self._int8_pending = True
+        self._int8_calibration_batches = max(1, int(calibration_batches))
+        self._int8_calib_stacks: List[np.ndarray] = []
+        self._int8_s8_1x1 = tuple(s8_1x1)
+
+    @staticmethod
+    def _calib_rows(n_seg: int, needed: int) -> List[int]:
+        """Indices of the segments that feed a pending int8 calibration."""
+        return list(range(n_seg))[:needed]
+
+    def _calibrate_int8(self, utt_stacks) -> None:
+        rcfg = self.kws_model.config
+        qparams = quantize_resnet_classifier(self.kws_model, rcfg, device=self.device)
+        maps = calibration_sim_maps_multi(self.catalog, utt_stacks, self.config.kws_features_size)
+        scales = calibrate_act_scales(rcfg, qparams, maps)["act_scales"]
+        q_apply = make_quantized_kws_apply(rcfg, act_scales=scales, s8_1x1=self._int8_s8_1x1)
+        self.kws_qparams = qparams
+        self._score_fn = make_catalog_score_fn(
+            lambda images: q_apply(qparams, images), out_size=self.config.kws_features_size
+        )
+        self._int8_pending = False
+
     def _score_to_keywords(self, stacks: torch.Tensor) -> List[List[str]]:
         """Catalog scoring + argmax-class-1 dedupe, per segment of ``stacks``
         [n_seg, L, T_enc, D]."""
+        if self._int8_pending:
+            # keep segment stacks; fp32 scores them until the calibration
+            # set is full, then the quantized scorer takes over (this
+            # segment included)
+            needed = self._int8_calibration_batches - len(self._int8_calib_stacks)
+            rows = self._calib_rows(stacks.shape[0], needed)
+            if rows:
+                self._int8_calib_stacks.extend(stacks[rows].cpu().numpy())
+            if len(self._int8_calib_stacks) >= self._int8_calibration_batches:
+                self._calibrate_int8(self._int8_calib_stacks)
+                self._int8_calib_stacks = []
         n = self.catalog.num_keywords
         mask = self.catalog.mask[:n].astype(bool)
         out = []

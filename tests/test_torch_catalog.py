@@ -120,7 +120,7 @@ def test_catalog_scorer_matches_jax(kind, out_size):
                                 jnp.asarray(utt), jnp.asarray(utt_w))
     t_score = make_catalog_score_fn(lambda x: tmodel(x).logits, out_size=out_size)
     with torch.no_grad():
-        t_probs, t_logits = t_score(device_put_catalog(tcat, out_h=out_size[0], chunk=8),
+        t_probs, t_logits = t_score(device_put_catalog(tcat, out_h=out_size[0], chunk=8, device="cpu"),
                                     torch.from_numpy(utt), torch.from_numpy(utt_w))
     np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(t_probs.numpy(), np.asarray(j_probs), rtol=RTOL, atol=ATOL)

@@ -78,10 +78,10 @@ def pipelines():
     )
     port_cb = CBWhisper(
         config=CBWhisperConfig(kws_features_size=OUT), whisper_config=WhisperConfig(**CFG),
-        whisper_params=from_jax_whisper_params(params),
+        whisper_params=from_jax_whisper_params(params, device="cpu"),
         kws_model=KWSModel(ResNetConfig(**RESNET)).load_converted(from_flax_resnet_variables(variables)),
         catalog=KeywordCatalog.from_arrays(KEYWORDS, stacks), generation_options=GenerationOptions(**OPTS),
-        prompt_ids_fn=prompt_ids_fn, decode_fn=decode_fn, kws_layer_slice=(1, 3),
+        prompt_ids_fn=prompt_ids_fn, decode_fn=decode_fn, kws_layer_slice=(1, 3), device="cpu",
     )
     return jax_cb, port_cb
 
@@ -109,7 +109,7 @@ def test_run_test_matches_jax(pipelines):
     # keyword spotting decisions, per utterance
     port_spotted, jax_spotted = [], []
     for item in dataset:
-        port_spotted.append(port_cb.spot_keywords(prepare_features(item["audio"])[0]))
+        port_spotted.append(port_cb.spot_keywords(prepare_features(item["audio"], device="cpu")[0]))
         jax_spotted.append(jax_cb.spot_keywords(jax_prepare_features(item["audio"])[0]))
     assert port_spotted == jax_spotted
     assert any(kw for spotted in port_spotted for kw in spotted), "no keyword spotted: vacuous prompt"
@@ -117,7 +117,7 @@ def test_run_test_matches_jax(pipelines):
     jax_preds, port_preds = [], []
     want = jax_cb.run_test(dataset, lambda item: jax_prepare_features(item["audio"]),
                            num_bootstraps=20, predictions_out=jax_preds)
-    got = port_cb.run_test(dataset, lambda item: prepare_features(item["audio"]),
+    got = port_cb.run_test(dataset, lambda item: prepare_features(item["audio"], device="cpu"),
                            num_bootstraps=20, predictions_out=port_preds)
     assert port_preds == jax_preds
     assert all(pred for pred in port_preds)
@@ -135,7 +135,7 @@ def test_oracle_prompts_match_jax(pipelines, oracle):
     preds = {}
     for name, cb, mel_fn in (
         ("jax", jax_cb, lambda item: jax_prepare_features(item["audio"])),
-        ("port", port_cb, lambda item: prepare_features(item["audio"])),
+        ("port", port_cb, lambda item: prepare_features(item["audio"], device="cpu")),
     ):
         cb.config.oracle = oracle
         try:

@@ -83,7 +83,7 @@ def test_top_k_contract_matches_lax():
 def generators():
     jcfg, tcfg = jw.WhisperConfig(**CFG), tw.WhisperConfig(**CFG)
     params = jw.init_whisper_params(np.random.default_rng(0), jcfg)
-    return jcfg, tcfg, JaxGenerator(jcfg, params), WhisperGenerator(tcfg, from_jax_whisper_params(params))
+    return jcfg, tcfg, JaxGenerator(jcfg, params), WhisperGenerator(tcfg, from_jax_whisper_params(params, device="cpu"), device="cpu")
 
 
 @pytest.mark.parametrize("num_beams", [1, 5], ids=["greedy", "beam5"])
@@ -105,7 +105,7 @@ def test_search_token_exact_over_seeds(generators, num_beams):
         params = jw.init_whisper_params(np.random.default_rng(seed), jcfg)
         params["decoder"]["embed_tokens"]["weight"][2] *= eos_scale
         jgen.swap_params(params)
-        tgen.params = from_jax_whisper_params(params)
+        tgen.params = from_jax_whisper_params(params, device="cpu")
         mel = np.random.default_rng(10 + seed).standard_normal((2, 80, 3000)).astype(np.float32)
         j_xkv = jgen._cross_kv_fn(jgen._encode(jnp.asarray(mel)))
         t_xkv = tgen._cross_kv_fn(tgen._encode(torch.from_numpy(mel)))
@@ -129,7 +129,7 @@ def test_generate_shortform_matches_jax(generators, language):
     jcfg, tcfg, jgen, tgen = generators
     params = jw.init_whisper_params(np.random.default_rng(4), jcfg)
     jgen.swap_params(params)
-    tgen.params = from_jax_whisper_params(params)
+    tgen.params = from_jax_whisper_params(params, device="cpu")
     mel = np.random.default_rng(5).standard_normal((1, 80, 1234)).astype(np.float32)
 
     def spot(input_features, start_of_prev=False):

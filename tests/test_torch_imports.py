@@ -1,7 +1,8 @@
 """The port stands without JAX: every module of enhance_cb_whisper_tpu_torch
 imports in a fresh interpreter with neither jax, flax nor the JAX package
-(enhance_cb_whisper_tpu) loaded, and the mel kernel's wrapper takes its
-plain version for CPU tensors without counting a launch."""
+(enhance_cb_whisper_tpu) loaded; each kernel's wrapper takes its plain
+version for CPU tensors without counting a launch; and the entry points
+place their work on the card unless the caller asks for the CPU."""
 
 import os
 import pkgutil
@@ -9,10 +10,12 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 import enhance_cb_whisper_tpu_torch
-from enhance_cb_whisper_tpu_torch.ops import mel_cuda
+from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, mel_cuda
+from enhance_cb_whisper_tpu_torch.ops.matmul_s8 import matmul_s8_requant, matmul_s8_requant_plain
 from enhance_cb_whisper_tpu_torch.ops.mel import log10_mel_plain
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -53,3 +56,64 @@ def test_mel_wrapper_on_cpu_is_the_plain_version():
     assert mel_cuda.launches == before == 0
     torch.testing.assert_close(got, log10_mel_plain(audio, 80), rtol=0, atol=0)
     assert got.shape == (2, 80, 200)
+
+
+def test_matmul_s8_wrapper_on_cpu_is_the_plain_version():
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.integers(-127, 128, (40, 256)).astype(np.int8))
+    w_nk = torch.from_numpy(rng.integers(-127, 128, (128, 256)).astype(np.int8))
+    scale = torch.from_numpy((rng.uniform(0.5, 2.0, 128) * 1e-4).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 0.5, 128).astype(np.float32))
+    res = dict(residual=torch.from_numpy(rng.integers(-127, 128, (40, 128)).astype(np.int8)),
+               res_scale=torch.tensor(1.5e-3))
+    before = matmul_s8_cuda.launches
+    # w as the [K, N] view of a [N, K] tensor, as the int8 ResNet passes it
+    got = matmul_s8_cuda.matmul_s8_requant(x, w_nk.t(), scale, bias, relu=False, **res)
+    routed = matmul_s8_requant(x, w_nk.t(), scale, bias, relu=False, **res)
+    assert matmul_s8_cuda.launches == before == 0
+    want = matmul_s8_requant_plain(x, w_nk.t().contiguous(), scale, bias, relu=False, **res)
+    assert got.dtype == torch.int8 and got.shape == (40, 128)
+    assert torch.equal(got, want) and torch.equal(routed, want)
+    assert len(torch.unique(got)) > 10
+
+
+def test_entry_points_default_to_the_card():
+    """Without ``device`` the entry points target CUDA: on a machine with
+    no card they raise instead of quietly running on the CPU."""
+    from enhance_cb_whisper_tpu_torch.audio.io import prepare_features
+    from enhance_cb_whisper_tpu_torch.catalog.database import KeywordCatalog, device_put_catalog
+    from enhance_cb_whisper_tpu_torch.convert import from_jax_quantized_params, from_jax_whisper_params
+    from enhance_cb_whisper_tpu_torch.decoding.generate import GenerationOptions, WhisperGenerator
+    from enhance_cb_whisper_tpu_torch.models.cb_whisper import CBWhisper, CBWhisperConfig
+    from enhance_cb_whisper_tpu_torch.models.kws import KWSModel
+    from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
+    from enhance_cb_whisper_tpu_torch.models.whisper import WhisperConfig
+    from enhance_cb_whisper_tpu_torch.runtime.kws_engine import KWSEngine
+
+    cfg = WhisperConfig(vocab_size=16, d_model=8, encoder_layers=1, decoder_layers=1,
+                        encoder_attention_heads=2, decoder_attention_heads=2,
+                        encoder_ffn_dim=8, decoder_ffn_dim=8)
+    params = {"encoder": {"w": np.zeros(2, np.float32)}, "decoder": {"w": np.zeros(2, np.float32)}}
+    stack = np.ones((2, 3, 8), np.float32)
+    catalog = KeywordCatalog.from_arrays(["kw"], [stack])
+    calls = {
+        "prepare_features": lambda: prepare_features(np.zeros(1600, np.float32)),
+        "from_jax_whisper_params": lambda: from_jax_whisper_params(params),
+        "from_jax_quantized_params": lambda: from_jax_quantized_params(
+            {"classifier": {"bias": np.zeros(2, np.float32)}}),
+        "device_put_catalog": lambda: device_put_catalog(catalog, out_h=4, chunk=8),
+        "CBWhisper": lambda: CBWhisper(
+            CBWhisperConfig(), cfg, from_jax_whisper_params(params, device="cpu"),
+            KWSModel(ResNetConfig(num_channels=2, embedding_size=8, hidden_sizes=(8,), depths=(1,))),
+            catalog, GenerationOptions(), lambda text: [], lambda toks: ""),
+    }
+    assert WhisperGenerator(cfg, {}).device.type == "cuda"
+    assert KWSEngine().device.type == "cuda"
+    for name, call in calls.items():
+        if torch.cuda.is_available():
+            call()
+        else:
+            with pytest.raises(AssertionError, match="CUDA"):
+                call()
+    # the CPU when the caller asks for it
+    assert prepare_features(np.zeros(1600, np.float32), device="cpu")[0].device.type == "cpu"

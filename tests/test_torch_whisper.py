@@ -49,7 +49,7 @@ def models():
 
     jitter(params)
     jparams = jw.stack_whisper_params(params)
-    return jcfg, tcfg, params, jparams, from_jax_whisper_params(params)
+    return jcfg, tcfg, params, jparams, from_jax_whisper_params(params, device="cpu")
 
 
 def _mel(batch, seed):
@@ -81,7 +81,7 @@ def test_converter_layouts_and_stacked_input(models):
         params["encoder"]["conv2"]["weight"].transpose(2, 1, 0),
     )
     # the stacked (scan) layout converts to the same tensors
-    stacked = from_jax_whisper_params(jax.tree.map(np.asarray, jparams))
+    stacked = from_jax_whisper_params(jax.tree.map(np.asarray, jparams), device="cpu")
     want, got = _leaves(tparams), _leaves(stacked)
     assert want.keys() == got.keys()
     for path, tensor in want.items():
