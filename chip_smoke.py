@@ -14,7 +14,8 @@ A2. holds the fused s8 matmul + requant kernel K2 (csrc/matmul_s8.cu)
     against its plain version at every shape the int8 ResNet-50 scorer
     gives it (22 launches per chunk of 8 keyword maps at 150x750, 9
     distinct shapes) and a ragged M, with ReLU on and off, with and
-    without a residual: zero differing int8 codes allowed;
+    without a residual: zero differing int8 codes allowed; the int8 runs
+    of B and D record the shapes they launch and must launch exactly these;
 B.  checks the CUDA path against the CPU path on a tiny random CB-Whisper,
     in fp32 and with int8 spotting on a K2-eligible ResNet (identical
     keywords and transcripts, K2 launched on the card), then drives the
@@ -42,6 +43,7 @@ there is no CPU fallback.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -209,6 +211,40 @@ def phase_a2(device, shapes):
     if total:
         raise RuntimeError(f"K2 disagrees with its plain version in {total} codes")
     return total, worst
+
+
+@contextlib.contextmanager
+def _recorded_k2_shapes():
+    """Records (M, K, N, residual) of every K2 wrapper call made inside the
+    block; the real wrapper still runs and counts its launch."""
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda
+
+    real, seen = matmul_s8_cuda.matmul_s8_requant, set()
+
+    def recorded(x, w, scale, bias, **kwargs):
+        seen.add((int(x.shape[0]), int(x.shape[1]), int(w.shape[1]), kwargs.get("residual") is not None))
+        return real(x, w, scale, bias, **kwargs)
+
+    matmul_s8_cuda.matmul_s8_requant = recorded
+    try:
+        yield seen
+    finally:
+        matmul_s8_cuda.matmul_s8_requant = real
+
+
+def _check_k2_main_path(label, launches, shapes, chunks: int, what: str) -> None:
+    """K2 launched exactly ``len(shapes)`` times per chunk over the main
+    path's run, and at exactly the shapes phase A2 held against the plain
+    version."""
+    expected = len(shapes) * chunks
+    print(f"{label}: K2 launches {launches['k2']} = {len(shapes)} per chunk x {what} expected "
+          f"{expected}; {len(launches['k2_shapes'])} distinct launch shapes, all checked in phase A2: "
+          f"{launches['k2_shapes'] == set(shapes)}")
+    if launches["k2"] != expected:
+        raise RuntimeError(f"{label}: K2 launched {launches['k2']} times, expected {expected}")
+    if launches["k2_shapes"] != set(shapes):
+        raise RuntimeError(f"{label}: K2 launch shapes {sorted(launches['k2_shapes'])} differ from "
+                           f"those phase A2 checked {sorted(set(shapes))}")
 
 
 def _unzero_residual_bn(kws, value: float = 0.2) -> None:
@@ -452,10 +488,11 @@ def _drive_slice(cb, config, opts, dataset, device, label, int8_stages=None):
     mel_cuda.launches = 0
     matmul_s8_cuda.launches = 0
     t_run = time.perf_counter()
-    results = cb.run_test(dataset, mel_fn, num_bootstraps=100)
-    torch.cuda.synchronize()
+    with _recorded_k2_shapes() as k2_shapes:
+        results = cb.run_test(dataset, mel_fn, num_bootstraps=100)
+        torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches}
+    launches = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches, "k2_shapes": k2_shapes}
     del cb._score_to_keywords, cb.encode_and_spot, cb.generator.generate
     cb._score_fn = score_fn
 
@@ -479,7 +516,7 @@ def _drive_slice(cb, config, opts, dataset, device, label, int8_stages=None):
     return marks, launches, scored
 
 
-def phase_b_slice(device, k2_per_chunk: int):
+def phase_b_slice(device, shapes):
     """The main path at whisper-medium widths, fp32 then int8 scoring.
     Returns (fp32 launches, int8 launches, ResNet-50 model, catalog stacks)."""
     import torch
@@ -506,14 +543,11 @@ def phase_b_slice(device, k2_per_chunk: int):
     int8_marks, int8_launches, scored = _drive_slice(
         cb, config, opts, dataset, device, "int8", int8_stages=S8_STAGES)
     chunks = -(-scored[0] // CHUNK)
-    expected = k2_per_chunk * chunks * len(dataset)
     for i, (f, q) in enumerate(zip(fp32_marks, int8_marks)):
         print(f"phase B: utterance {i}: encode and spot int8 {q['spot_end'] - q['spot_start']!r} s "
               f"vs fp32 {f['spot_end'] - f['spot_start']!r} s")
-    print(f"phase B int8: K2 launches over run_test {int8_launches['k2']} = {k2_per_chunk} per chunk "
-          f"x {chunks} chunks x {len(dataset)} segments expected {expected}")
-    if int8_launches["k2"] < expected:
-        raise RuntimeError(f"K2 launched {int8_launches['k2']} times, expected {expected}")
+    _check_k2_main_path("phase B int8", int8_launches, shapes, chunks * len(dataset),
+                        f"{chunks} chunks x {len(dataset)} segments")
     if fp32_launches["k2"] != 0:
         raise RuntimeError("the fp32 scorer launched K2")
     return fp32_launches, int8_launches, kws, stacks
@@ -522,10 +556,20 @@ def phase_b_slice(device, k2_per_chunk: int):
 def _device_breakdown(label, fn) -> None:
     """Device time of ``fn()`` by kernel family (torch.profiler) beside its
     wall time: cuDNN convolutions, K2, GEMMs, the rest.  The second of two
-    profiled calls is read (the first pays the tracer's start-up)."""
+    profiled calls is read (the first pays the tracer's start-up).  The
+    tracer slows the host, so the idle share is taken against the median
+    wall of three unprofiled calls made just before."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    plain_wall_ms = statistics.median(walls)
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -550,8 +594,9 @@ def _device_breakdown(label, fn) -> None:
             families["other kernels"] += us
     device_ms = sum(families.values()) / 1e3
     parts = ", ".join(f"{k} {v / 1e3!r} ms" for k, v in families.items())
-    print(f"{label}: wall {wall_ms!r} ms under the profiler, device {device_ms!r} ms "
-          f"(idle share {1 - device_ms / wall_ms!r}): {parts}")
+    print(f"{label}: wall {plain_wall_ms!r} ms unprofiled (median of 3: {walls!r}), "
+          f"{wall_ms!r} ms under the profiler; device {device_ms!r} ms (idle share "
+          f"{1 - device_ms / plain_wall_ms!r} of the unprofiled wall): {parts}")
 
 
 class _EvalSet:
@@ -575,7 +620,7 @@ class _EvalModule:
         pass
 
 
-def phase_d(device, kws, stacks, k2_per_chunk: int) -> dict:
+def phase_d(device, kws, stacks, shapes) -> dict:
     """The paper-1 KWS eval at full width, fp32 then int8."""
     import torch
 
@@ -617,10 +662,11 @@ def phase_d(device, kws, stacks, k2_per_chunk: int) -> dict:
                           lambda: engine.score_utterance(variables, dataset, utts[-1]))
         matmul_s8_cuda.launches = 0
         t0 = time.perf_counter()
-        preds, targets, _, loss = engine._eval_dataset(variables, dataset)
-        torch.cuda.synchronize()
+        with _recorded_k2_shapes() as k2_shapes:
+            preds, targets, _, loss = engine._eval_dataset(variables, dataset)
+            torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = matmul_s8_cuda.launches
+        launches = {"k2": matmul_s8_cuda.launches, "k2_shapes": k2_shapes}
         results = engine.test(variables, module)
         if not (np.isfinite(preds).all() and preds.shape == (len(items) * N_KW,)
                 and all(np.isfinite(v) for v in results.values())):
@@ -631,14 +677,16 @@ def phase_d(device, kws, stacks, k2_per_chunk: int) -> dict:
               f"{results['Recall_UB']!r}] F1 {results['F1']!r} [{results['F1_LB']!r}, "
               f"{results['F1_UB']!r}]; loss {loss!r}; {seconds!r} s for {len(items)} utterances x "
               f"{N_KW} keywords = {seconds / (len(items) * N_KW) * 1e3!r} ms per pair; "
-              f"K2 launches {launches}")
+              f"K2 launches {launches['k2']}")
     flips = float(np.mean((out["fp32"][0] >= 0.5) != (out["int8"][0] >= 0.5)))
-    expected = k2_per_chunk * -(-catalog.num_padded // CHUNK) * len(items)
     print(f"phase D: decisions at 0.5 that flip between fp32 and int8: {flips!r} of "
           f"{len(out['fp32'][0])} pairs; max |p_int8 - p_fp32| "
-          f"{float(np.abs(out['int8'][0] - out['fp32'][0]).max())!r}; K2 launches expected {expected}")
-    if out["int8"][2] < expected or out["fp32"][2] != 0:
-        raise RuntimeError(f"KWS eval K2 launches {out['int8'][2]}, expected {expected}")
+          f"{float(np.abs(out['int8'][0] - out['fp32'][0]).max())!r}")
+    chunks = -(-catalog.num_padded // CHUNK)
+    _check_k2_main_path("phase D int8", out["int8"][2], shapes, chunks * len(items),
+                        f"{chunks} chunks x {len(items)} utterances")
+    if out["fp32"][2]["k2"] != 0:
+        raise RuntimeError("the fp32 KWS eval launched K2")
     return out
 
 
@@ -697,13 +745,23 @@ def phase_c(device):
     return out
 
 
-def k1_bound_ms(n_samples: int = 480000, n_mels: int = 80):
-    """Least time of K1 at [1, n_samples]: DFT + power + filterbank FP32
-    operations over the FP32 peak, against audio in + mel out over HBM."""
-    frames, bins = n_samples // 160, 201
-    ops = frames * (400 * bins * 2 * 2 + bins * 3 + bins * n_mels * 2)
+def k1_bound(n_samples: int = 480000, n_mels: int = 80) -> dict:
+    """Least time of log-mel at [1, n_samples]: audio in + mel out over HBM,
+    against the function's least FP32 work over the FP32 peak — per frame a
+    Hann window, a real FFT (2.5 N log2 N operations), the power spectrum,
+    the filterbank's nonzero taps and the log.  ``dft_ms`` is, for
+    information, the same count for K1's own direct DFT (a product with the
+    dense DFT tables and the dense filterbank)."""
+    from enhance_cb_whisper_tpu_torch.ops.mel import HOP_LENGTH, N_FFT, N_FREQS, mel_filter_bank
+
+    frames = n_samples // HOP_LENGTH
+    taps = int(np.count_nonzero(mel_filter_bank(n_mels)))
+    ops = frames * (N_FFT + 2.5 * N_FFT * np.log2(N_FFT) + 3 * N_FREQS + 2 * taps + n_mels)
+    dft_ops = frames * (N_FFT * N_FREQS * 2 * 2 + 3 * N_FREQS + N_FREQS * n_mels * 2 + n_mels)
     bytes_ = n_samples * 4 + frames * n_mels * 4
-    return max(ops / FP32_RATE, bytes_ / HBM_RATE) * 1e3, ops, bytes_
+    t_ops, t_bytes = ops / FP32_RATE * 1e3, bytes_ / HBM_RATE * 1e3
+    return {"ms": max(t_ops, t_bytes), "by": "bytes" if t_bytes >= t_ops else "operations",
+            "ops": float(ops), "taps": taps, "bytes": bytes_, "dft_ms": dft_ops / FP32_RATE * 1e3}
 
 
 def phase_c_k2(device, shapes):
@@ -770,12 +828,15 @@ def main() -> int:
     max_abs_err = phase_a(device)
     mismatches, k2_err = phase_a2(device, shapes)
     phase_b_reference(device)
-    fp32_launches, int8_launches, kws, stacks = phase_b_slice(device, len(shapes))
-    phase_d(device, kws, stacks, len(shapes))
+    fp32_launches, int8_launches, kws, stacks = phase_b_slice(device, shapes)
+    phase_d(device, kws, stacks, shapes)
     times = phase_c(device)
     k2 = phase_c_k2(device, shapes)
-    k1_bound, _, _ = k1_bound_ms()
-    print(f"phase C: K1 bound at [1, 480000] {k1_bound!r} ms (FP32 operations)")
+    k1 = k1_bound()
+    print(f"phase C: K1 bound at [1, 480000] n_mels=80 {k1['ms']!r} ms, {k1['by']}-bound "
+          f"({k1['bytes']} B; {k1['ops']!r} FP32 operations with a real FFT per frame and "
+          f"{k1['taps']} nonzero filterbank taps); K1's direct DFT would need "
+          f"{k1['dft_ms']!r} ms at the FP32 peak")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(
@@ -787,7 +848,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "log10_mel", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
          "launches": fp32_launches["mel"], "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-         "bound_ms": k1_bound, "bound_by": "operations", "library_ms": None},
+         "bound_ms": k1["ms"], "bound_by": k1["by"], "library_ms": None},
         {"name": "matmul_s8_requant", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
          "launches": int8_launches["k2"], "max_abs_err": k2_err, "mismatches": mismatches,
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],

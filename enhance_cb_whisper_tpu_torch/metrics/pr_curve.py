@@ -1,5 +1,7 @@
-"""Binary precision-recall curve and derived operating-point metrics (a
-numpy-only copy of enhance_cb_whisper_tpu/metrics/pr_curve.py).
+"""Binary precision-recall curve and the operating-point metrics paper 1's
+KWS eval reads (a numpy-only copy of part of
+enhance_cb_whisper_tpu/metrics/pr_curve.py; paper 2's helpers are not
+ported yet).
 
 Numpy reimplementation of the exact computation the reference gets from
 ``torchmetrics.PrecisionRecallCurve(task='binary')`` with no fixed threshold
@@ -78,34 +80,3 @@ def prf_at_threshold(preds, target, threshold: float = 0.5):
     p, r = operating_point(precision, recall, thresholds, threshold)
     f1 = 2 * p * r / (p + r) if (p != 0 and r != 0) else 0.0
     return p, r, f1
-
-
-def find_best_threshold_idx(precision, recall):
-    """Index of the best operating point under the reference's weighted
-    F-score ``5PR / (4P + R)`` (src/efficient_kws/model.py:669-682)."""
-    precision = np.asarray(precision, dtype=np.float64)
-    recall = np.asarray(recall, dtype=np.float64)
-    with np.errstate(divide="ignore", invalid="ignore"):
-        scores = (5.0 * precision * recall) / (4.0 * precision + recall)
-    scores = np.nan_to_num(scores, nan=0.0)
-    return int(np.argmax(scores))
-
-
-def recall_at_k(preds, target, k: int):
-    """Fraction of positive targets ranked in the top-k scores.
-
-    Mirrors src/efficient_kws/model.py:519-544: per utterance, count gold
-    keywords whose index appears among the k highest-scoring keywords,
-    divided by the number of gold keywords; returns -1.0 when the utterance
-    has no positives (the caller averages only non-negative values).
-    """
-    preds = np.asarray(preds)
-    target = np.asarray(target)
-    n_pos = target.sum()
-    if n_pos <= 0:
-        return -1.0
-    k = min(int(k), preds.size)
-    top_idx = np.argpartition(-preds, k - 1)[:k]
-    top_set = set(top_idx.tolist())
-    hits = sum(1 for i in np.nonzero(target)[0] if int(i) in top_set)
-    return float(hits) / float(n_pos)

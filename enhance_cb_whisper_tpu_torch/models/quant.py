@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..convert import from_jax_quantized_params
-from ..ops.matmul_s8 import matmul_s8_requant
+from ..ops import matmul_s8_cuda
 from .resnet import ResNetConfig
 
 _EPS = 1e-5  # BatchNorm epsilon of models/resnet.py
@@ -188,7 +188,7 @@ def _forward(
         b, c, h, w = xr.shape
         n = qc["wq"].shape[0]
         rows = lambda t: t.permute(0, 2, 3, 1).reshape(b * h * w, -1)  # noqa: E731
-        y = matmul_s8_requant(
+        y = matmul_s8_cuda.matmul_s8_requant(
             rows(xr), qc["wq"].reshape(n, c).t(),
             s_x * qc["s_w"] / s_out, qc["b"] / s_out,
             relu=relu,

@@ -18,8 +18,9 @@ The epilogue runs as separate steps in the kernel's order, each rounded to
 f32, and ``torch.round`` rounds half to even like ``jnp.round``, so both
 versions are bit-exact to the JAX reference.
 
-:func:`matmul_s8_requant` routes through the kernel's wrapper, which takes
-the plain version only for tensors on the CPU.
+The dispatching ``matmul_s8_requant`` (the JAX function's signature and
+layouts) is the kernel's wrapper, :func:`.matmul_s8_cuda.matmul_s8_requant`,
+which takes this plain version only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -52,21 +53,3 @@ def matmul_s8_requant_plain(
     if relu:
         y = torch.clamp_min(y, 0.0)
     return torch.clamp(torch.round(y), -127.0, 127.0).to(torch.int8)
-
-
-def matmul_s8_requant(
-    x: torch.Tensor,
-    w: torch.Tensor,
-    scale: torch.Tensor,
-    bias: torch.Tensor,
-    *,
-    relu: bool = True,
-    residual: Optional[torch.Tensor] = None,
-    res_scale: Union[torch.Tensor, float, None] = None,
-) -> torch.Tensor:
-    """The fused kernel on a CUDA tensor, its plain version on a CPU one
-    (same signature and layouts as the JAX function, without its TPU block
-    options)."""
-    from .matmul_s8_cuda import matmul_s8_requant as kernel
-
-    return kernel(x, w, scale, bias, relu=relu, residual=residual, res_scale=res_scale)

@@ -13,9 +13,10 @@ device) or the int8 parameters :meth:`KWSEngine.enable_int8_scoring`
 returns; scoring dispatches on which it is handed.  Utterance stacks are
 zero-padded to frame buckets with the width-resize weights padded
 alongside, which makes the padding invisible (weights of pad columns are
-0).  The JAX engine's ``vmap`` over an utterance batch is a loop here, and
-a partial batch is not padded by repetition (that only kept one compiled
-shape).  ``fit`` and the training state wait for the training slice.
+0).  The JAX engine's ``vmap`` over an utterance batch is a loop here, so
+the eval scores one utterance at a time, in dataset order, with no bucket
+batching or queue of in-flight calls (those only kept JAX's compiled
+shapes few).  ``fit`` and the training state wait for the training slice.
 """
 
 from __future__ import annotations
@@ -50,7 +51,6 @@ class KWSEngine:
         self.device = torch.device(device)
         self._catalog_cache: Dict[int, Any] = {}
         self._int8_apply = None
-        self.eval_batch_size = 8  # utterances per scoring call (same bucket)
 
     def enable_int8_scoring(self, variables, dataset, utt_hs: np.ndarray = None,
                             calibration_batches: int = 4, s8_1x1=()):
@@ -127,18 +127,15 @@ class KWSEngine:
         return probs.cpu().numpy()[:n], logits.cpu().numpy()[:n]
 
     @torch.no_grad()
-    def score_utterances(self, variables, dataset, utt_hs_list, defer: bool = False):
+    def score_utterances(self, variables, dataset, utt_hs_list):
         """Score several utterances of one frame bucket against the whole
-        catalog.  ``defer=True`` returns the device tensors without the host
-        fetch, so the next call's work is queued before this one is read."""
+        catalog."""
         catalog_dev = self._catalog_dev(dataset)
         padded = [self._pad_utt(np.asarray(u)) for u in utt_hs_list]
         utt = torch.from_numpy(np.stack([p[0] for p in padded])).to(self.device)
         w = torch.from_numpy(np.stack([p[1] for p in padded])).to(self.device)
         _, batched = self._pick_score_fns(variables)
         probs, logits = batched(catalog_dev, utt, w)
-        if defer:
-            return probs, logits
         n = dataset.catalog.num_keywords
         return probs.cpu().numpy()[:, :n], logits.cpu().numpy()[:, :n]
 
@@ -151,56 +148,20 @@ class KWSEngine:
     def _eval_dataset(self, variables, dataset):
         from ..audio.prefetch import prefetch
 
-        n_items = len(dataset)
-        preds = [None] * n_items
-        targets = [None] * n_items
-        speakers = [None] * n_items
-        losses = [0.0] * n_items
+        preds, targets, speakers, losses = [], [], [], []
         group = dataset.catalog.group_size
-
-        def _finish(idx, item, probs, logits):
+        # host-side cache loads overlap with device scoring
+        for item in prefetch((dataset[i] for i in range(len(dataset))), depth=2):
+            probs, logits = self.score_utterance(variables, dataset, item["utt_hs"])
             labels = np.asarray(item["hotword_labels"])
             # per-group CE sum, mirroring the reference's group loop loss
-            losses[idx] = sum(
+            losses.append(sum(
                 self._ce(logits[lo : lo + group], labels[lo : lo + group])
                 for lo in range(0, len(labels), group)
-            )
-            preds[idx] = probs * item["hotword_mask"]
-            targets[idx] = labels
-            speakers[idx] = item.get("speaker")
-
-        # host-side cache loads overlap with device scoring (prefetch);
-        # utterances sharing a frame bucket are scored per call, and up to
-        # two calls stay queued before their results are fetched
-        pending: Dict[int, list] = {}
-        in_flight: list = []
-        n_kw = dataset.catalog.num_keywords
-
-        def _drain(target_depth: int):
-            while len(in_flight) > target_depth:
-                batch, probs_d, logits_d = in_flight.pop(0)
-                probs_b = probs_d.cpu().numpy()[:, :n_kw]
-                logits_b = logits_d.cpu().numpy()[:, :n_kw]
-                for row, (idx, item) in enumerate(batch):
-                    _finish(idx, item, probs_b[row], logits_b[row])
-
-        def _flush(bucket):
-            batch = pending.pop(bucket)
-            probs_d, logits_d = self.score_utterances(
-                variables, dataset, [it["utt_hs"] for _, it in batch], defer=True
-            )
-            in_flight.append((batch, probs_d, logits_d))
-            _drain(2)
-
-        items = prefetch(((i, dataset[i]) for i in range(n_items)), depth=2)
-        for idx, item in items:
-            bucket = _bucket(item["utt_hs"].shape[1])
-            pending.setdefault(bucket, []).append((idx, item))
-            if len(pending[bucket]) == self.eval_batch_size:
-                _flush(bucket)
-        for bucket in list(pending):
-            _flush(bucket)
-        _drain(0)
+            ))
+            preds.append(probs * item["hotword_mask"])
+            targets.append(labels)
+            speakers.append(item.get("speaker"))
 
         return (
             np.concatenate(preds),
