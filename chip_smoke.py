@@ -13,9 +13,12 @@ A.  holds the fused mel kernel K1 (csrc/mel.cu) against its plain torch
 A2. holds the fused s8 matmul + requant kernel K2 (csrc/matmul_s8.cu)
     against its plain version at every shape the int8 ResNet-50 scorer
     gives it (22 launches per chunk of 8 keyword maps at 150x750, 9
-    distinct shapes) and a ragged M, with ReLU on and off, with and
-    without a residual: zero differing int8 codes allowed; the int8 runs
-    of B and D record the shapes they launch and must launch exactly these;
+    distinct shapes) and four ragged M that take each kind of launch plan
+    (BM = 64, BN = 256, K split in 2 and in 4), with ReLU on and off,
+    without a residual and with one scaled by an [N] or a 0-d res_scale:
+    zero differing int8 codes allowed, and two launches of a split-K plan
+    give identical bytes; the int8 runs of B and D record the shapes they
+    launch and must launch exactly these;
 B.  checks the CUDA path against the CPU path on a tiny random CB-Whisper,
     in fp32 and with int8 spotting on a K2-eligible ResNet (identical
     keywords and transcripts, K2 launched on the card), then drives the
@@ -34,11 +37,13 @@ C.  times K1 and K2 and their plain versions on the card: K1 at
     [1, 480000] and [8, 480000] (median of CUDA-event timings of eager
     calls), K2 at each shape of a chunk (median of CUDA-event timings of
     CUDA-graph replays, i.e. device time without host gaps, and of eager
-    calls).
+    calls) with its launch plan, bound, multiple of the bound and GB/s,
+    beside torch._int_mm (cuBLASLt's int8 product alone) for scale.
 
 Any failure raises and exits non-zero.  The line before the last is the
 kernel summary as JSON, the last line the device as JSON.  Needs one card;
-there is no CPU fallback.
+there is no CPU fallback.  ``python3 chip_smoke.py --k2`` runs only the
+build, phase A2 and K2's part of phase C, and prints no summary lines.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -101,10 +107,16 @@ def build_kernels() -> None:
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
-        for job in [pool.submit(mel_cuda.build), pool.submit(matmul_s8_cuda.build)]:
-            job.result()
+        mel_job, k2_job = pool.submit(mel_cuda.build), pool.submit(matmul_s8_cuda.build)
+        mel_job.result()
+        k2_lib = k2_job.result()
     print(f"build: {KERNEL_SOURCE} and {K2_SOURCE} compiled in parallel and loaded in "
           f"{time.perf_counter() - t0:.1f} s")
+    log = Path(k2_lib).with_suffix(".so.log")
+    if log.exists():  # ptxas -v of K2's four tile shapes
+        for line in log.read_text().splitlines():
+            if "Compiling entry" in line or "spill" in line or "Used" in line:
+                print(f"build: K2 ptxas: {line.strip()}")
 
 
 def phase_a(device) -> float:
@@ -163,7 +175,9 @@ def k2_launch_shapes(cfg, size=KWS_SIZE, batch=CHUNK):
 
 
 def _k2_inputs(rng, m, k, n, residual, device):
-    """K2's operands with the JAX package's test distributions."""
+    """K2's operands with the JAX package's test distributions; ``residual``
+    is False, "vector" (res_scale [N]) or "scalar" (a 0-d res_scale, as the
+    int8 scorer passes it)."""
     import torch
 
     def put(a):
@@ -177,7 +191,20 @@ def _k2_inputs(rng, m, k, n, residual, device):
     if residual:
         res = dict(residual=put(rng.integers(-127, 128, (m, n)).astype(np.int8)),
                    res_scale=put((rng.uniform(0.5, 2.0, n) * 1e-3).astype(np.float32)))
+        if residual == "scalar":
+            res["res_scale"] = res["res_scale"][0].clone()
     return x, w_nk.t(), scale, bias, res
+
+
+# ragged M, one per plan kind: BM = 64; BM = 128 with BN = 256; split K in 2 and in 4
+K2_RAGGED = [(14293, 512, 128), (14293, 128, 512), (3761, 1024, 256), (961, 2048, 512)]
+
+
+def _plan_text(m, k, n) -> str:
+    from enhance_cb_whisper_tpu_torch.ops.matmul_s8_cuda import launch_plan
+
+    p = launch_plan(m, k, n)
+    return f"tile {p.bm}x{p.bn}, split {p.split}, {p.ctas} CTAs"
 
 
 def phase_a2(device, shapes):
@@ -186,15 +213,16 @@ def phase_a2(device, shapes):
 
     from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda
     from enhance_cb_whisper_tpu_torch.ops.matmul_s8 import matmul_s8_requant_plain
+    from enhance_cb_whisper_tpu_torch.ops.matmul_s8_cuda import launch_plan
 
     rng = np.random.default_rng(SEED + 4)
-    distinct = sorted({(m, k, n) for m, k, n, _ in shapes}) + [(14293, 512, 128)]
+    distinct = sorted({(m, k, n) for m, k, n, _ in shapes}) + K2_RAGGED
     print(f"phase A2: {len(shapes)} K2 launches per chunk of {CHUNK} maps at {KWS_SIZE}, "
-          f"{len(distinct) - 1} distinct shapes, plus a ragged M")
+          f"{len(distinct) - len(K2_RAGGED)} distinct shapes, plus {len(K2_RAGGED)} ragged M")
     total, worst = 0, 0
     for m, k, n in distinct:
         counts = []
-        for residual in (False, True):
+        for residual in (False, "vector", "scalar"):
             x, w, scale, bias, res = _k2_inputs(rng, m, k, n, residual, device)
             for relu in (True, False):
                 got = matmul_s8_cuda.matmul_s8_requant(x, w, scale, bias, relu=relu, **res)
@@ -205,9 +233,15 @@ def phase_a2(device, shapes):
                 worst = max(worst, int(diff.max()))
                 if len(torch.unique(got)) < 10:
                     raise RuntimeError(f"K2 codes at {(m, k, n)} are degenerate")
+            if launch_plan(m, k, n).split > 1:  # split-K sums in a fixed order: same bytes
+                again = matmul_s8_cuda.matmul_s8_requant(x, w, scale, bias, relu=False, **res)
+                first = matmul_s8_cuda.matmul_s8_requant(x, w, scale, bias, relu=False, **res)
+                if not torch.equal(again, first):
+                    raise RuntimeError(f"K2 at {(m, k, n)} differs between two launches")
         total += sum(counts)
-        print(f"phase A2: K2 vs plain (M, K, N)={(m, k, n)}: differing codes "
-              f"{counts} of {m * n} each (relu on/off x residual off/on)")
+        print(f"phase A2: K2 vs plain (M, K, N)={(m, k, n)} [{_plan_text(m, k, n)}]: differing codes "
+              f"{counts} of {m * n} each (residual off, res_scale [N], 0-d res_scale x relu on/off)"
+              + ("; two launches identical" if launch_plan(m, k, n).split > 1 else ""))
     if total:
         raise RuntimeError(f"K2 disagrees with its plain version in {total} codes")
     return total, worst
@@ -764,10 +798,24 @@ def k1_bound(n_samples: int = 480000, n_mels: int = 80) -> dict:
             "ops": float(ops), "taps": taps, "bytes": bytes_, "dft_ms": dft_ops / FP32_RATE * 1e3}
 
 
+def _int_mm_ms(x, w):
+    """Device time of ``torch._int_mm`` (cuBLASLt s8 x s8 -> s32) on K2's
+    operands: the product alone, 4 B per output and no epilogue, so not the
+    same function; a yardstick only, never called by the port."""
+    import torch
+
+    try:
+        return _graph_ms(lambda: torch._int_mm(x, w))
+    except RuntimeError as err:
+        print(f"phase C: torch._int_mm at {tuple(x.shape)} x {tuple(w.shape)} not measured: {err}")
+        return None
+
+
 def phase_c_k2(device, shapes):
     """K2 and its plain version at each shape of a chunk: device time (CUDA
     graph) and eager wrapper time, summed over the chunk's 22 launches;
-    the byte and operation bound of the same work.  No single PyTorch call
+    the byte and operation bound of the same work; the launch plan; and,
+    for scale, cuBLASLt's int8 product alone.  No single PyTorch call
     computes an s8 matmul with this requant epilogue: no library time."""
     from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda
     from enhance_cb_whisper_tpu_torch.ops.matmul_s8 import matmul_s8_requant_plain
@@ -780,20 +828,24 @@ def phase_c_k2(device, shapes):
         per_shape.setdefault(shape, 0)
         per_shape[shape] += 1
     for (m, k, n, residual), count in per_shape.items():
-        x, w, scale, bias, res = _k2_inputs(rng, m, k, n, residual, device)
+        # the int8 scorer's fused tails pass a 0-d res_scale
+        x, w, scale, bias, res = _k2_inputs(rng, m, k, n, residual and "scalar", device)
         kernel = lambda: matmul_s8_cuda.matmul_s8_requant(x, w, scale, bias, **res)  # noqa: E731
         plain = lambda: matmul_s8_requant_plain(x, w, scale, bias, **res)  # noqa: E731
         p1, k1, k2, p2 = (_graph_ms(f) for f in (plain, kernel, kernel, plain))
         ms, plain_ms = statistics.median([k1, k2]), statistics.median([p1, p2])
         eager, plain_eager = _median_ms(kernel), _median_ms(plain)
+        int_mm = _int_mm_ms(x, w)
         ops = 2 * m * n * k
-        bytes_ = m * k + k * n + m * n + 2 * 4 * n + ((m * n + 4 * n) if residual else 0)
+        bytes_ = m * k + k * n + m * n + 2 * 4 * n + ((m * n + 4) if residual else 0)
         bound = max(ops / INT8_RATE, bytes_ / HBM_RATE) * 1e3
-        line = (f"phase C: K2 (M, K, N)={(m, k, n)} residual={residual} x{count} per chunk: "
-                f"device {ms!r} ms ({k1!r}, {k2!r}), plain {plain_ms!r} ms ({p1!r}, {p2!r}) "
-                f"[CUDA-graph replays]; eager wrapper {eager!r} ms, plain {plain_eager!r} ms; "
-                f"bound {bound!r} ms ({bytes_} B, {ops} int8 ops)")
-        print(line)
+        print(f"phase C: K2 (M, K, N)={(m, k, n)} residual={residual} x{count} per chunk "
+              f"[{_plan_text(m, k, n)}]: device {ms!r} ms ({k1!r}, {k2!r}) [CUDA-graph replays], "
+              f"bound {bound!r} ms ({bytes_} B, {ops} int8 ops), {ms / bound!r}x the bound, "
+              f"{bytes_ / ms / 1e6!r} GB/s; eager wrapper {eager!r} ms per launch; plain {plain_ms!r} ms "
+              f"({p1!r}, {p2!r}), plain eager {plain_eager!r} ms; torch._int_mm "
+              f"{'not measured' if int_mm is None else repr(int_mm) + ' ms'} "
+              f"(product alone, not the same function)")
         totals["ms"] += ms * count
         totals["plain_ms"] += plain_ms * count
         totals["eager_ms"] += eager * count
@@ -801,8 +853,9 @@ def phase_c_k2(device, shapes):
         totals["bound_ms"] += bound * count
         totals["ops"] += ops * count
         totals["bytes"] += bytes_ * count
-    print(f"phase C: K2 per chunk of {CHUNK} maps ({len(shapes)} launches): device {totals['ms']!r} ms, "
-          f"plain {totals['plain_ms']!r} ms; eager {totals['eager_ms']!r} ms, plain eager "
+    print(f"phase C: K2 per chunk of {CHUNK} maps ({len(shapes)} launches): device {totals['ms']!r} ms "
+          f"({totals['ms'] / totals['bound_ms']!r}x the bound), plain {totals['plain_ms']!r} ms; eager "
+          f"{totals['eager_ms']!r} ms ({totals['eager_ms'] / len(shapes)!r} ms per launch), plain eager "
           f"{totals['plain_eager_ms']!r} ms; bound {totals['bound_ms']!r} ms "
           f"({totals['bytes']} B, {totals['ops']} int8 ops: bytes-bound)")
     return totals
@@ -824,6 +877,11 @@ def main() -> int:
     t_start = time.perf_counter()
     build_kernels()
     shapes = k2_launch_shapes(ResNetConfig.from_version("resnet-50", num_channels=12))
+    if "--k2" in sys.argv[1:]:  # K2 alone: build, parity, timings; no summary lines
+        phase_a2(device, shapes)
+        phase_c_k2(device, shapes)
+        print(f"chip_smoke --k2: passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     max_abs_err = phase_a(device)
     mismatches, k2_err = phase_a2(device, shapes)

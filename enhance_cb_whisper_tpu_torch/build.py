@@ -4,14 +4,17 @@ Each kernel file under ``csrc/`` exposes a plain C entry point (pointers,
 sizes and the stream; returns ``cudaGetLastError()``), so it compiles with
 ``nvcc`` alone in seconds, without PyTorch's headers, and loads with
 :mod:`ctypes`.  Libraries land in ``build/kernels/`` at the repository root
-(git-ignored), named by a hash of source and flags so a changed source is
-rebuilt and an unchanged one is reused.
+(git-ignored), named by a hash of the source, every local header it
+includes and the flags, so a changed source or header is rebuilt and an
+unchanged one is reused.  The compiler's output is kept beside the library
+(``<library>.log``).
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -43,11 +46,39 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def build_library(source: str) -> Path:
-    """Compile ``csrc/<source>`` to a shared library; returns its path."""
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(src: Path) -> list:
+    """The files that ``src`` includes with ``#include "..."``, found next to
+    the including file, and theirs in turn, each once, in include order."""
+    seen, order, todo = {src.resolve()}, [], [src]
+    while todo:
+        path = todo.pop(0)
+        for name in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            header = (path.parent / name.decode()).resolve()
+            if header not in seen and header.exists():
+                seen.add(header)
+                order.append(header)
+                todo.append(header)
+    return order
+
+
+def source_digest(src: Path, flags) -> str:
+    """Hash of a source, the local headers it includes and the flags."""
+    h = hashlib.sha1(src.read_bytes())
+    for header in local_headers(src):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:12]
+
+
+def build_library(source: str, extra_flags=()) -> Path:
+    """Compile ``csrc/<source>`` to a shared library with ``NVCC_FLAGS``
+    and the library's own ``extra_flags``; returns its path."""
     src = CSRC_DIR / source
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    flags = (*NVCC_FLAGS, *extra_flags)
+    out = BUILD_DIR / f"lib{src.stem}_{source_digest(src, flags)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -57,11 +88,12 @@ def build_library(source: str) -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            [_nvcc(), *flags, "-o", tmp, str(src)],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}{proc.stderr}")
+        out.with_suffix(".so.log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

@@ -1,4 +1,4 @@
-// Fused s8 x s8 -> s32 matmul with a requantizing epilogue:
+// Fused s8 x s8 -> s32 matmul with a requantizing epilogue, for Hopper (sm_90a):
 //
 //   out[m, n] = clip(round(relu(acc * scale[n] + bias[n] [+ r[m, n] * rs[n]])), -127, 127)
 //   acc[m, n] = sum_k x[m, k] * w[n, k]          (exact, int32)
@@ -11,59 +11,65 @@
 // Bound: device-memory bytes.  At the scorer's shapes (K, N in 128..2048,
 // M in 960..57152) the work is 2*M*N*K int8 ops against M*K + N*K + M*N
 // (+ M*N residual) bytes, below the H100's int8 ridge of ~590 op/B
-// (1,979 TOP/s over 3.35 TB/s), so the least time is the bytes'.  What the
-// design does about it:
-//   * the epilogue runs on the int32 accumulators in registers; per output
-//     element 1 byte is written (and 1 byte of residual read), nothing
-//     wider ever reaches device memory;
-//   * each 128 x 128 output tile stages 128 x 64-byte slices of x and of w
-//     (w kept [N, K], K contiguous: the "col" operand) in shared memory with
-//     16-byte cp.async copies, double buffered, and feeds the int8 tensor
-//     cores (mma.sync m16n8k32); x is read from device memory once per
-//     128-column tile of the output, which is once for N = 128;
-//   * the ragged edge of M is masked (zero-filled rows, stores skipped), so
-//     any M launches; N must be a multiple of 128 and K of 64.
-// First version: no wgmma, no TMA, no persistent schedule.
+// (1,979 TOP/s over 3.35 TB/s), so the least time is the bytes'.  The
+// design keeps as many bytes in flight as the card needs, on every SM:
+//   1. TMA ring + wgmma (done).  One producer warp issues TMA loads of
+//      [BM x 128 B] tiles of x and [BN x 128 B] tiles of w (kept [N, K],
+//      K contiguous) into a ring of up to 4 stages with full/empty
+//      mbarriers; one or two consumer warpgroups run
+//      wgmma.m64n{128,256}k32.s32.s8.s8 on them straight from shared
+//      memory (128-byte swizzle, both operands K-major).  TMA zero-fills
+//      rows past M, so the main loop has no masking.  A ring of only as
+//      many stages as the block has k-tiles leaves room for more blocks on
+//      an SM, which overlap one block's epilogue with another's loads.
+//   2. Epilogue through shared memory (done).  The residual tile is
+//      TMA-loaded at block start, into the buffer the output is staged in,
+//      so it arrives during the main loop; the requant runs on the int32
+//      accumulators in registers and writes the int8 tile in place of the
+//      residual, and TMA stores it (rows past M clipped): full 128-byte
+//      lines instead of 2-byte stores at row stride N.
+//   3. Planned tiles with exact split-K (done).  The wrapper's launch_plan
+//      picks BM in {64, 128}, BN in {128, 256} and a split of K per shape,
+//      so the small-M shapes fill the 132 SMs.  The split blocks of one
+//      output tile form a thread-block cluster; each adds its int32 partial
+//      sums into the first block's through distributed shared memory, and
+//      only that block runs the epilogue.  Integer sums are exact in any
+//      order (|acc| <= 127^2 * 2048 < 2^31), so a split changes no code and
+//      the result is deterministic, inside one launch, with no workspace.
+//   4. Persistent schedule (not done): one block per SM walking the tiles.
 //
 // Bit-exactness with the plain version (separate f32 multiply, add, add,
 // max, round-half-even, clip): the epilogue uses __fmul_rn / __fadd_rn, which
 // nvcc never contracts into an fma, and __float2int_rn (half to even).
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 64;
-constexpr int kLds = kBK + 16;  // 80-byte smem rows: conflict-free fragment loads
-constexpr int kThreads = 256;   // 8 warps: 4 along M x 2 along N, 32 x 64 each
+using namespace hopper;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int src_bytes = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(src_bytes));
-}
+constexpr int kBK = 128;       // bytes of K per stage: one 128-byte swizzle row
+constexpr int kMaxStages = 4;
+constexpr int kMaxSplit = 8;   // the portable cluster size
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+struct Params {
+  const float* scale;
+  const float* bias;
+  const float* res_scale;  // [N] (rs_stride 1) or one value (rs_stride 0); null: no residual
+  int rs_stride;
+  int M;
+  int k_tiles;  // K / 128
+  int split;    // blocks per output tile along K, one cluster
+  int stages;
+  int relu;
+};
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ int8_t requant(int acc, float s, float b, bool has_res, int8_t r,
-                                          float rs, bool relu) {
+__device__ __forceinline__ int8_t requant(int acc, float s, float b, bool has_res, int r, float rs,
+                                          bool relu) {
   float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), s), b);
   if (has_res) y = __fadd_rn(y, __fmul_rn(static_cast<float>(r), rs));
   if (relu) y = fmaxf(y, 0.0f);
@@ -72,152 +78,282 @@ __device__ __forceinline__ int8_t requant(int acc, float s, float b, bool has_re
   return static_cast<int8_t>(q);
 }
 
-template <bool kHasRes, bool kRelu>
-__global__ void __launch_bounds__(kThreads)
-matmul_s8_requant_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w_nk,
-                         const float* __restrict__ scale, const float* __restrict__ bias,
-                         const int8_t* __restrict__ residual, const float* __restrict__ res_scale,
-                         int8_t* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(16) int8_t as[2][kBM * kLds];
-  __shared__ __align__(16) int8_t bs[2][kBN * kLds];
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(int (&acc)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 128) wgmma_m64n128k32_s8(acc, da, db);
+  else wgmma_m64n256k32_s8(acc, da, db);
+}
+
+template <int BM, int BN>
+constexpr int kThreads = BM / 64 * 128 + 32;  // consumer warpgroups, then the producer warp
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(kThreads<BM, BN>)
+matmul_s8_requant_kernel(const __grid_constant__ CUtensorMap map_x,
+                         const __grid_constant__ CUtensorMap map_w,
+                         const __grid_constant__ CUtensorMap map_res,
+                         const __grid_constant__ CUtensorMap map_out, const Params p) {
+  constexpr int kConsumers = BM / 64 * 128;
+  constexpr int kR = BN / 2;  // int32 accumulators per consumer thread
+  constexpr int kA = BM * kBK, kB = BN * kBK;
+
+  // shared memory, from a 1024-byte boundary (the swizzle atom):
+  //   ring     stages x [BM][128 B] of x, then stages x [BN][128 B] of w;
+  //            after the main loop of a split block, its int32 partials
+  //   tile     [BN / 128][BM][128 B], 128-byte swizzled: residual in, codes out
+  //   barriers full[kMaxStages], empty[kMaxStages], residual
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int stages = p.stages;
+  const int ring = stages * (kA + kB);
+  const int part = p.split > 1 ? BM * BN * 4 : 0;
+  uint8_t* tile = smem + (ring > part ? ring : part);
+  const uint32_t a_ring = smem_addr(smem), b_ring = a_ring + stages * kA;
+  const uint32_t bars = smem_addr(tile + BM * BN);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kMaxStages + s); };
+  const uint32_t res_bar = bars + 8 * 2 * kMaxStages;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int warp_m = warp >> 1;  // 0..3
-  const int warp_n = warp & 1;   // 0..1
-  const int g = lane >> 2;       // fragment group
-  const int t4 = lane & 3;       // thread in group
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
+  const bool has_res = p.res_scale != nullptr;
+  const int n0 = blockIdx.y * BN, m0 = blockIdx.z * BM;
+  const int kt0 = blockIdx.x * p.k_tiles / p.split;
+  const int nk = (blockIdx.x + 1) * p.k_tiles / p.split - kt0;
+  const bool leader = blockIdx.x == 0;  // cluster (split, 1, 1): rank == blockIdx.x
 
-  // each tile is 128 rows x 4 chunks of 16 bytes; a thread copies 2 of each
-  auto load_tile = [&](int kt, int buf) {
-    const int k0 = kt * kBK;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kThreads;
-      const int row = c >> 2;
-      const int col = (c & 3) * 16;
-      const bool valid = m0 + row < M;
-      const int8_t* src = valid ? x + static_cast<int64_t>(m0 + row) * K + k0 + col : x;
-      cp_async16(&as[buf][row * kLds + col], src, valid);
-      cp_async16(&bs[buf][row * kLds + col], w_nk + static_cast<int64_t>(n0 + row) * K + k0 + col,
-                 true);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers / 32);
     }
-  };
+    mbar_init(res_bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  int acc[2][8][4];
+  int acc[kR];
+  if (tid >= kConsumers) {
+    // producer warp: one thread keeps the ring full
+    if (tid == kConsumers) {
+      if (has_res && leader) {
+        mbar_arrive_expect_tx(res_bar, BM * BN);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  const int kt_count = K / kBK;
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < kt_count; ++kt) {
-    if (kt + 1 < kt_count) load_tile(kt + 1, (kt + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int8_t* a_s = as[kt & 1];
-    const int8_t* b_s = bs[kt & 1];
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 32) {
-      unsigned af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = warp_m * 32 + mt * 16 + g;
-        af[mt][0] = *reinterpret_cast<const unsigned*>(&a_s[r * kLds + ks + t4 * 4]);
-        af[mt][1] = *reinterpret_cast<const unsigned*>(&a_s[(r + 8) * kLds + ks + t4 * 4]);
-        af[mt][2] = *reinterpret_cast<const unsigned*>(&a_s[r * kLds + ks + 16 + t4 * 4]);
-        af[mt][3] = *reinterpret_cast<const unsigned*>(&a_s[(r + 8) * kLds + ks + 16 + t4 * 4]);
+        for (int j = 0; j < BN / 128; ++j)
+          tma_load_2d(smem_addr(tile + j * kA), &map_res, res_bar, n0 + 128 * j, m0);
       }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int c = warp_n * 64 + nt * 8 + g;
-        unsigned bf[2];
-        bf[0] = *reinterpret_cast<const unsigned*>(&b_s[c * kLds + ks + t4 * 4]);
-        bf[1] = *reinterpret_cast<const unsigned*>(&b_s[c * kLds + ks + 16 + t4 * 4]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_s8(acc[mt][nt], af[mt], bf);
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % stages;
+        if (i >= stages) mbar_wait(empty(s), ((i / stages) - 1) & 1);
+        mbar_arrive_expect_tx(full(s), kA + kB);
+        tma_load_2d(a_ring + s * kA, &map_x, full(s), (kt0 + i) * kBK, m0);
+        tma_load_2d(b_ring + s * kB, &map_w, full(s), (kt0 + i) * kBK, n0);
       }
     }
-    __syncthreads();
+    __syncwarp();
+  } else {
+    // consumer warpgroup wg: rows [64 wg, 64 wg + 64) of the tile
+    const int wg = tid / 128;
+#pragma unroll
+    for (int i = 0; i < kR; ++i) acc[i] = 0;
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % stages;
+      mbar_wait(full(s), (i / stages) & 1);
+      __syncwarp();
+      const uint64_t da = desc_k_sw128(a_ring + s * kA + wg * 64 * kBK);
+      const uint64_t db = desc_k_sw128(b_ring + s * kB);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 32; ++kk) wgmma_tile<BN>(acc, da + 2 * kk, db + 2 * kk);
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int i2 = 0; i2 < kR; ++i2) asm volatile("" : "+r"(acc[i2])::"memory");
+      if ((tid & 31) == 0) mbar_arrive(empty(s));
+    }
   }
 
-  // epilogue: accumulator element e sits at row g (+8 for e >= 2) and
-  // column 2*t4 + (e & 1) of its 16 x 8 tile
+  if (p.split > 1) {
+    // exact split-K: the other blocks of the cluster hand their partial
+    // sums to the leader through distributed shared memory; each thread
+    // reads exactly the values its counterpart wrote
+    int4* part4 = reinterpret_cast<int4*>(smem);
+    if (tid < kConsumers && !leader) {
+      fence_proxy_async_shared();  // the ring was last written by TMA
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int col = n0 + warp_n * 64 + nt * 8 + t4 * 2;
-    const float s0 = scale[col], s1 = scale[col + 1];
-    const float b0 = bias[col], b1 = bias[col + 1];
-    float rs0 = 0.0f, rs1 = 0.0f;
-    if (kHasRes) {
-      rs0 = res_scale[col];
-      rs1 = res_scale[col + 1];
+      for (int q = 0; q < kR / 4; ++q)
+        part4[q * kConsumers + tid] = make_int4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
     }
+    cluster_sync();
+    if (tid < kConsumers && leader) {
+      for (int r = 1; r < p.split; ++r) {
+        const uint32_t peer = map_to_rank(smem_addr(part4 + tid), r);
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + warp_m * 32 + mt * 16 + g + half * 8;
-        if (row >= M) continue;
-        const int64_t off = static_cast<int64_t>(row) * N + col;
-        int8_t r0 = 0, r1 = 0;
-        if (kHasRes) {
-          r0 = residual[off];
-          r1 = residual[off + 1];
+        for (int q = 0; q < kR / 4; ++q) {
+          const int4 v = ld_cluster_v4(peer + q * kConsumers * 16);
+          acc[4 * q] += v.x;
+          acc[4 * q + 1] += v.y;
+          acc[4 * q + 2] += v.z;
+          acc[4 * q + 3] += v.w;
         }
-        char2 q;
-        q.x = requant(acc[mt][nt][half * 2], s0, b0, kHasRes, r0, rs0, kRelu);
-        q.y = requant(acc[mt][nt][half * 2 + 1], s1, b1, kHasRes, r1, rs1, kRelu);
-        *reinterpret_cast<char2*>(out + off) = q;
       }
     }
+    cluster_sync();  // a block's shared memory must outlive its peers' reads
+    if (!leader) return;
+  }
+  if (tid >= kConsumers) return;
+
+  // epilogue.  wgmma's accumulator layout: register 4j + 2h + e of thread
+  // (warp w, lane l) of warpgroup wg holds row 64 wg + 16 w + l / 4 + 8 h,
+  // column 8 j + 2 (l % 4) + e.
+  if (has_res) mbar_wait(res_bar, 0);
+  const int lane = tid & 31;
+  const int row0 = tid / 128 * 64 + (tid / 32 % 4) * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = j * 8 + (lane & 3) * 2;
+    const float2 sc = *reinterpret_cast<const float2*>(p.scale + n0 + col);
+    const float2 bi = *reinterpret_cast<const float2*>(p.bias + n0 + col);
+    float2 rs = make_float2(0.0f, 0.0f);
+    if (has_res)
+      rs = p.rs_stride ? *reinterpret_cast<const float2*>(p.res_scale + n0 + col)
+                       : make_float2(p.res_scale[0], p.res_scale[0]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      const int cc = col & 127;  // the 128B-swizzled address of (row, col)
+      char2* cell = reinterpret_cast<char2*>(tile + (col >> 7) * kA + row * 128 +
+                                             ((((cc >> 4) ^ (row & 7)) << 4) | (cc & 15)));
+      int r0 = 0, r1 = 0;
+      if (has_res) {
+        const char2 r = *cell;
+        r0 = r.x;
+        r1 = r.y;
+      }
+      char2 q;
+      q.x = requant(acc[4 * j + 2 * h], sc.x, bi.x, has_res, r0, rs.x, p.relu);
+      q.y = requant(acc[4 * j + 2 * h + 1], sc.y, bi.y, has_res, r1, rs.y, p.relu);
+      *cell = q;
+    }
+  }
+  fence_proxy_async_shared();
+  named_barrier_sync(1, kConsumers);
+  if (tid == 0) {
+#pragma unroll
+    for (int j = 0; j < BN / 128; ++j) tma_store_2d(&map_out, smem_addr(tile + j * kA), n0 + 128 * j, m0);
+    tma_store_commit_and_wait_read();
   }
 }
 
-template <bool kHasRes, bool kRelu>
-void launch(const int8_t* x, const int8_t* w_nk, const float* scale, const float* bias,
-            const int8_t* residual, const float* res_scale, int8_t* out, int M, int N, int K,
-            cudaStream_t stream) {
-  dim3 grid(N / kBN, (M + kBM - 1) / kBM);
-  matmul_s8_requant_kernel<kHasRes, kRelu><<<grid, kThreads, 0, stream>>>(
-      x, w_nk, scale, bias, residual, res_scale, out, M, N, K);
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, through the runtime: no -lcuda
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
 }
+
+// a row-major [rows, cols] int8 matrix read or written in [box_rows, 128 B] tiles, 128B-swizzled
+bool tile_map(EncodeTiled encode, CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t steps[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BM, int BN>
+cudaError_t launch(const void* x, const void* w_nk, const void* residual, void* out, int N, int K,
+                   const Params& p, cudaStream_t stream) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap map_x, map_w, map_res, map_out;
+  if (!tile_map(encode, &map_x, x, p.M, K, BM) || !tile_map(encode, &map_w, w_nk, N, K, BN) ||
+      !tile_map(encode, &map_out, out, p.M, N, BM) ||
+      !tile_map(encode, &map_res, residual != nullptr ? residual : out, p.M, N, BM))
+    return cudaErrorInvalidValue;
+
+  auto kernel = matmul_s8_requant_kernel<BM, BN>;
+  const int ring = p.stages * (BM + BN) * kBK;
+  const int part = p.split > 1 ? BM * BN * 4 : 0;
+  const int smem = 1024 + (ring > part ? ring : part) + BM * BN + 8 * (2 * kMaxStages + 1);
+  static int allowed = 0;  // dynamic shared memory this kernel may take, set once per size
+  if (smem > allowed) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    allowed = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.split, N / BN, (p.M + BM - 1) / BM);
+  cfg.blockDim = dim3(kThreads<BM, BN>);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = p.split;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = p.split > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, map_x, map_w, map_res, map_out, p);
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
 extern "C" {
 
-// Shape rules the kernel needs (the wrapper checks them first): N % 128 == 0,
-// K % 64 == 0, M >= 1, every pointer 16-byte aligned.  residual and
-// res_scale are null for the plain epilogue.  Returns cudaGetLastError().
+// x [M, K], w_nk [N, K], out [M, N] and residual [M, N] int8, scale and bias
+// [N] f32, res_scale [N] (rs_stride 1) or a single f32 (rs_stride 0);
+// residual and res_scale both null for the plain epilogue.  (bm, bn, split)
+// is the wrapper's launch plan: bm in {64, 128}, bn in {128, 256}, N % bn
+// == 0, K % 128 == 0, 1 <= split <= min(8, K / 128).  Every pointer is
+// 16-byte aligned.  A bad shape or plan returns cudaErrorInvalidValue and
+// launches nothing; otherwise returns the launch's error code.
 int ecw_matmul_s8_requant(const void* x, const void* w_nk, const void* scale, const void* bias,
-                          const void* residual, const void* res_scale, void* out, int M, int N,
-                          int K, int relu, void* stream) {
-  if (M < 1 || N % kBN != 0 || K % kBK != 0 || N < kBN || K < kBK) return cudaErrorInvalidValue;
+                          const void* residual, const void* res_scale, int rs_stride, void* out, int M,
+                          int N, int K, int relu, int bm, int bn, int split, void* stream) {
+  const int k_tiles = K / kBK;
+  const bool plan_ok = (bm == 64 || bm == 128) && (bn == 128 || bn == 256) && split >= 1 &&
+                       split <= kMaxSplit && split <= k_tiles;
+  const bool shape_ok = M >= 1 && N >= bn && N % bn == 0 && K >= kBK && K % kBK == 0 &&
+                        (M + bm - 1) / bm <= 65535;
+  const bool args_ok = (residual == nullptr) == (res_scale == nullptr) && (rs_stride == 0 || rs_stride == 1) &&
+                       aligned16(x) && aligned16(w_nk) && aligned16(scale) && aligned16(bias) &&
+                       aligned16(residual) && aligned16(out) && (rs_stride == 0 || aligned16(res_scale));
+  if (!plan_ok || !shape_ok || !args_ok) return cudaErrorInvalidValue;
+  const int per_split = (k_tiles + split - 1) / split;
+  Params p{static_cast<const float*>(scale), static_cast<const float*>(bias),
+           static_cast<const float*>(res_scale), rs_stride, M, k_tiles, split,
+           per_split < kMaxStages ? per_split : kMaxStages, relu};
   auto s = static_cast<cudaStream_t>(stream);
-  auto xp = static_cast<const int8_t*>(x);
-  auto wp = static_cast<const int8_t*>(w_nk);
-  auto sp = static_cast<const float*>(scale);
-  auto bp = static_cast<const float*>(bias);
-  auto rp = static_cast<const int8_t*>(residual);
-  auto rsp = static_cast<const float*>(res_scale);
-  auto op = static_cast<int8_t*>(out);
-  if (residual != nullptr) {
-    if (relu) launch<true, true>(xp, wp, sp, bp, rp, rsp, op, M, N, K, s);
-    else launch<true, false>(xp, wp, sp, bp, rp, rsp, op, M, N, K, s);
+  cudaError_t err;
+  if (bm == 64) {
+    err = bn == 128 ? launch<64, 128>(x, w_nk, residual, out, N, K, p, s)
+                    : launch<64, 256>(x, w_nk, residual, out, N, K, p, s);
   } else {
-    if (relu) launch<false, true>(xp, wp, sp, bp, rp, rsp, op, M, N, K, s);
-    else launch<false, false>(xp, wp, sp, bp, rp, rsp, op, M, N, K, s);
+    err = bn == 128 ? launch<128, 128>(x, w_nk, residual, out, N, K, p, s)
+                    : launch<128, 256>(x, w_nk, residual, out, N, K, p, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  cudaGetLastError();  // clear it: the returned code reports this launch
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -1,26 +1,29 @@
 """Wrapper of the fused s8 matmul + requant kernel ``csrc/matmul_s8.cu``
-(kernel K2 of the port).
+(kernel K2 of the port), and its launch planner.
 
 Replaces ``enhance_cb_whisper_tpu/ops/matmul_s8.py:matmul_s8_requant`` (its
 Pallas bodies ``_kernel_plain`` and ``_kernel_residual``).  On the H100 it
 is bound by device-memory bytes: at the int8 ResNet's 1×1 shapes the
-arithmetic intensity sits below the int8 tensor cores' ridge, so the design
-keeps the int32 accumulators and the whole requant epilogue in registers
-(1 B read and 1 B written per activation element) and runs the product on
-the int8 tensor cores (``mma.sync`` m16n8k32).  The ragged edge of M is
-masked in the kernel, so every M launches; N must be a multiple of 128 and
-K of 64.
+arithmetic intensity sits below the int8 tensor cores' ridge.  The kernel
+streams x and w through a TMA ring into ``wgmma``, keeps the int32
+accumulators and the whole requant epilogue on chip, and stores int8 tiles
+with TMA (1 B read and 1 B written per activation element).  Its shape
+rule is the JAX kernel's: K and N multiples of 128; any M ≥ 1.
 
-The library is compiled from the repository's sources with ``nvcc`` at
-first use (:mod:`..build`) and bound with :mod:`ctypes`.  A tensor on the
-CPU takes the plain torch version (:func:`.matmul_s8.matmul_s8_requant_plain`);
-a CUDA tensor launches the kernel or raises.
+:func:`launch_plan` picks the tile and the split of K for each (M, K, N);
+the split blocks of a tile sum their partials inside the one launch, so
+every call is one launch.  The library is compiled from the repository's
+sources with ``nvcc`` at first use (:mod:`..build`) and bound with
+:mod:`ctypes`.  A tensor on the CPU takes the plain torch version
+(:func:`.matmul_s8.matmul_s8_requant_plain`); a CUDA tensor launches the
+kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Union
+import functools
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -30,6 +33,12 @@ from .matmul_s8 import matmul_s8_requant_plain
 # launch path below is the only place that increments it
 launches = 0
 
+NUM_SMS = 132  # H100 SXM
+K_TILE = 128  # bytes of K per pipeline stage
+MAX_SPLIT = 8  # blocks of one cluster
+# tile shapes (BM, BN), largest first: fewer, larger tiles re-read less
+TILES = ((128, 256), (128, 128), (64, 256), (64, 128))
+
 _lib = None
 
 
@@ -38,27 +47,86 @@ def _library():
     if _lib is None:
         from ..build import build_library
 
-        lib = ctypes.CDLL(str(build_library("matmul_s8.cu")))
-        lib.ecw_matmul_s8_requant.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib = ctypes.CDLL(str(build_library("matmul_s8.cu", extra_flags=("-Xptxas=-v",))))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ecw_matmul_s8_requant.argtypes = [p] * 6 + [i, p] + [i] * 7 + [p]
         lib.ecw_matmul_s8_requant.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def build() -> None:
-    """Compile and load the kernel library now (otherwise: at first launch)."""
-    _library()
+def build() -> str:
+    """Compile and load the kernel library now (otherwise: at first launch);
+    returns its path."""
+    return _library()._name
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"matmul_s8_requant: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"matmul_s8_requant: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if t.device != device:
-        raise ValueError(f"matmul_s8_requant: {name} is on {t.device}, x on {device}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"matmul_s8_requant: {name} must be contiguous and 16-byte aligned")
+class Plan(NamedTuple):
+    """One launch of K2: output tiles of ``bm`` × ``bn``, K cut into
+    ``split`` slices of whole 128-byte k-tiles (one cluster per tile)."""
+
+    m: int
+    k: int
+    n: int
+    bm: int
+    bn: int
+    split: int
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.m // self.bm) * (self.n // self.bn)
+
+    @property
+    def ctas(self) -> int:
+        return self.tiles * self.split
+
+    def k_slices(self):
+        """[k0, k1) of each split block, as the kernel cuts them."""
+        kt = self.k // K_TILE
+        return [(i * kt // self.split * K_TILE, (i + 1) * kt // self.split * K_TILE)
+                for i in range(self.split)]
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(m: int, k: int, n: int) -> Plan:
+    """The tile and split of K for an (M, K, N) launch.
+
+    Tiles: the largest of ``TILES`` (BN dividing N) that makes at least
+    ``NUM_SMS`` blocks; if none does, the one that makes the most.  K is
+    split only then, when the tiles alone leave SMs idle: into the smallest
+    power of two of slices (at most ``MAX_SPLIT`` and at most K / 128) that
+    makes at least ``NUM_SMS`` blocks, or the largest allowed."""
+    if m < 1 or k < K_TILE or k % K_TILE or n < 128 or n % 128:
+        raise ValueError(f"matmul_s8_requant: needs K % 128 == 0 and N % 128 == 0, got M={m} K={k} N={n}")
+    plans = [Plan(m, k, n, bm, bn, 1) for bm, bn in TILES if n % bn == 0]
+    full = [p for p in plans if p.tiles >= NUM_SMS]
+    if full:
+        return full[0]
+    plan = max(plans, key=lambda p: p.tiles)  # first of the largest on a tie
+    split = 1
+    while plan.tiles * split < NUM_SMS and split * 2 <= min(MAX_SPLIT, k // K_TILE):
+        split *= 2
+    return plan._replace(split=split)
+
+
+def _diagnose(x, w_nk, scale, bias, residual, rs, m, n, k) -> None:
+    """Raises the error that names the operand the kernel cannot take."""
+    operands = [("x", x, torch.int8, (m, k)), ("w", w_nk, torch.int8, (n, k)),
+                ("scale", scale, torch.float32, (n,)), ("bias", bias, torch.float32, (n,))]
+    if residual is not None:
+        operands.append(("residual", residual, torch.int8, (m, n)))
+        if rs.numel() != 1:
+            operands.append(("res_scale", rs, torch.float32, (n,)))
+    for name, t, dtype, shape in operands:
+        if t.dtype != dtype:
+            raise TypeError(f"matmul_s8_requant: {name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"matmul_s8_requant: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if t.device != x.device:
+            raise ValueError(f"matmul_s8_requant: {name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"matmul_s8_requant: {name} must be contiguous and 16-byte aligned")
+    raise AssertionError("matmul_s8_requant: operands rejected without a reason")
 
 
 def matmul_s8_requant(
@@ -76,42 +144,55 @@ def matmul_s8_requant(
 
     The kernel reads w as [N, K] (K contiguous): pass ``w`` as the
     transposed view of a contiguous [N, K] tensor (``w_nk.t()``) and no copy
-    is made."""
+    is made.  A scalar ``res_scale`` is read by the kernel where it lies."""
     global launches
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return matmul_s8_requant_plain(
             x, w, scale, bias, relu=relu, residual=residual, res_scale=res_scale
         )
-    if x.device.type != "cuda":
-        raise ValueError(f"matmul_s8_requant: unsupported device {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"matmul_s8_requant: unsupported device {dev}")
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"matmul_s8_requant: x {tuple(x.shape)} and w {tuple(w.shape)} do not chain")
     m, k = x.shape
     n = w.shape[1]
-    if m < 1 or n % 128 or k % 64:
-        raise ValueError(f"matmul_s8_requant: needs N % 128 == 0 and K % 64 == 0, got M={m} K={k} N={n}")
-    dev = x.device
+    plan = launch_plan(m, k, n)
     w_nk = w.t().contiguous()
-    _check("x", x, torch.int8, (m, k), dev)
-    _check("w", w_nk, torch.int8, (n, k), dev)
-    _check("scale", scale, torch.float32, (n,), dev)
-    _check("bias", bias, torch.float32, (n,), dev)
-    res_ptr = rs_ptr = None
+    operands = [x, w_nk, scale, bias]
+    rs = None
     if residual is not None:
         if res_scale is None:
             raise ValueError("matmul_s8_requant: a residual needs res_scale")
-        rs = torch.as_tensor(res_scale, dtype=torch.float32, device=dev)
-        rs = rs.reshape(-1).expand(n).contiguous() if rs.numel() == 1 else rs
-        _check("residual", residual, torch.int8, (m, n), dev)
-        _check("res_scale", rs, torch.float32, (n,), dev)
-        res_ptr, rs_ptr = residual.data_ptr(), rs.data_ptr()
+        rs = res_scale
+        if not (isinstance(rs, torch.Tensor) and rs.dtype == torch.float32 and rs.device == dev):
+            rs = torch.as_tensor(rs, dtype=torch.float32, device=dev)
+        operands.append(residual)
+        if rs.numel() != 1:  # a single value is read where it lies
+            operands.append(rs)
+    # one pass over the operands; _diagnose names the one that fails
+    ok = (
+        x.dtype == w_nk.dtype == torch.int8 and scale.dtype == bias.dtype == torch.float32
+        and scale.shape == bias.shape == (n,)
+        and all(t.device == dev and t.is_contiguous() and t.data_ptr() % 16 == 0 for t in operands)
+    )
+    if residual is not None:
+        ok = ok and residual.dtype == torch.int8 and residual.shape == (m, n) and (
+            rs.numel() == 1 or rs.shape == (n,))
+    if not ok:
+        _diagnose(x, w_nk, scale, bias, residual, rs, m, n, k)
     out = torch.empty((m, n), dtype=torch.int8, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _library().ecw_matmul_s8_requant(
-            x.data_ptr(), w_nk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            res_ptr, rs_ptr, out.data_ptr(), m, n, k, int(relu), stream,
-        )
+    args = (
+        x.data_ptr(), w_nk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        None if rs is None else residual.data_ptr(), None if rs is None else rs.data_ptr(),
+        0 if rs is None or rs.numel() == 1 else 1, out.data_ptr(),
+        m, n, k, int(relu), plan.bm, plan.bn, plan.split,
+    )
+    if dev.index == torch.cuda.current_device():
+        err = _library().ecw_matmul_s8_requant(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = _library().ecw_matmul_s8_requant(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"matmul_s8 kernel launch failed: CUDA error {err}")
     launches += 1
