@@ -14,7 +14,7 @@ A2. holds the fused s8 matmul + requant kernel K2 (csrc/matmul_s8.cu)
     against its plain version at every shape the int8 ResNet-50 scorer
     gives it (22 launches per chunk of 8 keyword maps at 150x750, 9
     distinct shapes) and four ragged M that take each kind of launch plan
-    (BM = 64, BN = 256, K split in 2 and in 4), with ReLU on and off,
+    (BM = 64, BM = 128, K split in 2, M = 1 with K split in 8), with ReLU on and off,
     without a residual and with one scaled by an [N] or a 0-d res_scale:
     zero differing int8 codes allowed, and two launches of a split-K plan
     give identical bytes; the int8 runs of B and D record the shapes they
@@ -196,15 +196,15 @@ def _k2_inputs(rng, m, k, n, residual, device):
     return x, w_nk.t(), scale, bias, res
 
 
-# ragged M, one per plan kind: BM = 64; BM = 128 with BN = 256; split K in 2 and in 4
-K2_RAGGED = [(14293, 512, 128), (14293, 128, 512), (3761, 1024, 256), (961, 2048, 512)]
+# ragged M, one per kind of launch plan: BM = 64; BM = 128; K split in 2; M = 1 with K split in 8
+K2_RAGGED = [(14293, 512, 128), (3761, 256, 1024), (961, 2048, 512), (1, 2048, 512)]
 
 
 def _plan_text(m, k, n) -> str:
     from enhance_cb_whisper_tpu_torch.ops.matmul_s8_cuda import launch_plan
 
     p = launch_plan(m, k, n)
-    return f"tile {p.bm}x{p.bn}, split {p.split}, {p.ctas} CTAs"
+    return f"tile {p.bm}x128, split {p.split}, {p.ctas} CTAs"
 
 
 def phase_a2(device, shapes):

@@ -11,32 +11,39 @@
 // Bound: device-memory bytes.  At the scorer's shapes (K, N in 128..2048,
 // M in 960..57152) the work is 2*M*N*K int8 ops against M*K + N*K + M*N
 // (+ M*N residual) bytes, below the H100's int8 ridge of ~590 op/B
-// (1,979 TOP/s over 3.35 TB/s), so the least time is the bytes'.  The
-// design keeps as many bytes in flight as the card needs, on every SM:
+// (1,979 TOP/s over 3.35 TB/s), so the least time is the bytes'.  Each
+// launch moves only a few MB, so fixed costs per block (pipeline fill,
+// epilogue, store drain) weigh as much as the streaming rate.  The four
+// design points and what each does about it:
 //   1. TMA ring + wgmma (done).  One producer warp issues TMA loads of
-//      [BM x 128 B] tiles of x and [BN x 128 B] tiles of w (kept [N, K],
+//      [BM x 128 B] tiles of x and [128 x 128 B] tiles of w (kept [N, K],
 //      K contiguous) into a ring of up to 4 stages with full/empty
 //      mbarriers; one or two consumer warpgroups run
-//      wgmma.m64n{128,256}k32.s32.s8.s8 on them straight from shared
-//      memory (128-byte swizzle, both operands K-major).  TMA zero-fills
-//      rows past M, so the main loop has no masking.  A ring of only as
-//      many stages as the block has k-tiles leaves room for more blocks on
-//      an SM, which overlap one block's epilogue with another's loads.
+//      wgmma.m64n128k32.s32.s8.s8 on them straight from shared memory
+//      (128-byte swizzle, both operands K-major).  TMA zero-fills rows
+//      past M, so the main loop has no masking.  The ring has only as many
+//      stages as the block has k-tiles, which leaves room for two or more
+//      blocks per SM: one block's epilogue overlaps another's loads.
 //   2. Epilogue through shared memory (done).  The residual tile is
-//      TMA-loaded at block start, into the buffer the output is staged in,
-//      so it arrives during the main loop; the requant runs on the int32
-//      accumulators in registers and writes the int8 tile in place of the
-//      residual, and TMA stores it (rows past M clipped): full 128-byte
-//      lines instead of 2-byte stores at row stride N.
+//      TMA-loaded at block start into the buffer the output is staged in,
+//      so it arrives during the main loop.  The requant runs on the int32
+//      accumulators in registers, with its column parameters staged in
+//      shared memory and its int<->float conversions done by float adds
+//      (the SM's conversion unit runs at an eighth of the add rate); the
+//      int8 tile is written in place of the residual and TMA-stored (rows
+//      past M clipped): full 128-byte lines instead of 2-byte stores at row
+//      stride N.
 //   3. Planned tiles with exact split-K (done).  The wrapper's launch_plan
-//      picks BM in {64, 128}, BN in {128, 256} and a split of K per shape,
-//      so the small-M shapes fill the 132 SMs.  The split blocks of one
-//      output tile form a thread-block cluster; each adds its int32 partial
-//      sums into the first block's through distributed shared memory, and
-//      only that block runs the epilogue.  Integer sums are exact in any
+//      picks BM in {64, 128} and a split of K per shape.  The split blocks
+//      of one output tile form a thread-block cluster; each hands its int32
+//      partial sums to the first block through distributed shared memory,
+//      and only that block runs the epilogue.  Integer sums are exact in any
 //      order (|acc| <= 127^2 * 2048 < 2^31), so a split changes no code and
 //      the result is deterministic, inside one launch, with no workspace.
-//   4. Persistent schedule (not done): one block per SM walking the tiles.
+//   4. Persistent schedule (tried, not kept): one block per SM walking its
+//      tiles, with the ring running across tiles and triple-buffered
+//      staging, was slower at every main-path shape than blocks that each
+//      take one tile, two or more to an SM.
 //
 // Bit-exactness with the plain version (separate f32 multiply, add, add,
 // max, round-half-even, clip): the epilogue uses __fmul_rn / __fadd_rn, which
@@ -53,8 +60,10 @@ namespace {
 using namespace hopper;
 
 constexpr int kBK = 128;       // bytes of K per stage: one 128-byte swizzle row
+constexpr int kBN = 128;       // output columns per tile: one m64n128k32 wgmma per 32 bytes of K
 constexpr int kMaxStages = 4;
 constexpr int kMaxSplit = 8;   // the portable cluster size
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may use on sm_90
 
 struct Params {
   const float* scale;
@@ -68,66 +77,100 @@ struct Params {
   int relu;
 };
 
-__device__ __forceinline__ int8_t requant(int acc, float s, float b, bool has_res, int r, float rs,
-                                          bool relu) {
+// 1.5 * 2^23: between 2^23 and 2^24 a float's unit in the last place is 1,
+// so adding it to a float in [-2^22, 2^22] rounds to an integer (half to
+// even) and leaves that integer in the low bits of the result.  The
+// epilogue converts with it in full-rate float adds: an SM converts only
+// 16 values a clock between int and float, an eighth of its add rate.
+constexpr float kMagic = 12582912.0f;
+constexpr int kMagicBits = 0x4B400000;
+
+// the int8 code of one output element, in the low byte of the result:
+// clip(round(relu(acc * s + b [+ r * rs])), -127, 127), every step rounded
+// to f32 as the plain version does (no fma contraction)
+__device__ __forceinline__ int requant(int acc, float s, float b, bool has_res, int r, float rs,
+                                       bool relu) {
   float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), s), b);
-  if (has_res) y = __fadd_rn(y, __fmul_rn(static_cast<float>(r), rs));
+  if (has_res) {
+    const float rf = __int_as_float(kMagicBits + r) - kMagic;  // exact for |r| < 2^22
+    y = __fadd_rn(y, __fmul_rn(rf, rs));
+  }
   if (relu) y = fmaxf(y, 0.0f);
-  int q = __float2int_rn(y);
-  q = q < -127 ? -127 : (q > 127 ? 127 : q);
-  return static_cast<int8_t>(q);
+  // clipping before rounding gives the same code: round is monotonic and
+  // fixes the integers +-127
+  y = fminf(fmaxf(y, -127.0f), 127.0f);
+  return __float_as_int(__fadd_rn(y, kMagic));  // low byte: round-half-even(y)
 }
 
-template <int BN>
-__device__ __forceinline__ void wgmma_tile(int (&acc)[BN / 2], uint64_t da, uint64_t db) {
-  if constexpr (BN == 128) wgmma_m64n128k32_s8(acc, da, db);
-  else wgmma_m64n256k32_s8(acc, da, db);
-}
-
-template <int BM, int BN>
+template <int BM>
 constexpr int kThreads = BM / 64 * 128 + 32;  // consumer warpgroups, then the producer warp
 
-template <int BM, int BN>
-__global__ void __launch_bounds__(kThreads<BM, BN>)
+template <int BM>
+__global__ void __launch_bounds__(kThreads<BM>)
 matmul_s8_requant_kernel(const __grid_constant__ CUtensorMap map_x,
                          const __grid_constant__ CUtensorMap map_w,
                          const __grid_constant__ CUtensorMap map_res,
                          const __grid_constant__ CUtensorMap map_out, const Params p) {
   constexpr int kConsumers = BM / 64 * 128;
-  constexpr int kR = BN / 2;  // int32 accumulators per consumer thread
-  constexpr int kA = BM * kBK, kB = BN * kBK;
+  constexpr int kR = kBN / 2;  // int32 accumulators per consumer thread
+  constexpr int kA = BM * kBK, kB = kBN * kBK;
 
   // shared memory, from a 1024-byte boundary (the swizzle atom):
-  //   ring     stages x [BM][128 B] of x, then stages x [BN][128 B] of w;
+  //   ring     stages x [BM][128 B] of x, then stages x [128][128 B] of w;
   //            after the main loop of a split block, its int32 partials
-  //   tile     [BN / 128][BM][128 B], 128-byte swizzled: residual in, codes out
+  //   tile     [BM][128 B], 128-byte swizzled: residual in, codes out
+  //   columns  scale, bias and res_scale of the tile's 128 columns, f32
   //   barriers full[kMaxStages], empty[kMaxStages], residual
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const int stages = p.stages;
   const int ring = stages * (kA + kB);
-  const int part = p.split > 1 ? BM * BN * 4 : 0;
+  const int part = p.split > 1 ? BM * kBN * 4 : 0;
   uint8_t* tile = smem + (ring > part ? ring : part);
   const uint32_t a_ring = smem_addr(smem), b_ring = a_ring + stages * kA;
-  const uint32_t bars = smem_addr(tile + BM * BN);
+  float* cols = reinterpret_cast<float*>(tile + kA);
+  const uint32_t bars = smem_addr(cols + 3 * kBN);
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (kMaxStages + s); };
   const uint32_t res_bar = bars + 8 * 2 * kMaxStages;
 
   const int tid = threadIdx.x;
   const bool has_res = p.res_scale != nullptr;
-  const int n0 = blockIdx.y * BN, m0 = blockIdx.z * BM;
+  const int n0 = blockIdx.y * kBN, m0 = blockIdx.z * BM;
   const int kt0 = blockIdx.x * p.k_tiles / p.split;
   const int nk = (blockIdx.x + 1) * p.k_tiles / p.split - kt0;
   const bool leader = blockIdx.x == 0;  // cluster (split, 1, 1): rank == blockIdx.x
 
-  if (tid == 0) {
+  // start-up: the producer thread sets up the barriers and issues the
+  // residual and the first ring of loads at once, while the consumers bring
+  // the epilogue's column parameters into shared memory (read from global
+  // memory inside the epilogue, each load would wait for the code stores
+  // before it); the block barrier then publishes both
+  const int first = nk < stages ? nk : stages;
+  if (tid == kConsumers) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), kConsumers / 32);
     }
     mbar_init(res_bar, 1);
     fence_barrier_init();
+    prefetch_tensormap(&map_x);
+    prefetch_tensormap(&map_w);
+    if (has_res && leader) {
+      mbar_arrive_expect_tx(res_bar, kA);
+      tma_load_2d(smem_addr(tile), &map_res, res_bar, n0, m0);
+    }
+    for (int i = 0; i < first; ++i) {
+      mbar_arrive_expect_tx(full(i), kA + kB);
+      tma_load_2d(a_ring + i * kA, &map_x, full(i), (kt0 + i) * kBK, m0);
+      tma_load_2d(b_ring + i * kB, &map_w, full(i), (kt0 + i) * kBK, n0);
+    }
+  } else if (tid < kConsumers) {
+    for (int c = tid; c < kBN; c += kConsumers) {
+      cols[c] = p.scale[n0 + c];
+      cols[kBN + c] = p.bias[n0 + c];
+      if (has_res) cols[2 * kBN + c] = p.res_scale[p.rs_stride * (n0 + c)];
+    }
   }
   __syncthreads();
 
@@ -135,15 +178,9 @@ matmul_s8_requant_kernel(const __grid_constant__ CUtensorMap map_x,
   if (tid >= kConsumers) {
     // producer warp: one thread keeps the ring full
     if (tid == kConsumers) {
-      if (has_res && leader) {
-        mbar_arrive_expect_tx(res_bar, BM * BN);
-#pragma unroll
-        for (int j = 0; j < BN / 128; ++j)
-          tma_load_2d(smem_addr(tile + j * kA), &map_res, res_bar, n0 + 128 * j, m0);
-      }
-      for (int i = 0; i < nk; ++i) {
+      for (int i = first; i < nk; ++i) {
         const int s = i % stages;
-        if (i >= stages) mbar_wait(empty(s), ((i / stages) - 1) & 1);
+        mbar_wait(empty(s), ((i / stages) - 1) & 1);
         mbar_arrive_expect_tx(full(s), kA + kB);
         tma_load_2d(a_ring + s * kA, &map_x, full(s), (kt0 + i) * kBK, m0);
         tma_load_2d(b_ring + s * kB, &map_w, full(s), (kt0 + i) * kBK, n0);
@@ -163,7 +200,7 @@ matmul_s8_requant_kernel(const __grid_constant__ CUtensorMap map_x,
       const uint64_t db = desc_k_sw128(b_ring + s * kB);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBK / 32; ++kk) wgmma_tile<BN>(acc, da + 2 * kk, db + 2 * kk);
+      for (int kk = 0; kk < kBK / 32; ++kk) wgmma_m64n128k32_s8(acc, da + 2 * kk, db + 2 * kk);
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
@@ -178,6 +215,8 @@ matmul_s8_requant_kernel(const __grid_constant__ CUtensorMap map_x,
     // reads exactly the values its counterpart wrote
     int4* part4 = reinterpret_cast<int4*>(smem);
     if (tid < kConsumers && !leader) {
+      // the partials overwrite the ring: every warpgroup's wgmma must be done with it
+      named_barrier_sync(1, kConsumers);
       fence_proxy_async_shared();  // the ring was last written by TMA
 #pragma unroll
       for (int q = 0; q < kR / 4; ++q)
@@ -204,43 +243,46 @@ matmul_s8_requant_kernel(const __grid_constant__ CUtensorMap map_x,
 
   // epilogue.  wgmma's accumulator layout: register 4j + 2h + e of thread
   // (warp w, lane l) of warpgroup wg holds row 64 wg + 16 w + l / 4 + 8 h,
-  // column 8 j + 2 (l % 4) + e.
+  // column 8 j + 2 (l % 4) + e.  First every load and the requant, each
+  // code pair kept in place of its accumulators, then every store, so no
+  // load waits behind a store.
   if (has_res) mbar_wait(res_bar, 0);
   const int lane = tid & 31;
   const int row0 = tid / 128 * 64 + (tid / 32 % 4) * 16 + (lane >> 2);
+  auto cell = [&](int j, int h) {  // the 128B-swizzled address of (row, col)
+    const int row = row0 + 8 * h, col = j * 8 + (lane & 3) * 2;
+    return reinterpret_cast<uint16_t*>(tile + row * 128 + ((((col >> 4) ^ (row & 7)) << 4) | (col & 15)));
+  };
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
+  for (int j = 0; j < kBN / 8; ++j) {
     const int col = j * 8 + (lane & 3) * 2;
-    const float2 sc = *reinterpret_cast<const float2*>(p.scale + n0 + col);
-    const float2 bi = *reinterpret_cast<const float2*>(p.bias + n0 + col);
-    float2 rs = make_float2(0.0f, 0.0f);
-    if (has_res)
-      rs = p.rs_stride ? *reinterpret_cast<const float2*>(p.res_scale + n0 + col)
-                       : make_float2(p.res_scale[0], p.res_scale[0]);
+    const float2 sc = *reinterpret_cast<const float2*>(cols + col);
+    const float2 bi = *reinterpret_cast<const float2*>(cols + kBN + col);
+    const float2 rs = has_res ? *reinterpret_cast<const float2*>(cols + 2 * kBN + col) : make_float2(0.0f, 0.0f);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = row0 + 8 * h;
-      const int cc = col & 127;  // the 128B-swizzled address of (row, col)
-      char2* cell = reinterpret_cast<char2*>(tile + (col >> 7) * kA + row * 128 +
-                                             ((((cc >> 4) ^ (row & 7)) << 4) | (cc & 15)));
       int r0 = 0, r1 = 0;
       if (has_res) {
-        const char2 r = *cell;
+        const char2 r = *reinterpret_cast<const char2*>(cell(j, h));
         r0 = r.x;
         r1 = r.y;
       }
-      char2 q;
-      q.x = requant(acc[4 * j + 2 * h], sc.x, bi.x, has_res, r0, rs.x, p.relu);
-      q.y = requant(acc[4 * j + 2 * h + 1], sc.y, bi.y, has_res, r1, rs.y, p.relu);
-      *cell = q;
+      const int q0 = requant(acc[4 * j + 2 * h], sc.x, bi.x, has_res, r0, rs.x, p.relu);
+      const int q1 = requant(acc[4 * j + 2 * h + 1], sc.y, bi.y, has_res, r1, rs.y, p.relu);
+      acc[4 * j + 2 * h] = __byte_perm(q0, q1, 0x0040);  // low bytes of q0 and q1
     }
   }
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) *cell(j, h) = static_cast<uint16_t>(acc[4 * j + 2 * h]);
   fence_proxy_async_shared();
   named_barrier_sync(1, kConsumers);
   if (tid == 0) {
 #pragma unroll
-    for (int j = 0; j < BN / 128; ++j) tma_store_2d(&map_out, smem_addr(tile + j * kA), n0 + 128 * j, m0);
-    tma_store_commit_and_wait_read();
+    tma_store_2d(&map_out, smem_addr(tile), n0, m0);
+    tma_store_commit();
+    tma_store_wait_read<0>();
   }
 }
 
@@ -278,21 +320,26 @@ bool tile_map(EncodeTiled encode, CUtensorMap* map, const void* base, int rows, 
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BM, int BN>
+// dynamic shared memory of a block, laid out as the kernel's comment says
+int smem_bytes(int bm, int stages, int split) {
+  const int ring = stages * (bm + kBN) * kBK;
+  const int part = split > 1 ? bm * kBN * 4 : 0;
+  return 1024 + (ring > part ? ring : part) + bm * kBK + 3 * kBN * 4 + 8 * (2 * kMaxStages + 1);
+}
+
+template <int BM>
 cudaError_t launch(const void* x, const void* w_nk, const void* residual, void* out, int N, int K,
                    const Params& p, cudaStream_t stream) {
   EncodeTiled encode = encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap map_x, map_w, map_res, map_out;
-  if (!tile_map(encode, &map_x, x, p.M, K, BM) || !tile_map(encode, &map_w, w_nk, N, K, BN) ||
+  if (!tile_map(encode, &map_x, x, p.M, K, BM) || !tile_map(encode, &map_w, w_nk, N, K, kBN) ||
       !tile_map(encode, &map_out, out, p.M, N, BM) ||
       !tile_map(encode, &map_res, residual != nullptr ? residual : out, p.M, N, BM))
     return cudaErrorInvalidValue;
 
-  auto kernel = matmul_s8_requant_kernel<BM, BN>;
-  const int ring = p.stages * (BM + BN) * kBK;
-  const int part = p.split > 1 ? BM * BN * 4 : 0;
-  const int smem = 1024 + (ring > part ? ring : part) + BM * BN + 8 * (2 * kMaxStages + 1);
+  auto kernel = matmul_s8_requant_kernel<BM>;
+  const int smem = smem_bytes(BM, p.stages, p.split);
   static int allowed = 0;  // dynamic shared memory this kernel may take, set once per size
   if (smem > allowed) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -300,8 +347,8 @@ cudaError_t launch(const void* x, const void* w_nk, const void* residual, void* 
     allowed = smem;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.split, N / BN, (p.M + BM - 1) / BM);
-  cfg.blockDim = dim3(kThreads<BM, BN>);
+  cfg.gridDim = dim3(p.split, N / kBN, (p.M + BM - 1) / BM);
+  cfg.blockDim = dim3(kThreads<BM>);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute cluster[1];
@@ -322,36 +369,32 @@ extern "C" {
 
 // x [M, K], w_nk [N, K], out [M, N] and residual [M, N] int8, scale and bias
 // [N] f32, res_scale [N] (rs_stride 1) or a single f32 (rs_stride 0);
-// residual and res_scale both null for the plain epilogue.  (bm, bn, split)
-// is the wrapper's launch plan: bm in {64, 128}, bn in {128, 256}, N % bn
-// == 0, K % 128 == 0, 1 <= split <= min(8, K / 128).  Every pointer is
-// 16-byte aligned.  A bad shape or plan returns cudaErrorInvalidValue and
-// launches nothing; otherwise returns the launch's error code.
+// residual and res_scale both null for the plain epilogue.  (bm, split) is
+// the wrapper's launch plan: output tiles of bm x 128 with bm in {64, 128},
+// K cut into 1 <= split <= min(8, K / 128) slices.  N % 128 == 0, K % 128
+// == 0, every pointer 16-byte aligned.  A bad shape or plan returns
+// cudaErrorInvalidValue and launches nothing; otherwise returns the
+// launch's error code.
 int ecw_matmul_s8_requant(const void* x, const void* w_nk, const void* scale, const void* bias,
                           const void* residual, const void* res_scale, int rs_stride, void* out, int M,
-                          int N, int K, int relu, int bm, int bn, int split, void* stream) {
+                          int N, int K, int relu, int bm, int split, void* stream) {
   const int k_tiles = K / kBK;
-  const bool plan_ok = (bm == 64 || bm == 128) && (bn == 128 || bn == 256) && split >= 1 &&
-                       split <= kMaxSplit && split <= k_tiles;
-  const bool shape_ok = M >= 1 && N >= bn && N % bn == 0 && K >= kBK && K % kBK == 0 &&
+  const bool plan_ok = (bm == 64 || bm == 128) && split >= 1 && split <= kMaxSplit && split <= k_tiles;
+  const bool shape_ok = M >= 1 && N >= kBN && N % kBN == 0 && K >= kBK && K % kBK == 0 &&
                         (M + bm - 1) / bm <= 65535;
   const bool args_ok = (residual == nullptr) == (res_scale == nullptr) && (rs_stride == 0 || rs_stride == 1) &&
                        aligned16(x) && aligned16(w_nk) && aligned16(scale) && aligned16(bias) &&
                        aligned16(residual) && aligned16(out) && (rs_stride == 0 || aligned16(res_scale));
   if (!plan_ok || !shape_ok || !args_ok) return cudaErrorInvalidValue;
+  // as many stages as the block has k-tiles, up to 4 and to what fits
   const int per_split = (k_tiles + split - 1) / split;
+  int stages = per_split < kMaxStages ? per_split : kMaxStages;
+  while (stages > 1 && smem_bytes(bm, stages, split) > kSmemLimit) --stages;
   Params p{static_cast<const float*>(scale), static_cast<const float*>(bias),
-           static_cast<const float*>(res_scale), rs_stride, M, k_tiles, split,
-           per_split < kMaxStages ? per_split : kMaxStages, relu};
+           static_cast<const float*>(res_scale), rs_stride, M, k_tiles, split, stages, relu};
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (bm == 64) {
-    err = bn == 128 ? launch<64, 128>(x, w_nk, residual, out, N, K, p, s)
-                    : launch<64, 256>(x, w_nk, residual, out, N, K, p, s);
-  } else {
-    err = bn == 128 ? launch<128, 128>(x, w_nk, residual, out, N, K, p, s)
-                    : launch<128, 256>(x, w_nk, residual, out, N, K, p, s);
-  }
+  const cudaError_t err = bm == 64 ? launch<64>(x, w_nk, residual, out, N, K, p, s)
+                                   : launch<128>(x, w_nk, residual, out, N, K, p, s);
   cudaGetLastError();  // clear it: the returned code reports this launch
   return static_cast<int>(err);
 }

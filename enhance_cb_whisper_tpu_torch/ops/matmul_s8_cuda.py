@@ -10,7 +10,7 @@ accumulators and the whole requant epilogue on chip, and stores int8 tiles
 with TMA (1 B read and 1 B written per activation element).  Its shape
 rule is the JAX kernel's: K and N multiples of 128; any M ≥ 1.
 
-:func:`launch_plan` picks the tile and the split of K for each (M, K, N);
+:func:`launch_plan` picks the tile height and the split of K for each (M, K, N);
 the split blocks of a tile sum their partials inside the one launch, so
 every call is one launch.  The library is compiled from the repository's
 sources with ``nvcc`` at first use (:mod:`..build`) and bound with
@@ -35,9 +35,8 @@ launches = 0
 
 NUM_SMS = 132  # H100 SXM
 K_TILE = 128  # bytes of K per pipeline stage
+BN = 128  # output columns per tile
 MAX_SPLIT = 8  # blocks of one cluster
-# tile shapes (BM, BN), largest first: fewer, larger tiles re-read less
-TILES = ((128, 256), (128, 128), (64, 256), (64, 128))
 
 _lib = None
 
@@ -49,7 +48,7 @@ def _library():
 
         lib = ctypes.CDLL(str(build_library("matmul_s8.cu", extra_flags=("-Xptxas=-v",))))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ecw_matmul_s8_requant.argtypes = [p] * 6 + [i, p] + [i] * 7 + [p]
+        lib.ecw_matmul_s8_requant.argtypes = [p] * 6 + [i, p] + [i] * 6 + [p]
         lib.ecw_matmul_s8_requant.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -62,19 +61,19 @@ def build() -> str:
 
 
 class Plan(NamedTuple):
-    """One launch of K2: output tiles of ``bm`` × ``bn``, K cut into
-    ``split`` slices of whole 128-byte k-tiles (one cluster per tile)."""
+    """One launch of K2: output tiles of ``bm`` × 128, K cut into ``split``
+    slices of whole 128-byte k-tiles (the split blocks of a tile form one
+    cluster)."""
 
     m: int
     k: int
     n: int
     bm: int
-    bn: int
     split: int
 
     @property
     def tiles(self) -> int:
-        return -(-self.m // self.bm) * (self.n // self.bn)
+        return -(-self.m // self.bm) * (self.n // BN)
 
     @property
     def ctas(self) -> int:
@@ -89,22 +88,22 @@ class Plan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def launch_plan(m: int, k: int, n: int) -> Plan:
-    """The tile and split of K for an (M, K, N) launch.
+    """The tile height and the split of K for an (M, K, N) launch.
 
-    Tiles: the largest of ``TILES`` (BN dividing N) that makes at least
-    ``NUM_SMS`` blocks; if none does, the one that makes the most.  K is
-    split only then, when the tiles alone leave SMs idle: into the smallest
-    power of two of slices (at most ``MAX_SPLIT`` and at most K / 128) that
-    makes at least ``NUM_SMS`` blocks, or the largest allowed."""
-    if m < 1 or k < K_TILE or k % K_TILE or n < 128 or n % 128:
+    BM = 128 (two consumer warpgroups, w read half as often) where that
+    still makes at least ``NUM_SMS`` tiles and each tile has two or more
+    k-tiles; else BM = 64, whose smaller blocks fit more to an SM.  K is
+    split only where the tiles fill fewer than half the SMs: into the
+    smallest power of two of slices (at most ``MAX_SPLIT`` and at most
+    K / 128) that fills half of them.  On the H100, splitting at 118 tiles
+    was slower than not, and the cluster's reduction costs about what the
+    extra blocks gain at 60 tiles (PERF.md)."""
+    if m < 1 or k < K_TILE or k % K_TILE or n < BN or n % BN:
         raise ValueError(f"matmul_s8_requant: needs K % 128 == 0 and N % 128 == 0, got M={m} K={k} N={n}")
-    plans = [Plan(m, k, n, bm, bn, 1) for bm, bn in TILES if n % bn == 0]
-    full = [p for p in plans if p.tiles >= NUM_SMS]
-    if full:
-        return full[0]
-    plan = max(plans, key=lambda p: p.tiles)  # first of the largest on a tie
+    tall = Plan(m, k, n, 128, 1)
+    plan = tall if k >= 2 * K_TILE and tall.tiles >= NUM_SMS else Plan(m, k, n, 64, 1)
     split = 1
-    while plan.tiles * split < NUM_SMS and split * 2 <= min(MAX_SPLIT, k // K_TILE):
+    while 2 * plan.tiles * split < NUM_SMS and split * 2 <= min(MAX_SPLIT, k // K_TILE):
         split *= 2
     return plan._replace(split=split)
 
@@ -158,41 +157,47 @@ def matmul_s8_requant(
     m, k = x.shape
     n = w.shape[1]
     plan = launch_plan(m, k, n)
-    w_nk = w.t().contiguous()
-    operands = [x, w_nk, scale, bias]
+    # w as the [K, N] view of a contiguous [N, K] tensor, whose storage the kernel reads
+    w_kn = w if w.stride() == (1, k) else w.t().contiguous().t()
+    idx = dev.index
+    tensors = [x, w_kn, scale, bias]
+    res_ptr = rs_ptr = None
     rs = None
+    rs_stride = 0
     if residual is not None:
         if res_scale is None:
             raise ValueError("matmul_s8_requant: a residual needs res_scale")
         rs = res_scale
-        if not (isinstance(rs, torch.Tensor) and rs.dtype == torch.float32 and rs.device == dev):
+        if not (isinstance(rs, torch.Tensor) and rs.dtype is torch.float32 and rs.get_device() == idx):
             rs = torch.as_tensor(rs, dtype=torch.float32, device=dev)
-        operands.append(residual)
-        if rs.numel() != 1:  # a single value is read where it lies
-            operands.append(rs)
+        rs_stride = 0 if rs.numel() == 1 else 1  # a single value is read where it lies
+        tensors += [residual, rs] if rs_stride else [residual]
+        res_ptr, rs_ptr = residual.data_ptr(), rs.data_ptr()
     # one pass over the operands; _diagnose names the one that fails
     ok = (
-        x.dtype == w_nk.dtype == torch.int8 and scale.dtype == bias.dtype == torch.float32
+        x.dtype is torch.int8 and w_kn.dtype is torch.int8
+        and scale.dtype is torch.float32 and bias.dtype is torch.float32
         and scale.shape == bias.shape == (n,)
-        and all(t.device == dev and t.is_contiguous() and t.data_ptr() % 16 == 0 for t in operands)
+        and all(t.get_device() == idx and t.data_ptr() % 16 == 0 for t in tensors)
+        and x.is_contiguous() and scale.is_contiguous() and bias.is_contiguous()
     )
     if residual is not None:
-        ok = ok and residual.dtype == torch.int8 and residual.shape == (m, n) and (
-            rs.numel() == 1 or rs.shape == (n,))
+        ok = ok and (residual.dtype is torch.int8 and residual.shape == (m, n) and residual.is_contiguous()
+                     and (rs_stride == 0 or (rs.shape == (n,) and rs.is_contiguous())))
     if not ok:
-        _diagnose(x, w_nk, scale, bias, residual, rs, m, n, k)
+        _diagnose(x, w_kn.t(), scale, bias, residual, rs, m, n, k)
     out = torch.empty((m, n), dtype=torch.int8, device=dev)
     args = (
-        x.data_ptr(), w_nk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        None if rs is None else residual.data_ptr(), None if rs is None else rs.data_ptr(),
-        0 if rs is None or rs.numel() == 1 else 1, out.data_ptr(),
-        m, n, k, int(relu), plan.bm, plan.bn, plan.split,
+        x.data_ptr(), w_kn.data_ptr(), scale.data_ptr(), bias.data_ptr(), res_ptr, rs_ptr, rs_stride,
+        out.data_ptr(), m, n, k, int(relu), plan.bm, plan.split,
     )
-    if dev.index == torch.cuda.current_device():
-        err = _library().ecw_matmul_s8_requant(*args, torch.cuda.current_stream().cuda_stream)
+    # the raw handle of the current stream: torch.cuda.current_stream() would
+    # build a Stream object, which costs more than the rest of this call's checks
+    if idx == torch.cuda.current_device():
+        err = _library().ecw_matmul_s8_requant(*args, torch._C._cuda_getCurrentRawStream(idx))
     else:
         with torch.cuda.device(dev):
-            err = _library().ecw_matmul_s8_requant(*args, torch.cuda.current_stream().cuda_stream)
+            err = _library().ecw_matmul_s8_requant(*args, torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:
         raise RuntimeError(f"matmul_s8 kernel launch failed: CUDA error {err}")
     launches += 1
