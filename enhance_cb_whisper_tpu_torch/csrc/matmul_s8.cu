@@ -87,25 +87,25 @@ constexpr int kMagicBits = 0x4B400000;
 
 // the int8 code of one output element, in the low byte of the result:
 // clip(round(relu(acc * s + b [+ r * rs])), -127, 127), every step rounded
-// to f32 as the plain version does (no fma contraction)
-__device__ __forceinline__ int requant(int acc, float s, float b, bool has_res, int r, float rs,
-                                       bool relu) {
+// to f32 as the plain version does (no fma contraction).  Clipping before
+// rounding gives the same code (round is monotonic and fixes the integers
+// +-127), and ReLU is the clip's lower end moved to 0 (lo = 0, else -127):
+// no branch, so the compiler interleaves all of a thread's elements.
+template <bool kRes>
+__device__ __forceinline__ int requant(int acc, float s, float b, int r, float rs, float lo) {
   float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), s), b);
-  if (has_res) {
+  if constexpr (kRes) {
     const float rf = __int_as_float(kMagicBits + r) - kMagic;  // exact for |r| < 2^22
     y = __fadd_rn(y, __fmul_rn(rf, rs));
   }
-  if (relu) y = fmaxf(y, 0.0f);
-  // clipping before rounding gives the same code: round is monotonic and
-  // fixes the integers +-127
-  y = fminf(fmaxf(y, -127.0f), 127.0f);
+  y = fminf(fmaxf(y, lo), 127.0f);
   return __float_as_int(__fadd_rn(y, kMagic));  // low byte: round-half-even(y)
 }
 
 template <int BM>
 constexpr int kThreads = BM / 64 * 128 + 32;  // consumer warpgroups, then the producer warp
 
-template <int BM>
+template <int BM, bool kRes>
 __global__ void __launch_bounds__(kThreads<BM>)
 matmul_s8_requant_kernel(const __grid_constant__ CUtensorMap map_x,
                          const __grid_constant__ CUtensorMap map_w,
@@ -135,7 +135,6 @@ matmul_s8_requant_kernel(const __grid_constant__ CUtensorMap map_x,
   const uint32_t res_bar = bars + 8 * 2 * kMaxStages;
 
   const int tid = threadIdx.x;
-  const bool has_res = p.res_scale != nullptr;
   const int n0 = blockIdx.y * kBN, m0 = blockIdx.z * BM;
   const int kt0 = blockIdx.x * p.k_tiles / p.split;
   const int nk = (blockIdx.x + 1) * p.k_tiles / p.split - kt0;
@@ -156,7 +155,7 @@ matmul_s8_requant_kernel(const __grid_constant__ CUtensorMap map_x,
     fence_barrier_init();
     prefetch_tensormap(&map_x);
     prefetch_tensormap(&map_w);
-    if (has_res && leader) {
+    if (kRes && leader) {
       mbar_arrive_expect_tx(res_bar, kA);
       tma_load_2d(smem_addr(tile), &map_res, res_bar, n0, m0);
     }
@@ -169,7 +168,7 @@ matmul_s8_requant_kernel(const __grid_constant__ CUtensorMap map_x,
     for (int c = tid; c < kBN; c += kConsumers) {
       cols[c] = p.scale[n0 + c];
       cols[kBN + c] = p.bias[n0 + c];
-      if (has_res) cols[2 * kBN + c] = p.res_scale[p.rs_stride * (n0 + c)];
+      if (kRes) cols[2 * kBN + c] = p.res_scale[p.rs_stride * (n0 + c)];
     }
   }
   __syncthreads();
@@ -246,8 +245,9 @@ matmul_s8_requant_kernel(const __grid_constant__ CUtensorMap map_x,
   // column 8 j + 2 (l % 4) + e.  First every load and the requant, each
   // code pair kept in place of its accumulators, then every store, so no
   // load waits behind a store.
-  if (has_res) mbar_wait(res_bar, 0);
+  if (kRes) mbar_wait(res_bar, 0);
   const int lane = tid & 31;
+  const float lo = p.relu ? 0.0f : -127.0f;
   const int row0 = tid / 128 * 64 + (tid / 32 % 4) * 16 + (lane >> 2);
   auto cell = [&](int j, int h) {  // the 128B-swizzled address of (row, col)
     const int row = row0 + 8 * h, col = j * 8 + (lane & 3) * 2;
@@ -258,17 +258,17 @@ matmul_s8_requant_kernel(const __grid_constant__ CUtensorMap map_x,
     const int col = j * 8 + (lane & 3) * 2;
     const float2 sc = *reinterpret_cast<const float2*>(cols + col);
     const float2 bi = *reinterpret_cast<const float2*>(cols + kBN + col);
-    const float2 rs = has_res ? *reinterpret_cast<const float2*>(cols + 2 * kBN + col) : make_float2(0.0f, 0.0f);
+    const float2 rs = kRes ? *reinterpret_cast<const float2*>(cols + 2 * kBN + col) : make_float2(0.0f, 0.0f);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       int r0 = 0, r1 = 0;
-      if (has_res) {
+      if (kRes) {
         const char2 r = *reinterpret_cast<const char2*>(cell(j, h));
         r0 = r.x;
         r1 = r.y;
       }
-      const int q0 = requant(acc[4 * j + 2 * h], sc.x, bi.x, has_res, r0, rs.x, p.relu);
-      const int q1 = requant(acc[4 * j + 2 * h + 1], sc.y, bi.y, has_res, r1, rs.y, p.relu);
+      const int q0 = requant<kRes>(acc[4 * j + 2 * h], sc.x, bi.x, r0, rs.x, lo);
+      const int q1 = requant<kRes>(acc[4 * j + 2 * h + 1], sc.y, bi.y, r1, rs.y, lo);
       acc[4 * j + 2 * h] = __byte_perm(q0, q1, 0x0040);  // low bytes of q0 and q1
     }
   }
@@ -327,7 +327,7 @@ int smem_bytes(int bm, int stages, int split) {
   return 1024 + (ring > part ? ring : part) + bm * kBK + 3 * kBN * 4 + 8 * (2 * kMaxStages + 1);
 }
 
-template <int BM>
+template <int BM, bool kRes>
 cudaError_t launch(const void* x, const void* w_nk, const void* residual, void* out, int N, int K,
                    const Params& p, cudaStream_t stream) {
   EncodeTiled encode = encoder();
@@ -338,7 +338,7 @@ cudaError_t launch(const void* x, const void* w_nk, const void* residual, void* 
       !tile_map(encode, &map_res, residual != nullptr ? residual : out, p.M, N, BM))
     return cudaErrorInvalidValue;
 
-  auto kernel = matmul_s8_requant_kernel<BM>;
+  auto kernel = matmul_s8_requant_kernel<BM, kRes>;
   const int smem = smem_bytes(BM, p.stages, p.split);
   static int allowed = 0;  // dynamic shared memory this kernel may take, set once per size
   if (smem > allowed) {
@@ -393,8 +393,14 @@ int ecw_matmul_s8_requant(const void* x, const void* w_nk, const void* scale, co
   Params p{static_cast<const float*>(scale), static_cast<const float*>(bias),
            static_cast<const float*>(res_scale), rs_stride, M, k_tiles, split, stages, relu};
   auto s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bm == 64 ? launch<64>(x, w_nk, residual, out, N, K, p, s)
-                                   : launch<128>(x, w_nk, residual, out, N, K, p, s);
+  cudaError_t err;
+  if (residual != nullptr) {
+    err = bm == 64 ? launch<64, true>(x, w_nk, residual, out, N, K, p, s)
+                   : launch<128, true>(x, w_nk, residual, out, N, K, p, s);
+  } else {
+    err = bm == 64 ? launch<64, false>(x, w_nk, residual, out, N, K, p, s)
+                   : launch<128, false>(x, w_nk, residual, out, N, K, p, s);
+  }
   cudaGetLastError();  // clear it: the returned code reports this launch
   return static_cast<int>(err);
 }
