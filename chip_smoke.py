@@ -42,8 +42,7 @@ C.  times K1 and K2 and their plain versions on the card: K1 at
 
 Any failure raises and exits non-zero.  The line before the last is the
 kernel summary as JSON, the last line the device as JSON.  Needs one card;
-there is no CPU fallback.  ``python3 chip_smoke.py --k2`` runs only the
-build, phase A2 and K2's part of phase C, and prints no summary lines.
+there is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -877,12 +876,6 @@ def main() -> int:
     t_start = time.perf_counter()
     build_kernels()
     shapes = k2_launch_shapes(ResNetConfig.from_version("resnet-50", num_channels=12))
-    if "--k2" in sys.argv[1:]:  # K2 alone: build, parity, timings; no summary lines
-        phase_a2(device, shapes)
-        phase_c_k2(device, shapes)
-        print(f"chip_smoke --k2: passed in {time.perf_counter() - t_start:.1f} s")
-        return 0
-
     max_abs_err = phase_a(device)
     mismatches, k2_err = phase_a2(device, shapes)
     phase_b_reference(device)

@@ -148,12 +148,6 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_
 
 // ---- clusters -----------------------------------------------------------
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
 // every thread of every block of the cluster arrives, then waits; shared
 // memory written before it is visible to the cluster's blocks after it
 __device__ __forceinline__ void cluster_sync() {

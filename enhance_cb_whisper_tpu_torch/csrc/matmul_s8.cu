@@ -27,12 +27,13 @@
 //   2. Epilogue through shared memory (done).  The residual tile is
 //      TMA-loaded at block start into the buffer the output is staged in,
 //      so it arrives during the main loop.  The requant runs on the int32
-//      accumulators in registers, with its column parameters staged in
-//      shared memory and its int<->float conversions done by float adds
-//      (the SM's conversion unit runs at an eighth of the add rate); the
-//      int8 tile is written in place of the residual and TMA-stored (rows
-//      past M clipped): full 128-byte lines instead of 2-byte stores at row
-//      stride N.
+//      accumulators in registers without a branch (the kernel is built
+//      with and without a residual; ReLU is a clip bound), so the compiler
+//      interleaves all of a thread's elements; its column parameters are
+//      staged in shared memory first, and all its loads come before its
+//      stores.  The int8 tile is written in place of the residual and
+//      TMA-stored (rows past M clipped): full 128-byte lines instead of
+//      2-byte stores at row stride N.
 //   3. Planned tiles with exact split-K (done).  The wrapper's launch_plan
 //      picks BM in {64, 128} and a split of K per shape.  The split blocks
 //      of one output tile form a thread-block cluster; each hands its int32
@@ -47,7 +48,7 @@
 //
 // Bit-exactness with the plain version (separate f32 multiply, add, add,
 // max, round-half-even, clip): the epilogue uses __fmul_rn / __fadd_rn, which
-// nvcc never contracts into an fma, and __float2int_rn (half to even).
+// nvcc never contracts into an fma, and rounds half to even (see requant).
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_runtime.h>
@@ -79,9 +80,9 @@ struct Params {
 
 // 1.5 * 2^23: between 2^23 and 2^24 a float's unit in the last place is 1,
 // so adding it to a float in [-2^22, 2^22] rounds to an integer (half to
-// even) and leaves that integer in the low bits of the result.  The
-// epilogue converts with it in full-rate float adds: an SM converts only
-// 16 values a clock between int and float, an eighth of its add rate.
+// even) and leaves that integer in the low bits of the result; and the
+// float with bits kMagicBits + r, less kMagic, is the integer r.  The
+// epilogue rounds and converts the residual with float adds alone.
 constexpr float kMagic = 12582912.0f;
 constexpr int kMagicBits = 0x4B400000;
 
@@ -279,7 +280,6 @@ matmul_s8_requant_kernel(const __grid_constant__ CUtensorMap map_x,
   fence_proxy_async_shared();
   named_barrier_sync(1, kConsumers);
   if (tid == 0) {
-#pragma unroll
     tma_store_2d(&map_out, smem_addr(tile), n0, m0);
     tma_store_commit();
     tma_store_wait_read<0>();
