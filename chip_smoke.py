@@ -112,7 +112,7 @@ def build_kernels() -> None:
     print(f"build: {KERNEL_SOURCE} and {K2_SOURCE} compiled in parallel and loaded in "
           f"{time.perf_counter() - t0:.1f} s")
     log = Path(k2_lib).with_suffix(".so.log")
-    if log.exists():  # ptxas -v of K2's four tile shapes
+    if log.exists():  # ptxas -v of K2's four kernels (BM 64/128, with and without a residual)
         for line in log.read_text().splitlines():
             if "Compiling entry" in line or "spill" in line or "Used" in line:
                 print(f"build: K2 ptxas: {line.strip()}")
@@ -876,6 +876,7 @@ def main() -> int:
     t_start = time.perf_counter()
     build_kernels()
     shapes = k2_launch_shapes(ResNetConfig.from_version("resnet-50", num_channels=12))
+
     max_abs_err = phase_a(device)
     mismatches, k2_err = phase_a2(device, shapes)
     phase_b_reference(device)
