@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (enhance_cb_whisper_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase
+    python3 chip_smoke.py --k1     # K1 alone: its build, phase A and its phase C times
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, started together), then:
 
 A.  holds the fused mel kernel K1 (csrc/mel.cu) against its plain torch
-    version on the card: [4, 480000] at 80 and 128 mels and a 37 s
-    [2, 592000] batch, rtol 1e-4 / atol 1e-5 (the JAX package's
-    Pallas-kernel tolerance);
+    version on the card at 80 and 128 mels: [4, 480000], a 37 s
+    [2, 592000] batch, [3, 4960] (31 frames a row, fewer than a tile) and
+    [1, 480] (3 frames, both reflected edges in one tile), rtol 1e-4 /
+    atol 1e-5 (the JAX package's Pallas-kernel tolerance);
 A2. holds the fused s8 matmul + requant kernel K2 (csrc/matmul_s8.cu)
     against its plain version at every shape the int8 ResNet-50 scorer
     gives it (22 launches per chunk of 8 keyword maps at 150x750, 9
@@ -34,8 +36,9 @@ D.  runs the paper-1 KWS eval (``KWSEngine.test``) on the same ResNet-50
     in fp32 and after ``enable_int8_scoring``: P/R/F1 with bootstrap CIs,
     the share of decisions that flip, the time per pair, K2's launches;
 C.  times K1 and K2 and their plain versions on the card: K1 at
-    [1, 480000] and [8, 480000] (median of CUDA-event timings of eager
-    calls), K2 at each shape of a chunk (median of CUDA-event timings of
+    [1, 480000] and [8, 480000] (median of CUDA-event timings of CUDA-graph
+    replays, i.e. device time without host gaps, and of eager calls; for
+    scale, torch.stft's cuFFT sequence, which the port never calls), K2 at each shape of a chunk (median of CUDA-event timings of
     CUDA-graph replays, i.e. device time without host gaps, and of eager
     calls) with its launch plan, bound, multiple of the bound and GB/s,
     beside torch._int_mm (cuBLASLt's int8 product alone) for scale.
@@ -126,7 +129,9 @@ def phase_a(device) -> float:
 
     rng = np.random.default_rng(SEED)
     worst = 0.0
-    for batch, n_samples in ((4, 480000), (2, 592000)):
+    # 3000 and 3700 frames a row; 31 frames, fewer than a tile; 3 frames,
+    # both reflected edges in one tile
+    for batch, n_samples in ((4, 480000), (2, 592000), (3, 4960), (1, 480)):
         audio = torch.from_numpy(_audio(batch, n_samples, rng)).to(device)
         for n_mels in (80, 128):
             got = apply_dynamic_range(mel_cuda.log10_mel(audio, n_mels))
@@ -757,24 +762,54 @@ def _graph_ms(fn, calls: int = 10, reps: int = 15) -> float:
     return _median_ms(graph.replay, reps) / calls
 
 
+def _stft_log10_mel(audio, window, fb):
+    """log10 mel by several library calls: torch.stft (cuFFT, reflect
+    padding) → |·|² → drop the last frame → filterbank product → log10.
+    For scale only: the port never makes these calls."""
+    import torch
+
+    spec = torch.stft(audio, 400, 160, window=window, center=True, pad_mode="reflect",
+                      return_complex=True)
+    mel = fb.t() @ (spec.abs() ** 2)[..., :-1]
+    return torch.log10(torch.clamp_min(mel, 1e-10))
+
+
 def phase_c(device):
+    """K1 at [1, 480000] and [8, 480000], 80 mels: device time from CUDA-graph
+    replays (in turns), the eager wrapper's time, the plain version's eager
+    time (it copies its tables to the card on every call, so it cannot be
+    captured), and for scale the cuFFT sequence of :func:`_stft_log10_mel`."""
     import torch
 
     from enhance_cb_whisper_tpu_torch.ops import mel_cuda
-    from enhance_cb_whisper_tpu_torch.ops.mel import log10_mel_plain
+    from enhance_cb_whisper_tpu_torch.ops.mel import apply_dynamic_range, log10_mel_plain, mel_filter_bank
 
     rng = np.random.default_rng(SEED + 3)
+    window = torch.hann_window(400, periodic=True, device=device)
+    fb = torch.from_numpy(mel_filter_bank(80)).to(device)
     out = {}
     for batch in (1, 8):
         audio = torch.from_numpy(_audio(batch, 480000, rng)).to(device)
         kernel = lambda: mel_cuda.log10_mel(audio, 80)  # noqa: E731
         plain = lambda: log10_mel_plain(audio, 80)  # noqa: E731
+        stft = lambda: _stft_log10_mel(audio, window, fb)  # noqa: E731
+        g1, g2 = _graph_ms(kernel), _graph_ms(kernel)
         # plain, kernel, kernel, plain: drift in clocks shows as a spread
-        p1, k1, k2, p2 = (_median_ms(f) for f in (plain, kernel, kernel, plain))
-        ms, plain_ms = statistics.median([k1, k2]), statistics.median([p1, p2])
-        print(f"phase C: [{batch}, 480000] n_mels=80 mel kernel {ms!r} ms ({k1!r}, {k2!r}); "
-              f"plain torch {plain_ms!r} ms ({p1!r}, {p2!r}); median of 25 CUDA-event timings each")
-        out[batch] = (ms, plain_ms)
+        p1, e1, e2, p2 = (_median_ms(f) for f in (plain, kernel, kernel, plain))
+        ms, eager, plain_ms = (statistics.median(pair) for pair in ((g1, g2), (e1, e2), (p1, p2)))
+        try:
+            stft_ms = _graph_ms(stft)
+            stft_err = (apply_dynamic_range(stft()) - apply_dynamic_range(plain())).abs().max().item()
+            stft_text = f"{stft_ms!r} ms [CUDA-graph replays], max |diff| vs plain {stft_err!r}"
+        except RuntimeError as err:
+            stft_ms, stft_text = None, f"not measured: {err}"
+        print(f"phase C: K1 [{batch}, 480000] n_mels=80: device {ms!r} ms ({g1!r}, {g2!r}) "
+              f"[CUDA-graph replays]; eager wrapper {eager!r} ms ({e1!r}, {e2!r}); plain torch "
+              f"eager {plain_ms!r} ms ({p1!r}, {p2!r}); medians of 25 CUDA-event timings each")
+        print(f"phase C: [{batch}, 480000] torch.stft (cuFFT) -> |.|^2 -> drop last frame -> "
+              f"filterbank -> log10, several library calls the port never makes, for scale only: "
+              f"{stft_text}")
+        out[batch] = {"ms": ms, "eager_ms": eager, "plain_ms": plain_ms, "stft_ms": stft_ms}
     return out
 
 
@@ -795,6 +830,15 @@ def k1_bound(n_samples: int = 480000, n_mels: int = 80) -> dict:
     t_ops, t_bytes = ops / FP32_RATE * 1e3, bytes_ / HBM_RATE * 1e3
     return {"ms": max(t_ops, t_bytes), "by": "bytes" if t_bytes >= t_ops else "operations",
             "ops": float(ops), "taps": taps, "bytes": bytes_, "dft_ms": dft_ops / FP32_RATE * 1e3}
+
+
+def print_k1_bound() -> dict:
+    k1 = k1_bound()
+    print(f"phase C: K1 bound at [1, 480000] n_mels=80 {k1['ms']!r} ms, {k1['by']}-bound "
+          f"({k1['bytes']} B; {k1['ops']!r} FP32 operations with a real FFT per frame and "
+          f"{k1['taps']} nonzero filterbank taps); K1's direct DFT would need "
+          f"{k1['dft_ms']!r} ms at the FP32 peak")
+    return k1
 
 
 def _int_mm_ms(x, w):
@@ -860,9 +904,19 @@ def phase_c_k2(device, shapes):
     return totals
 
 
-def main() -> int:
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def main(argv) -> int:
     import torch
 
+    if argv not in ([], ["--k1"]):
+        print(__doc__, file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -874,6 +928,16 @@ def main() -> int:
     from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
 
     t_start = time.perf_counter()
+    if argv == ["--k1"]:  # K1 alone: build, phase A, K1's timings
+        from enhance_cb_whisper_tpu_torch.ops import mel_cuda
+
+        mel_cuda.build()
+        print(f"build: {KERNEL_SOURCE} compiled and loaded in {time.perf_counter() - t_start:.1f} s")
+        phase_a(device)
+        phase_c(device)
+        print_k1_bound()
+        print(_card())
+        return 0
     build_kernels()
     shapes = k2_launch_shapes(ResNetConfig.from_version("resnet-50", num_channels=12))
 
@@ -884,19 +948,11 @@ def main() -> int:
     phase_d(device, kws, stacks, shapes)
     times = phase_c(device)
     k2 = phase_c_k2(device, shapes)
-    k1 = k1_bound()
-    print(f"phase C: K1 bound at [1, 480000] n_mels=80 {k1['ms']!r} ms, {k1['by']}-bound "
-          f"({k1['bytes']} B; {k1['ops']!r} FP32 operations with a real FFT per frame and "
-          f"{k1['taps']} nonzero filterbank taps); K1's direct DFT would need "
-          f"{k1['dft_ms']!r} ms at the FP32 peak")
+    k1 = print_k1_bound()
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
-    ms, plain_ms = times[1]
+    print(_card())
+    ms, plain_ms = times[1]["ms"], times[1]["plain_ms"]
     print(json.dumps({"kernels": [
         {"name": "log10_mel", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
          "launches": fp32_launches["mel"], "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
@@ -913,4 +969,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -74,18 +74,15 @@ def _device_tables(device: torch.device, n_mels: int):
     return _tables[key]
 
 
-def log10_mel(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
-    """audio [B, N] f32 → log10 mel [B, n_mels, N // 160] (no epilogue)."""
-    global launches
-    if audio.device.type == "cpu":
-        return log10_mel_plain(audio, n_mels)
+def _diagnose(audio: torch.Tensor) -> None:
+    """Raises the error that names what the kernel cannot take."""
     if audio.device.type != "cuda":
         raise ValueError(f"log10_mel: unsupported device {audio.device}")
     if audio.dtype != torch.float32:
         raise TypeError(f"log10_mel: expected float32 audio, got {audio.dtype}")
     if audio.ndim != 2:
         raise ValueError(f"log10_mel: expected [B, N] audio, got shape {tuple(audio.shape)}")
-    batch, n_samples = audio.shape
+    n_samples = audio.shape[1]
     if n_samples % HOP_LENGTH != 0 or n_samples <= N_FFT // 2:
         raise ValueError(
             f"log10_mel: N={n_samples} must be a multiple of {HOP_LENGTH} "
@@ -93,15 +90,32 @@ def log10_mel(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
         )
     if not audio.is_contiguous():
         raise ValueError("log10_mel: audio must be contiguous")
-    cos_t, sin_t, fb = _device_tables(audio.device, n_mels)
-    out = torch.empty((batch, n_mels, n_samples // HOP_LENGTH),
-                      dtype=torch.float32, device=audio.device)
-    with torch.cuda.device(audio.device):
-        stream = torch.cuda.current_stream(audio.device).cuda_stream
-        err = _library().ecw_log10_mel(
-            audio.data_ptr(), out.data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(),
-            fb.data_ptr(), batch, n_samples, n_mels, stream,
-        )
+    raise AssertionError("log10_mel: audio rejected without a reason")
+
+
+def log10_mel(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
+    """audio [B, N] f32 → log10 mel [B, n_mels, N // 160] (no epilogue)."""
+    global launches
+    dev = audio.device
+    if dev.type == "cpu":
+        return log10_mel_plain(audio, n_mels)
+    # one pass over the conditions; _diagnose names the one that fails
+    if not (dev.type == "cuda" and audio.dtype is torch.float32 and audio.ndim == 2
+            and audio.shape[1] % HOP_LENGTH == 0 and audio.shape[1] > N_FFT // 2
+            and audio.is_contiguous()):
+        _diagnose(audio)
+    batch, n_samples = audio.shape
+    idx = dev.index
+    tables = _tables.get((idx, n_mels)) or _device_tables(dev, n_mels)
+    out = torch.empty((batch, n_mels, n_samples // HOP_LENGTH), dtype=torch.float32, device=dev)
+    args = (audio.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tables), batch, n_samples, n_mels)
+    # the raw handle of the current stream: torch.cuda.current_stream() would
+    # build a Stream object, which costs more than the rest of this call
+    if idx == torch.cuda.current_device():
+        err = _library().ecw_log10_mel(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(dev):
+            err = _library().ecw_log10_mel(*args, torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:
         raise RuntimeError(f"mel kernel launch failed: CUDA error {err}")
     launches += 1
