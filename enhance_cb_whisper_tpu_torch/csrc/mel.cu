@@ -44,10 +44,16 @@ constexpr int kPowerStride = kBins + 2;        // 203: odd, conflict-free rows
 __global__ void __launch_bounds__(kThreads)
 log_mel_kernel(const float* __restrict__ audio, float* __restrict__ out,
                const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-               const float* __restrict__ fb, int n_samples, int n_frames,
-               int n_mels) {
+               const float* __restrict__ fb_w, const int* __restrict__ fb_meta,
+               int n_samples, int n_frames, int n_mels, int n_taps) {
   __shared__ __align__(16) float xs[kSpan];
   __shared__ float power[kFramesPerTile * kPowerStride];
+  // sparse filterbank: packed taps, then per mel its first bin, then the
+  // n_mels + 1 offsets of each mel's taps in the packed array
+  extern __shared__ float fb_s[];
+  int* meta_s = reinterpret_cast<int*>(fb_s + n_taps);
+  for (int i = threadIdx.x; i < n_taps; i += kThreads) fb_s[i] = fb_w[i];
+  for (int i = threadIdx.x; i < 2 * n_mels + 1; i += kThreads) meta_s[i] = fb_meta[i];
 
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * kFramesPerTile;
@@ -107,11 +113,10 @@ log_mel_kernel(const float* __restrict__ audio, float* __restrict__ out,
     const int f = idx % kFramesPerTile;
     const int m = idx / kFramesPerTile;
     const int t = t0 + f;
-    const float* p = power + f * kPowerStride;
+    const float* p = power + f * kPowerStride + meta_s[m];
+    const int lo = meta_s[n_mels + m], hi = meta_s[n_mels + m + 1];
     float acc = 0.0f;
-    for (int kk = 0; kk < kBins; ++kk) {
-      acc = fmaf(p[kk], __ldg(fb + kk * n_mels + m), acc);
-    }
+    for (int j = lo; j < hi; ++j) acc = fmaf(p[j - lo], fb_s[j], acc);
     if (t < n_frames) {
       out[(static_cast<int64_t>(b) * n_mels + m) * n_frames + t] =
           log10f(fmaxf(acc, 1e-10f));
@@ -126,12 +131,14 @@ log_mel_kernel(const float* __restrict__ audio, float* __restrict__ out,
 // fb [201, n_mels] f32; out [batch, n_mels, n_samples / 160] f32.
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 extern "C" int ecw_log10_mel(const float* audio, float* out, const float* cos_t,
-                             const float* sin_t, const float* fb, int batch,
-                             int n_samples, int n_mels, void* stream) {
+                             const float* sin_t, const float* fb_w, const int* fb_meta,
+                             int batch, int n_samples, int n_mels, int n_taps,
+                             void* stream) {
   const int n_frames = n_samples / kHop;
   const dim3 grid((n_frames + kFramesPerTile - 1) / kFramesPerTile, batch);
-  log_mel_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      audio, out, cos_t, sin_t, fb, n_samples, n_frames, n_mels);
+  const size_t smem = sizeof(float) * n_taps + sizeof(int) * (2 * n_mels + 1);
+  log_mel_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      audio, out, cos_t, sin_t, fb_w, fb_meta, n_samples, n_frames, n_mels, n_taps);
   return static_cast<int>(cudaGetLastError());
 }
 

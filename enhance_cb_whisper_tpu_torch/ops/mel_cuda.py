@@ -38,11 +38,8 @@ def _library():
         from ..build import build_library
 
         lib = ctypes.CDLL(str(build_library("mel.cu")))
-        lib.ecw_log10_mel.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ecw_log10_mel.argtypes = [p] * 6 + [i] * 4 + [p]
         lib.ecw_log10_mel.restype = ctypes.c_int
         lib.ecw_log10_mel_table_cols.argtypes = []
         lib.ecw_log10_mel_table_cols.restype = ctypes.c_int
@@ -55,8 +52,24 @@ def build() -> None:
     _library()
 
 
+def sparse_filterbank(n_mels: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``mel_filter_bank(n_mels)`` as the kernel reads it: the weights of
+    each mel's contiguous run of bins, packed in mel order and ascending bin
+    order (f32), and int32 ``[first bin of each mel | offset of each mel's
+    run in the packed weights, then the total]`` (``2 * n_mels + 1``)."""
+    fb = mel_filter_bank(n_mels)
+    first, offsets, runs = [], [0], []
+    for m in range(n_mels):
+        bins = np.flatnonzero(fb[:, m])
+        lo, hi = (int(bins[0]), int(bins[-1]) + 1) if bins.size else (0, 0)
+        first.append(lo)
+        offsets.append(offsets[-1] + hi - lo)
+        runs.append(fb[lo:hi, m])
+    return np.concatenate(runs).astype(np.float32), np.asarray(first + offsets, np.int32)
+
+
 def _device_tables(device: torch.device, n_mels: int):
-    """Windowed DFT tables padded to the kernel's row stride, and the
+    """Windowed DFT tables padded to the kernel's row stride, and the sparse
     filterbank, resident on ``device`` (built once per device and n_mels)."""
     key = (device.index, n_mels)
     if key not in _tables:
@@ -66,10 +79,12 @@ def _device_tables(device: torch.device, n_mels: int):
         sin_p = np.zeros((N_FFT, cols), np.float32)
         cos_p[:, :N_FREQS] = cos_m
         sin_p[:, :N_FREQS] = sin_m
+        fb_w, fb_meta = sparse_filterbank(n_mels)
         _tables[key] = (
             torch.from_numpy(cos_p).to(device),
             torch.from_numpy(sin_p).to(device),
-            torch.from_numpy(np.ascontiguousarray(mel_filter_bank(n_mels))).to(device),
+            torch.from_numpy(fb_w).to(device),
+            torch.from_numpy(fb_meta).to(device),
         )
     return _tables[key]
 
@@ -108,7 +123,8 @@ def log10_mel(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
     idx = dev.index
     tables = _tables.get((idx, n_mels)) or _device_tables(dev, n_mels)
     out = torch.empty((batch, n_mels, n_samples // HOP_LENGTH), dtype=torch.float32, device=dev)
-    args = (audio.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tables), batch, n_samples, n_mels)
+    args = (audio.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tables),
+            batch, n_samples, n_mels, tables[2].numel())
     # the raw handle of the current stream: torch.cuda.current_stream() would
     # build a Stream object, which costs more than the rest of this call
     if idx == torch.cuda.current_device():
