@@ -110,15 +110,21 @@ def build_kernels() -> None:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
         mel_job, k2_job = pool.submit(mel_cuda.build), pool.submit(matmul_s8_cuda.build)
-        mel_job.result()
+        mel_lib = mel_job.result()
         k2_lib = k2_job.result()
     print(f"build: {KERNEL_SOURCE} and {K2_SOURCE} compiled in parallel and loaded in "
           f"{time.perf_counter() - t0:.1f} s")
-    log = Path(k2_lib).with_suffix(".so.log")
-    if log.exists():  # ptxas -v of K2's four kernels (BM 64/128, with and without a residual)
+    _print_ptxas("K1", mel_lib)
+    _print_ptxas("K2", k2_lib)  # four kernels: BM 64/128, with and without a residual
+
+
+def _print_ptxas(name: str, lib: str) -> None:
+    """The registers, shared memory and spills that ptxas -v reported."""
+    log = Path(lib).with_suffix(".so.log")
+    if log.exists():
         for line in log.read_text().splitlines():
             if "Compiling entry" in line or "spill" in line or "Used" in line:
-                print(f"build: K2 ptxas: {line.strip()}")
+                print(f"build: {name} ptxas: {line.strip()}")
 
 
 def phase_a(device) -> float:
@@ -931,8 +937,9 @@ def main(argv) -> int:
     if argv == ["--k1"]:  # K1 alone: build, phase A, K1's timings
         from enhance_cb_whisper_tpu_torch.ops import mel_cuda
 
-        mel_cuda.build()
+        mel_lib = mel_cuda.build()
         print(f"build: {KERNEL_SOURCE} compiled and loaded in {time.perf_counter() - t_start:.1f} s")
+        _print_ptxas("K1", mel_lib)
         phase_a(device)
         phase_c(device)
         print_k1_bound()

@@ -22,7 +22,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from .mel import HOP_LENGTH, N_FFT, N_FREQS, dft_matrices, log10_mel_plain, mel_filter_bank
+from .mel import HOP_LENGTH, N_FFT, log10_mel_plain, mel_filter_bank
 
 # kernel launches since import (or since a caller reset it to 0); the
 # launch path below is the only place that increments it
@@ -37,19 +37,27 @@ def _library():
     if _lib is None:
         from ..build import build_library
 
-        lib = ctypes.CDLL(str(build_library("mel.cu")))
+        lib = ctypes.CDLL(str(build_library("mel.cu", extra_flags=("-Xptxas=-v",))))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ecw_log10_mel.argtypes = [p] * 6 + [i] * 4 + [p]
+        lib.ecw_log10_mel.argtypes = [p] * 5 + [i] * 4 + [p]
         lib.ecw_log10_mel.restype = ctypes.c_int
-        lib.ecw_log10_mel_table_cols.argtypes = []
-        lib.ecw_log10_mel_table_cols.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def build() -> None:
-    """Compile and load the kernel library now (otherwise: at first launch)."""
-    _library()
+def build() -> str:
+    """Compile and load the kernel library now (otherwise: at first launch);
+    returns its path."""
+    return _library()._name
+
+
+def dft_tables() -> np.ndarray:
+    """[3, 400] float64: cos(2πj/400), sin(2πj/400) and the periodic Hann
+    window w[j].  Every twiddle of the kernel's 20 × 20 factored DFT is
+    ``cos - i·sin`` at ``(a·b) mod 400``; the kernel gets them rounded once
+    to float32."""
+    angle = 2.0 * np.pi * np.arange(N_FFT) / N_FFT
+    return np.stack([np.cos(angle), np.sin(angle), 0.5 * (1.0 - np.cos(angle))])
 
 
 def sparse_filterbank(n_mels: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -69,24 +77,13 @@ def sparse_filterbank(n_mels: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def _device_tables(device: torch.device, n_mels: int):
-    """Windowed DFT tables padded to the kernel's row stride, and the sparse
-    filterbank, resident on ``device`` (built once per device and n_mels)."""
-    key = (device.index, n_mels)
-    if key not in _tables:
-        cols = _library().ecw_log10_mel_table_cols()
-        cos_m, sin_m = dft_matrices()
-        cos_p = np.zeros((N_FFT, cols), np.float32)
-        sin_p = np.zeros((N_FFT, cols), np.float32)
-        cos_p[:, :N_FREQS] = cos_m
-        sin_p[:, :N_FREQS] = sin_m
-        fb_w, fb_meta = sparse_filterbank(n_mels)
-        _tables[key] = (
-            torch.from_numpy(cos_p).to(device),
-            torch.from_numpy(sin_p).to(device),
-            torch.from_numpy(fb_w).to(device),
-            torch.from_numpy(fb_meta).to(device),
-        )
-    return _tables[key]
+    """The twiddle and window tables and the sparse filterbank, resident on
+    ``device`` (built once per device and n_mels)."""
+    fb_w, fb_meta = sparse_filterbank(n_mels)
+    tables = tuple(torch.from_numpy(t).to(device)
+                   for t in (dft_tables().astype(np.float32), fb_w, fb_meta))
+    _tables[(device.index, n_mels)] = tables
+    return tables
 
 
 def _diagnose(audio: torch.Tensor) -> None:
@@ -124,7 +121,7 @@ def log10_mel(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
     tables = _tables.get((idx, n_mels)) or _device_tables(dev, n_mels)
     out = torch.empty((batch, n_mels, n_samples // HOP_LENGTH), dtype=torch.float32, device=dev)
     args = (audio.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tables),
-            batch, n_samples, n_mels, tables[2].numel())
+            batch, n_samples, n_mels, tables[1].numel())
     # the raw handle of the current stream: torch.cuda.current_stream() would
     # build a Stream object, which costs more than the rest of this call
     if idx == torch.cuda.current_device():
