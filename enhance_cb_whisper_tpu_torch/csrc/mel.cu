@@ -46,6 +46,10 @@
 //     391 taps in all, against 16,080 dense) in ascending bin order, which
 //     gives the dense sum bit for bit.  Consecutive threads take consecutive
 //     frames, so the [n_mels, T] stores coalesce.
+//   * The grid: 8 frames per block, 160 threads (5 warps), so [1, 480000] is
+//     375 blocks, and every one of the 132 SMs holds two or three of them at
+//     once (~22 KB of shared memory each).  16 frames per block gave 188
+//     blocks, two on 56 SMs and one on the other 76.
 //   * Two real frames are not packed into one complex transform: the two
 //     spectra would be separated by a subtraction, so a near-silent frame
 //     next to a loud one would take an error of the loud frame's size.
@@ -60,7 +64,7 @@ constexpr int kHop = 160;
 constexpr int kPad = kNFft / 2;
 constexpr int kRadix = 20;                       // 400 = 20 x 20
 constexpr int kHalf = kRadix / 2 + 1;            // 11 distinct bins of a real 20-point DFT
-constexpr int kFrames = 16;                      // frames per block
+constexpr int kFrames = 8;                       // frames per block: see the design note
 constexpr int kThreads = kFrames * kRadix;       // one per (frame, n2), then per (frame, k1)
 constexpr int kSpan = (kFrames - 1) * kHop + kNFft;
 // per-frame strides of the stage buffers, padded so that the 20 threads of
