@@ -127,6 +127,24 @@ def _print_ptxas(name: str, lib: str) -> None:
                 print(f"build: {name} ptxas: {line.strip()}")
 
 
+def _log10_mel_f64(audio, n_mels):
+    """The plain version's steps in float64 (DFT and filterbank): a yardstick
+    of accuracy for K1 and for the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from enhance_cb_whisper_tpu_torch.ops.mel import mel_filter_bank
+
+    x = F.pad(audio.double()[:, None], (200, 200), mode="reflect")[:, 0]
+    frames = x.unfold(-1, 400, 160)[:, :-1]
+    n = torch.arange(400, dtype=torch.float64, device=audio.device)
+    angle = -2.0 * torch.pi * torch.outer(n, n[:201]) / 400
+    window = (0.5 * (1.0 - torch.cos(2.0 * torch.pi * n / 400)))[:, None]
+    re, im = frames @ (torch.cos(angle) * window), frames @ (torch.sin(angle) * window)
+    fb = torch.from_numpy(mel_filter_bank(n_mels)).to(audio.device, torch.float64)
+    return torch.log10(torch.clamp_min((re * re + im * im) @ fb, 1e-10)).transpose(-1, -2)
+
+
 def phase_a(device) -> float:
     import torch
 
@@ -148,9 +166,12 @@ def phase_a(device) -> float:
                 raise RuntimeError("mel kernel produced non-finite values")
             max_abs, max_rel, ok = _close(got, want)
             worst = max(worst, max_abs)
+            exact = apply_dynamic_range(_log10_mel_f64(audio, n_mels))
             print(f"phase A: mel kernel vs plain [{batch}, {n_samples}] n_mels={n_mels}: "
                   f"max_abs_err={max_abs!r} max_rel_err={max_rel!r} "
-                  f"(rtol {RTOL}, atol {ATOL}) {'ok' if ok else 'FAIL'}")
+                  f"(rtol {RTOL}, atol {ATOL}) {'ok' if ok else 'FAIL'}; max |err| against "
+                  f"float64: kernel {(got.double() - exact).abs().max().item()!r}, "
+                  f"plain {(want.double() - exact).abs().max().item()!r}")
             if not ok:
                 raise RuntimeError("mel kernel disagrees with its plain version")
     return worst

@@ -37,10 +37,12 @@
 //     k = k1 + 20 k2 <= 200.  ~24 k FMAs per frame against the direct DFT's
 //     ~160 k.  Every twiddle is the shared 400-entry cos/sin table at
 //     (a b) mod 400; the W20 ones sit in registers, and the multiples of
-//     pi/2 among them are adds.
+//     pi/2 among them are adds.  Each stage streams its inputs from shared
+//     memory and keeps its outputs in registers (22 floats), so the W20
+//     twiddles stay in registers too.
 //   * Stage buffers share one shared-memory region: samples, then the
-//     stage-1 output, then the power spectrum.  Each stage reads its inputs
-//     into registers, passes a barrier, then writes its outputs over them.
+//     stage-1 output, then the power spectrum.  Each stage reads all its
+//     inputs, passes a barrier, then writes its outputs over them.
 //   * The power spectrum never leaves the SM.  The filterbank is sparse:
 //     each mel sums its contiguous run of nonzero taps (<= 14 at 80 mels,
 //     391 taps in all, against 16,080 dense) in ascending bin order, which
@@ -162,55 +164,54 @@ log_mel_kernel(const float* __restrict__ audio, float* __restrict__ out,
     s[j] = sin_s[kRadix * j];
   }
 
-  // stage 1: real 20-point DFT of x_w[20 n1 + n2] over n1, bins k1 = 0..10
-  float v[kRadix];
+  // stage 1: real 20-point DFT of x_w[20 n1 + n2] over n1, bins k1 = 0..10;
+  // the samples stream through, the bins stay in registers
+  float yr[kHalf], yi[kHalf];
+#pragma unroll
+  for (int k1 = 0; k1 < kHalf; ++k1) yr[k1] = yi[k1] = 0.0f;
 #pragma unroll
   for (int n1 = 0; n1 < kRadix; ++n1) {
-    v[n1] = work[f * kHop + kRadix * n1 + r] * win_s[kRadix * n1 + r];
+    const float v = work[f * kHop + kRadix * n1 + r] * win_s[kRadix * n1 + r];
+#pragma unroll
+    for (int k1 = 0; k1 < kHalf; ++k1) mac_w20(yr[k1], yi[k1], v, (n1 * k1) % kRadix, c, s);
   }
-  __syncthreads();  // the samples are in registers; work now takes Y
+  __syncthreads();  // every thread has read its samples; work now takes Y
   float* y_re = work + f * kYStride + r * kHalf;  // all frames' re, then all frames' im
   float* y_im = y_re + kFrames * kYStride;
 #pragma unroll
   for (int k1 = 0; k1 < kHalf; ++k1) {
-    float re = 0.0f, im = 0.0f;
-#pragma unroll
-    for (int n1 = 0; n1 < kRadix; ++n1) mac_w20(re, im, v[n1], (n1 * k1) % kRadix, c, s);
-    y_re[k1] = re;
-    y_im[k1] = im;  // exactly 0 at k1 = 0 and 10
+    y_re[k1] = yr[k1];
+    y_im[k1] = yi[k1];  // exactly 0 at k1 = 0 and 10
   }
   __syncthreads();
 
-  // stage 2: twiddle, then a 20-point complex DFT over n2 for k1 = r;
+  // stage 2: twiddle, then a 20-point complex DFT over n2 for k1 = r, the
+  // outputs X[k1 + 20 k2] in registers (k2 = 10 is kept for k1 = 0 only);
   // Y[n2, k1] for k1 > 10 is conj(Y[n2, 20 - k1]) (real input)
   const int k1 = r;
   const int src = k1 < kHalf ? k1 : kRadix - k1;
   const float conj = k1 < kHalf ? 1.0f : -1.0f;
-  float zr[kRadix], zi[kRadix];
+  float xr[kHalf], xi[kHalf];
+#pragma unroll
+  for (int k2 = 0; k2 < kHalf; ++k2) xr[k2] = xi[k2] = 0.0f;
 #pragma unroll
   for (int n2 = 0; n2 < kRadix; ++n2) {
-    const float yr = work[f * kYStride + n2 * kHalf + src];
-    const float yi = conj * work[(kFrames + f) * kYStride + n2 * kHalf + src];
-    if (n2 == 0) {
-      zr[n2] = yr;
-      zi[n2] = yi;
-    } else {  // * W400^(n2 k1) = cos - i sin; n2 k1 <= 361
+    float zr = work[f * kYStride + n2 * kHalf + src];
+    float zi = conj * work[(kFrames + f) * kYStride + n2 * kHalf + src];
+    if (n2 > 0) {  // * W400^(n2 k1) = cos - i sin; n2 k1 <= 361
       const float ct = cos_s[n2 * k1], st = sin_s[n2 * k1];
-      zr[n2] = fmaf(yr, ct, yi * st);
-      zi[n2] = fmaf(yi, ct, -yr * st);
+      const float tr = fmaf(zr, ct, zi * st);
+      zi = fmaf(zi, ct, -zr * st);
+      zr = tr;
     }
-  }
-  __syncthreads();  // Y is in registers; work now takes the power spectrum
-  float* power = work + f * kPowerStride;
 #pragma unroll
-  for (int k2 = 0; k2 < kHalf; ++k2) {
-    if (k2 < kHalf - 1 || k1 == 0) {  // k = k1 + 20 k2 <= 200
-      float re = 0.0f, im = 0.0f;
-#pragma unroll
-      for (int n2 = 0; n2 < kRadix; ++n2) cmac_w20(re, im, zr[n2], zi[n2], (n2 * k2) % kRadix, c, s);
-      power[k1 + kRadix * k2] = fmaf(re, re, im * im);
-    }
+    for (int k2 = 0; k2 < kHalf; ++k2) cmac_w20(xr[k2], xi[k2], zr, zi, (n2 * k2) % kRadix, c, s);
   }
+  __syncthreads();  // every thread has read Y; work now takes the power spectrum
+  float* power = work + f * kPowerStride + k1;
+#pragma unroll
+  for (int k2 = 0; k2 < kHalf - 1; ++k2) power[kRadix * k2] = fmaf(xr[k2], xr[k2], xi[k2] * xi[k2]);
+  if (k1 == 0) power[kRadix * (kHalf - 1)] = fmaf(xr[kHalf - 1], xr[kHalf - 1], xi[kHalf - 1] * xi[kHalf - 1]);
   __syncthreads();
 
   // mel filterbank + log10; consecutive threads take consecutive frames so
