@@ -789,6 +789,27 @@ def _graph_ms(fn, calls: int = 10, reps: int = 15) -> float:
     return _median_ms(graph.replay, reps) / calls
 
 
+def _cupti_ms(fn, kernel: str, calls: int = 20):
+    """Mean run time on the card of the kernel whose name holds ``kernel``,
+    over ``calls`` eager calls of ``fn``, from torch.profiler's CUPTI trace:
+    the kernel alone, without the gaps between launches; None if the trace
+    holds no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and kernel in evt.key:
+            us = getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0)
+            return us / evt.count / 1e3
+    return None
+
+
 def _stft_log10_mel(audio, window, fb):
     """log10 mel by several library calls: torch.stft (cuFFT, reflect
     padding) → |·|² → drop the last frame → filterbank product → log10.
@@ -828,6 +849,7 @@ def phase_c(device):
         # plain, kernel, kernel, plain: drift in clocks shows as a spread
         p1, e1, e2, p2 = (_median_ms(f) for f in (plain, kernel, kernel, plain))
         ms, eager, plain_ms = (statistics.median(pair) for pair in ((g1, g2), (e1, e2), (p1, p2)))
+        alone = _cupti_ms(kernel, "log_mel_kernel")
         try:
             stft_ms = _graph_ms(stft)
             stft_err = (apply_dynamic_range(stft()) - apply_dynamic_range(plain())).abs().max().item()
@@ -835,13 +857,13 @@ def phase_c(device):
         except RuntimeError as err:
             stft_ms, stft_text = None, f"not measured: {err}"
         print(f"phase C: K1 [{batch}, 480000] n_mels=80: device {ms!r} ms ({g1!r}, {g2!r}) "
-              f"[CUDA-graph replays]; eager wrapper {eager!r} ms ({e1!r}, {e2!r}); plain torch "
+              f"[CUDA-graph replays], of which the kernel runs {alone!r} ms [CUPTI, mean of 20]; "
+              f"eager wrapper {eager!r} ms ({e1!r}, {e2!r}); plain torch "
               f"eager {plain_ms!r} ms ({p1!r}, {p2!r}); medians of 25 CUDA-event timings each")
         print(f"phase C: [{batch}, 480000] torch.stft (cuFFT) -> |.|^2 -> drop last frame -> "
               f"filterbank -> log10, several library calls the port never makes, for scale only: "
               f"{stft_text}")
-        out[batch] = {"ms": ms, "eager_ms": eager, "plain_ms": plain_ms, "stft_ms": stft_ms,
-                      "floor_ms": floor}
+        out[batch] = {"ms": ms, "plain_ms": plain_ms}
     return out
 
 

@@ -14,11 +14,13 @@
 // Bound.  The function reads 4 B of audio per sample and writes 4 B per
 // (mel, frame) output: 2.9 MB per 30 s utterance, 0.86 us at 3.35 TB/s.  Its
 // least arithmetic (a real FFT per frame) is ~31 MFLOP, 0.47 us at the FP32
-// peak, so it is bytes-bound; at batch 1 one launch's fixed cost (a few us)
-// is larger than both.  Everything is plain FP32 FMA: the JAX kernel runs at
-// Precision.HIGHEST, so no TF32 and no tensor cores (a 3xTF32 split would
-// keep the precision, but ~30 MFLOP per utterance is below the fixed cost of
-// one launch already).
+// peak, so it is bytes-bound.  This kernel is not: at batch 8 it is bound by
+// issuing its FP32 instructions (~24 k per frame, two thirds of them in
+// stage 2's 20-point DFTs), and at batch 1 by one launch's latency, which is
+// larger than either bound.  Everything is plain FP32: the JAX kernel runs at
+// Precision.HIGHEST, so no TF32 and no tensor cores.  A 3xTF32 split would
+// keep the precision, but the factored transform's ~30 MFLOP per utterance
+// already costs less than one launch.
 //
 // Design.
 //   * One block = kFrames consecutive frames of one audio.  The samples they
@@ -30,16 +32,17 @@
 //     n = 20 n1 + n2 and k = k1 + 20 k2,
 //       X[k] = sum_n2 W20^(n2 k2) * W400^(n2 k1) * Y[n2, k1],
 //       Y[n2, k1] = sum_n1 x_w[20 n1 + n2] * W20^(n1 k1),
-//     W_N = e^{-2 pi i / N}.  Stage 1: one thread per (frame, n2) computes a
+//     W_N = e^{-2 pi i / N}, x_w the frame times the Hann window (applied as
+//     the samples are read).  Stage 1: one thread per (frame, n2) computes a
 //     real 20-point DFT; its output is conjugate-symmetric, so it keeps bins
 //     k1 = 0..10.  Stage 2: one thread per (frame, k1) applies the twiddle
 //     W400^(n2 k1) and a 20-point complex DFT over n2, for the k2 with
-//     k = k1 + 20 k2 <= 200.  ~24 k FMAs per frame against the direct DFT's
-//     ~160 k.  Every twiddle is the shared 400-entry cos/sin table at
-//     (a b) mod 400; the W20 ones sit in registers, and the multiples of
-//     pi/2 among them are adds.  Each stage streams its inputs from shared
-//     memory and keeps its outputs in registers (22 floats), so the W20
-//     twiddles stay in registers too.
+//     k = k1 + 20 k2 <= 200.  Both 20-point DFTs are direct: ~24 k FP32
+//     instructions per frame against the 400 x 201 direct DFT's ~160 k.
+//     Every twiddle is the shared 400-entry cos/sin table at (a b) mod 400.
+//     The W20 ones sit in registers, and the multiples of pi/2 among them are
+//     adds.  Each stage streams its inputs from shared memory and keeps its
+//     22 outputs in registers (48 registers a thread, no spills).
 //   * Stage buffers share one shared-memory region: samples, then the
 //     stage-1 output, then the power spectrum.  Each stage reads all its
 //     inputs, passes a barrier, then writes its outputs over them.
@@ -48,13 +51,15 @@
 //     391 taps in all, against 16,080 dense) in ascending bin order, which
 //     gives the dense sum bit for bit.  Consecutive threads take consecutive
 //     frames, so the [n_mels, T] stores coalesce.
-//   * The grid: 8 frames per block, 160 threads (5 warps), so [1, 480000] is
-//     375 blocks, and every one of the 132 SMs holds two or three of them at
-//     once (~22 KB of shared memory each).  16 frames per block gave 188
-//     blocks, two on 56 SMs and one on the other 76.
-//   * Two real frames are not packed into one complex transform: the two
-//     spectra would be separated by a subtraction, so a near-silent frame
-//     next to a loud one would take an error of the loud frame's size.
+//   * The grid: 8 frames per block, 160 threads (5 warps), ~22 KB of shared
+//     memory.  [1, 480000] is 375 blocks, so every one of the 132 SMs holds
+//     two or three of them at once (with 16 frames, 188 blocks: two on 56
+//     SMs and one on the other 76).  On an H100, 8 frames ran faster than 4
+//     or 16 at batch 1 and at batch 8.
+//   * Two real frames are not packed into one complex transform.  That would
+//     halve the work, but the two spectra would then be separated by a
+//     subtraction, so a near-silent frame next to a loud one would take an
+//     error of the loud frame's size.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

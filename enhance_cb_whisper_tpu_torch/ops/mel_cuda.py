@@ -1,12 +1,15 @@
 """Wrapper of the fused mel kernel ``csrc/mel.cu`` (kernel K1 of the port).
 
 Replaces ``enhance_cb_whisper_tpu/ops/mel_pallas.py:_mel_kernel`` (launched
-by ``log_mel_spectrogram_pallas``).  On the H100 it is bound by FP32 FMA
-throughput: ~1 GFLOP of windowed DFT per 30 s of audio, in plain FP32 to
-match the JAX kernel's ``Precision.HIGHEST``.  The DFT is fused with the mel
-filterbank and log10, so the power spectrogram never leaves the SM.  Unlike
-the Pallas kernel (exactly 30 s windows) it takes any ``[B, N]`` with
-``N % 160 == 0``, so every mel computed on the card goes through it.
+by ``log_mel_spectrogram_pallas``).  The kernel frames, windows and
+transforms the audio with a 20 × 20 factored real DFT in plain FP32 (the
+JAX kernel's ``Precision.HIGHEST``), then applies the mel filterbank and
+log10, so the power spectrogram never leaves the SM.  Its twiddle, window
+and sparse filterbank tables are built here (:func:`dft_tables`,
+:func:`sparse_filterbank`), kept on the card per device and ``n_mels``, and
+staged in shared memory by every block.  Unlike the Pallas kernel (exactly
+30 s windows) it takes any ``[B, N]`` with ``N % 160 == 0``, so every mel
+computed on the card goes through it.
 
 The library is compiled from the repository's sources with ``nvcc`` at
 first use (:mod:`..build`) and bound with :mod:`ctypes`.  A tensor on the
