@@ -81,6 +81,22 @@ constexpr int kPowerStride = 212;                // >= 201, = 20 mod 32
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 constexpr int kWork = cmax(kSpan, cmax(2 * kFrames * kYStride, kFrames * kPowerStride));
 
+// Asynchronous copies to shared memory (cp.async): every staging load of a
+// block is in flight at once, where a load-then-store loop waits for one
+// round trip to L2 per step.  cp_async4 zero-fills when `valid` is false.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
 // acc += v * W20^j for a real v, W20^j = cos(2 pi j / 20) - i sin(2 pi j / 20),
 // with c[j] = cos and s[j] = sin for j <= 10.  j is a constant once the
 // caller's loops unroll, so the branches fold; multiples of pi/2 are adds.
@@ -144,20 +160,21 @@ log_mel_kernel(const float* __restrict__ audio, float* __restrict__ out,
   const int t0 = blockIdx.x * kFrames;
   const float* a = audio + static_cast<int64_t>(b) * n_samples;
 
-  for (int i = threadIdx.x; i < 3 * kNFft / 4; i += kThreads) {
-    reinterpret_cast<float4*>(tab_s)[i] = __ldg(reinterpret_cast<const float4*>(tables) + i);
-  }
-  for (int i = threadIdx.x; i < n_taps; i += kThreads) fb_s[i] = __ldg(fb_w + i);
-  for (int i = threadIdx.x; i < 2 * n_mels + 1; i += kThreads) meta_s[i] = __ldg(fb_meta + i);
+  for (int i = threadIdx.x; i < 3 * kNFft / 4; i += kThreads) cp_async16(tab_s + 4 * i, tables + 4 * i);
+  for (int i = threadIdx.x; i < n_taps; i += kThreads) cp_async4(fb_s + i, fb_w + i, true);
+  for (int i = threadIdx.x; i < 2 * n_mels + 1; i += kThreads) cp_async4(meta_s + i, fb_meta + i, true);
   // stage the tile's samples; padded index p maps to original p - 200,
   // reflected at both ends (numpy/jnp "reflect": the edge is not repeated).
-  // Frames past n_frames (the ragged last tile) read zeros and are not stored.
+  // Frames past n_frames (the ragged last tile) read zeros or reflected
+  // samples and are not stored.
   for (int i = threadIdx.x; i < kSpan; i += kThreads) {
     int j = t0 * kHop + i - kPad;
     if (j < 0) j = -j;
     if (j >= n_samples) j = 2 * (n_samples - 1) - j;
-    work[i] = (j >= 0 && j < n_samples) ? a[j] : 0.0f;
+    const bool in = j >= 0 && j < n_samples;
+    cp_async4(work + i, in ? a + j : a, in);
   }
+  cp_async_wait_all();
   __syncthreads();
 
   const int f = threadIdx.x / kRadix;  // frame in the tile
