@@ -810,6 +810,20 @@ def _cupti_ms(fn, kernel: str, calls: int = 20):
     return None
 
 
+def _host_ms(fn, calls: int = 200) -> float:
+    """Host time of one ``fn()``: ``calls`` calls enqueued back to back with
+    no synchronisation between them, on the host's clock."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e3
+
+
 def _stft_log10_mel(audio, window, fb):
     """log10 mel by several library calls: torch.stft (cuFFT, reflect
     padding) → |·|² → drop the last frame → filterbank product → log10.
@@ -824,9 +838,11 @@ def _stft_log10_mel(audio, window, fb):
 
 def phase_c(device):
     """K1 at [1, 480000] and [8, 480000], 80 mels: device time from CUDA-graph
-    replays (in turns), the eager wrapper's time, the plain version's eager
-    time (it copies its tables to the card on every call, so it cannot be
-    captured), and for scale the cuFFT sequence of :func:`_stft_log10_mel`."""
+    replays, beside the least time of one graph node; the kernel's own run
+    time (CUPTI); the eager wrapper's time and its host time per call; the
+    plain version's eager time (it copies its tables to the card on every
+    call, so it cannot be captured); and for scale the cuFFT sequence of
+    :func:`_stft_log10_mel`."""
     import torch
 
     from enhance_cb_whisper_tpu_torch.ops import mel_cuda
@@ -849,16 +865,17 @@ def phase_c(device):
         # plain, kernel, kernel, plain: drift in clocks shows as a spread
         p1, e1, e2, p2 = (_median_ms(f) for f in (plain, kernel, kernel, plain))
         ms, eager, plain_ms = (statistics.median(pair) for pair in ((g1, g2), (e1, e2), (p1, p2)))
-        alone = _cupti_ms(kernel, "log_mel_kernel")
+        alone, host = _cupti_ms(kernel, "log_mel_kernel"), _host_ms(kernel)
         try:
             stft_ms = _graph_ms(stft)
             stft_err = (apply_dynamic_range(stft()) - apply_dynamic_range(plain())).abs().max().item()
             stft_text = f"{stft_ms!r} ms [CUDA-graph replays], max |diff| vs plain {stft_err!r}"
         except RuntimeError as err:
-            stft_ms, stft_text = None, f"not measured: {err}"
+            stft_text = f"not measured: {err}"
         print(f"phase C: K1 [{batch}, 480000] n_mels=80: device {ms!r} ms ({g1!r}, {g2!r}) "
               f"[CUDA-graph replays], of which the kernel runs {alone!r} ms [CUPTI, mean of 20]; "
-              f"eager wrapper {eager!r} ms ({e1!r}, {e2!r}); plain torch "
+              f"eager wrapper {eager!r} ms ({e1!r}, {e2!r}), its host time {host!r} ms a call "
+              f"[mean of 200 enqueued back to back]; plain torch "
               f"eager {plain_ms!r} ms ({p1!r}, {p2!r}); medians of 25 CUDA-event timings each")
         print(f"phase C: [{batch}, 480000] torch.stft (cuFFT) -> |.|^2 -> drop last frame -> "
               f"filterbank -> log10, several library calls the port never makes, for scale only: "
