@@ -35,13 +35,14 @@ D.  runs the paper-1 KWS eval (``KWSEngine.test``) on the same ResNet-50
     over the 100-keyword catalog and 8 utterance stacks of 300-1500 frames,
     in fp32 and after ``enable_int8_scoring``: P/R/F1 with bootstrap CIs,
     the share of decisions that flip, the time per pair, K2's launches;
-C.  times K1 and K2 and their plain versions on the card: K1 at
-    [1, 480000] and [8, 480000] (median of CUDA-event timings of CUDA-graph
-    replays, i.e. device time without host gaps, and of eager calls; for
-    scale, torch.stft's cuFFT sequence, which the port never calls), K2 at each shape of a chunk (median of CUDA-event timings of
-    CUDA-graph replays, i.e. device time without host gaps, and of eager
-    calls) with its launch plan, bound, multiple of the bound and GB/s,
-    beside torch._int_mm (cuBLASLt's int8 product alone) for scale.
+C.  times K1 and K2 and their plain versions on the card, each by the
+    median of CUDA-event timings of CUDA-graph replays (device time
+    without host gaps) and of eager calls: K1 at [1, 480000] and
+    [8, 480000], with its own run time from the CUPTI trace, its host time
+    per call and, for scale, torch.stft's cuFFT sequence, which the port
+    never calls; K2 at each shape of a chunk with its launch plan, bound,
+    multiple of the bound and GB/s, beside torch._int_mm (cuBLASLt's int8
+    product alone) for scale.
 
 Any failure raises and exits non-zero.  The line before the last is the
 kernel summary as JSON, the last line the device as JSON.  Needs one card;
@@ -880,7 +881,7 @@ def phase_c(device):
         print(f"phase C: [{batch}, 480000] torch.stft (cuFFT) -> |.|^2 -> drop last frame -> "
               f"filterbank -> log10, several library calls the port never makes, for scale only: "
               f"{stft_text}")
-        out[batch] = {"ms": ms, "plain_ms": plain_ms}
+        out[batch] = (ms, plain_ms)
     return out
 
 
@@ -1024,7 +1025,7 @@ def main(argv) -> int:
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(_card())
-    ms, plain_ms = times[1]["ms"], times[1]["plain_ms"]
+    ms, plain_ms = times[1]
     print(json.dumps({"kernels": [
         {"name": "log10_mel", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
          "launches": fp32_launches["mel"], "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,

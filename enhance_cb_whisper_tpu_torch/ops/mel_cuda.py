@@ -121,10 +121,10 @@ def log10_mel(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
         _diagnose(audio)
     batch, n_samples = audio.shape
     idx = dev.index
-    tables = _tables.get((idx, n_mels)) or _device_tables(dev, n_mels)
+    tw, fb_w, fb_meta = _tables.get((idx, n_mels)) or _device_tables(dev, n_mels)
     out = torch.empty((batch, n_mels, n_samples // HOP_LENGTH), dtype=torch.float32, device=dev)
-    args = (audio.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tables),
-            batch, n_samples, n_mels, tables[1].numel())
+    args = (audio.data_ptr(), out.data_ptr(), tw.data_ptr(), fb_w.data_ptr(), fb_meta.data_ptr(),
+            batch, n_samples, n_mels, fb_w.numel())
     # the raw handle of the current stream: torch.cuda.current_stream() would
     # build a Stream object, which costs more than the rest of this call
     if idx == torch.cuda.current_device():
