@@ -10,7 +10,8 @@ per source, started together), then:
 A.  holds the fused mel kernel K1 (csrc/mel.cu) against its plain torch
     version on the card at 80 and 128 mels: [4, 480000], a 37 s
     [2, 592000] batch, [3, 4960] (31 frames a row, fewer than a tile) and
-    [1, 480] (3 frames, both reflected edges in one tile), rtol 1e-4 /
+    [1, 480] (3 frames, both reflected edges in one tile), and at 80 mels
+    [1, 760000], the whole 47.5 s utterance of phase B, rtol 1e-4 /
     atol 1e-5 (the JAX package's Pallas-kernel tolerance);
 A2. holds the fused s8 matmul + requant kernel K2 (csrc/matmul_s8.cu)
     against its plain version at every shape the int8 ResNet-50 scorer
@@ -21,24 +22,31 @@ A2. holds the fused s8 matmul + requant kernel K2 (csrc/matmul_s8.cu)
     zero differing int8 codes allowed, and two launches of a split-K plan
     give identical bytes; the int8 runs of B and D record the shapes they
     launch and must launch exactly these;
-B.  checks the CUDA path against the CPU path on a tiny random CB-Whisper,
-    in fp32 and with int8 spotting on a K2-eligible ResNet (identical
-    keywords and transcripts, K2 launched on the card), then drives the
-    main path — ``CBWhisper.run_test`` over three synthetic utterances of
-    5-30 s — at whisper-medium widths (random weights from a numpy seed)
-    with the 12-channel ResNet-50 KWS scorer at 150x750, layer slice
-    (10, 22), a 100-keyword catalog and beam-5 fp32 decoding: once with the
-    fp32 scorer, once with the int8 scorer (``enable_int8_spotting``,
-    calibrated on a warm-up utterance, stages 1-3 on K2), counting each
-    kernel's launches over exactly each ``run_test``;
+B.  checks that building ``CBWhisper`` on the card turns TF32 off; checks
+    the CUDA path against the CPU path on a tiny random CB-Whisper, in fp32
+    and with int8 spotting on a K2-eligible ResNet (identical keywords and
+    transcripts, K2 launched on the card), and on the tiny model's longform
+    seek loop (a 2.5-window utterance and a batch of two of unequal
+    lengths, condition-on-prev, timestamps, a fallback ladder whose every
+    rung trips: identical sequences and segments); then drives the main
+    path — ``CBWhisper.run_test`` over three synthetic utterances of 5-30 s
+    and one of 47.5 s (two windows), written as a 44.1 kHz WAV and read
+    back through the port's resampler — at whisper-medium widths (random
+    weights from a numpy seed) with the 12-channel ResNet-50 KWS scorer at
+    150x750, layer slice (10, 22), a 100-keyword catalog and beam-5 fp32
+    decoding with condition-on-prev and timestamps: once with the fp32
+    scorer, once with the int8 scorer (``enable_int8_spotting``, calibrated
+    on a warm-up utterance, stages 1-3 on K2), counting each kernel's
+    launches over exactly each ``run_test`` (K1 once per utterance, K2 22
+    times per chunk of each window);
 D.  runs the paper-1 KWS eval (``KWSEngine.test``) on the same ResNet-50
     over the 100-keyword catalog and 8 utterance stacks of 300-1500 frames,
     in fp32 and after ``enable_int8_scoring``: P/R/F1 with bootstrap CIs,
     the share of decisions that flip, the time per pair, K2's launches;
 C.  times K1 and K2 and their plain versions on the card, each by the
     median of CUDA-event timings of CUDA-graph replays (device time
-    without host gaps) and of eager calls: K1 at [1, 480000] and
-    [8, 480000], with its own run time from the CUPTI trace, its host time
+    without host gaps) and of eager calls: K1 at [1, 480000], [8, 480000]
+    and [1, 760000], with its own run time from the CUPTI trace, its host time
     per call and, for scale, torch.stft's cuFFT sequence, which the port
     never calls; K2 at each shape of a chunk with its launch plan, bound,
     multiple of the bound and GB/s, beside torch._int_mm (cuBLASLt's int8
@@ -72,6 +80,7 @@ S8_STAGES = ("stage_1", "stage_2", "stage_3")
 KWS_SIZE = (150, 750)
 CHUNK = 8  # keyword maps per scorer call (CBWhisper and KWSEngine)
 N_KW = 100
+LONGFORM_SECONDS = 47.5  # two windows: 30 s + 17.5 s
 # published peaks of one H100 SXM (dense): HBM bytes/s, FP32 FLOP/s, int8 OP/s
 HBM_RATE, FP32_RATE, INT8_RATE = 3.35e12, 67e12, 1979e12
 
@@ -155,10 +164,13 @@ def phase_a(device) -> float:
     rng = np.random.default_rng(SEED)
     worst = 0.0
     # 3000 and 3700 frames a row; 31 frames, fewer than a tile; 3 frames,
-    # both reflected edges in one tile
-    for batch, n_samples in ((4, 480000), (2, 592000), (3, 4960), (1, 480)):
+    # both reflected edges in one tile; the 47.5 s utterance of phase B
+    # (4750 frames) at the main path's 80 mels
+    cases = [(shape, (80, 128)) for shape in ((4, 480000), (2, 592000), (3, 4960), (1, 480))]
+    cases.append(((1, int(16000 * LONGFORM_SECONDS)), (80,)))
+    for (batch, n_samples), mel_counts in cases:
         audio = torch.from_numpy(_audio(batch, n_samples, rng)).to(device)
-        for n_mels in (80, 128):
+        for n_mels in mel_counts:
             got = apply_dynamic_range(mel_cuda.log10_mel(audio, n_mels))
             torch.cuda.synchronize()
             want = apply_dynamic_range(log10_mel_plain(audio, n_mels))
@@ -439,6 +451,87 @@ def phase_b_reference(device) -> None:
         raise RuntimeError("the int8 CUDA path never launched K2")
 
 
+def check_tf32_off(device) -> None:
+    """Building CBWhisper on the card turns TF32 off (the reference runs
+    full FP32), whatever the caller had set."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    _tiny_pipeline(device)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    print(f"phase B: TF32 allowed (cuBLAS, cuDNN) after building CBWhisper on the card: {flags}")
+    if flags != (False, False):
+        raise RuntimeError("CBWhisper on the card left TF32 on")
+
+
+def phase_b_longform_reference(device) -> None:
+    """The longform seek loop of a tiny random Whisper, CPU vs card, on the
+    same numpy mel: a 2.5-window utterance at batch 1 and a batch of two of
+    unequal lengths, condition-on-prev and timestamps on, a ladder
+    (0.0, 0.2, 0.4) whose every rung trips (a logprob threshold of 0) and
+    the default CPU-seeded noise on both sides.  Sequences, segments and
+    the rungs decoded must be identical.
+
+    A random decoder closes a timestamp pair every few tokens, and its seek
+    then crawls through the audio ~0.5 s a window.  So channel 0 of the
+    decoder's final LayerNorm is pinned to 1 and every timestamp row of
+    the (tied) embedding holds -50 there: timestamp logits sit 50 below
+    the rest, a window's output is its forced first timestamp and text,
+    and the seek moves a whole window."""
+    import dataclasses
+
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.convert import from_jax_whisper_params
+    from enhance_cb_whisper_tpu_torch.decoding.generate import WhisperGenerator
+    from enhance_cb_whisper_tpu_torch.models.whisper import init_whisper_params
+
+    t_start = time.perf_counter()
+    tiny = _tiny_pipeline("cpu")
+    cfg = tiny.whisper_config
+    params = init_whisper_params(np.random.default_rng(SEED), cfg)
+    final_norm = params["decoder"]["layer_norm"]
+    final_norm["weight"][0], final_norm["bias"][0] = 0.0, 1.0
+    params["decoder"]["embed_tokens"]["weight"][tiny.opts.no_timestamps_token_id + 1:, 0] = -50.0
+    # beam-5 at temperature 0; the sampled rungs decode with one beam
+    opts = dataclasses.replace(tiny.opts, temperature=(0.0, 0.2, 0.4), logprob_threshold=0.0)
+    rng = np.random.default_rng(SEED + 7)
+    frames = 7500  # 2.5 windows
+    inputs = [(rng.standard_normal((1, cfg.num_mel_bins, frames)).astype(np.float32), None)]
+    mask = np.zeros((2, frames), np.int64)
+    mask[0] = 1
+    mask[1, :4100] = 1
+    inputs.append((rng.standard_normal((2, cfg.num_mel_bins, frames)).astype(np.float32), mask))
+    for mel, attention_mask in inputs:
+        out, decodes = {}, {}
+        for dev in ("cpu", device):
+            gen = WhisperGenerator(cfg, from_jax_whisper_params(params, dev), device=dev)
+            decode, calls = gen._decode_prompted, []
+
+            def counted(*args, _decode=decode, _calls=calls, **kwargs):
+                _calls.append(kwargs.get("temperature", 0.0))
+                return _decode(*args, **kwargs)
+
+            gen._decode_prompted = counted
+            out[str(dev)] = gen.generate(torch.from_numpy(mel).to(dev), opts, attention_mask=attention_mask,
+                                         return_segments=True)
+            decodes[str(dev)] = calls
+        cpu, gpu = out["cpu"], out[str(device)]
+        same = np.array_equal(cpu["sequences"], gpu["sequences"]) and cpu["segments"] == gpu["segments"]
+        windows = decodes["cpu"].count(0.0)
+        print(f"phase B reference longform: tiny model, batch {mel.shape[0]} of {mel.shape[-1]} frames"
+              f"{'' if attention_mask is None else ' (true lengths ' + str(attention_mask.sum(-1).tolist()) + ')'}: "
+              f"{windows} windows, decodes at temperatures {decodes['cpu']}; segments per row "
+              f"{[len(r) for r in gpu['segments']]}, ends {[r[-1]['end'] if r else None for r in gpu['segments']]}; "
+              f"cpu vs cuda sequences and segments identical: {same}")
+        if not same or decodes["cpu"] != decodes[str(device)]:
+            raise RuntimeError("the longform seek loop differs between the CPU and the card")
+        if windows < 3 or 0.4 not in decodes["cpu"] or not all(cpu["segments"]):
+            raise RuntimeError("the longform reference run did not cross windows or climb the ladder")
+    print(f"phase B reference longform: {time.perf_counter() - t_start:.1f} s in all")
+
+
 def _medium_pipeline(device):
     """whisper-medium + the 12-channel ResNet-50 scorer, random weights."""
     import torch
@@ -473,23 +566,43 @@ def _medium_pipeline(device):
     return cb, config, opts, kws, stacks
 
 
+def _write_wav_44k(path: Path, wav_16k: np.ndarray) -> None:
+    """``wav_16k`` as a 16-bit mono WAV at 44.1 kHz (linear interpolation:
+    a recording at another rate that the port must resample)."""
+    import wave
+
+    n = int(round(len(wav_16k) * 44100 / 16000))
+    t = np.arange(n) * (16000 / 44100)
+    pcm = np.clip(np.interp(t, np.arange(len(wav_16k)), wav_16k), -1, 1)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(44100)
+        w.writeframes((pcm * 32767).astype("<i2").tobytes())
+
+
 def _drive_slice(cb, config, opts, dataset, device, label, int8_stages=None):
     """Warm up, then ``run_test`` over ``dataset`` with each stage timed;
-    returns per-utterance marks and the launches of each kernel over
-    exactly the ``run_test`` call."""
+    returns per-utterance marks, per-window records of the longform
+    utterances, and the launches of each kernel over exactly the
+    ``run_test`` call."""
     import torch
 
-    from enhance_cb_whisper_tpu_torch.audio.io import prepare_features
+    from enhance_cb_whisper_tpu_torch.audio.io import load_audio_16k, prepare_features
     from enhance_cb_whisper_tpu_torch.models.whisper import encoder_kws_stack
     from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, mel_cuda
 
-    scored, spotted, generated, marks = [], [], [], []
+    scored, spotted, generated, marks, windows = [], [], [], [], []
     score_to_keywords = cb._score_to_keywords
     encode_and_spot, generate = cb.encode_and_spot, cb.generator.generate
+    with_fallback, retrieve_segment = cb.generator._generate_with_fallback, cb.generator._retrieve_segment
 
     def mel_fn(item):
-        marks.append({"start": time.perf_counter()})
-        out = prepare_features(item["audio"], n_mels=config.num_mel_bins, device=device)
+        """The CLI's front end: a file goes through load_audio_16k."""
+        marks.append({"start": time.perf_counter(), "spot_s": 0.0, "windows": 0})
+        wav = load_audio_16k(str(item["path"])) if "path" in item else item["audio"]
+        out = prepare_features(wav, n_mels=config.num_mel_bins, device=device)
         torch.cuda.synchronize()
         marks[-1]["mel_end"] = time.perf_counter()
         return out
@@ -533,23 +646,42 @@ def _drive_slice(cb, config, opts, dataset, device, label, int8_stages=None):
 
     def timed_encode_and_spot(*args, **kwargs):
         torch.cuda.synchronize()
-        marks[-1]["spot_start"] = time.perf_counter()
+        t0 = time.perf_counter()
         out = encode_and_spot(*args, **kwargs)
         torch.cuda.synchronize()
-        marks[-1]["spot_end"] = time.perf_counter()
+        marks[-1]["spot_s"] += time.perf_counter() - t0
+        marks[-1]["windows"] += 1
         return out
 
+    def timed_fallback(cross_kv, decoder_ids, *args, **kwargs):
+        """One longform window's decode (the ladder's single rung here)."""
+        t0 = time.perf_counter()
+        seqs, scores, skip = with_fallback(cross_kv, decoder_ids, *args, **kwargs)
+        seconds = time.perf_counter() - t0  # host arrays: the decode has finished
+        n = int((seqs[:, decoder_ids.shape[1]:] != opts.pad_token_id).sum())
+        windows.append({"utterance": len(marks) - 1, "prompt": int(decoder_ids.shape[1]),
+                        "tokens": n, "seconds": seconds})
+        return seqs, scores, skip
+
+    def recorded_segment(seek_sequence, time_offset, timestamp_begin, seek_num_frames):
+        segments, advance = retrieve_segment(seek_sequence, time_offset, timestamp_begin, seek_num_frames)
+        windows[-1].update(advance=advance, frames=seek_num_frames, segments=len(segments))
+        return segments, advance
+
     def recorded_generate(*args, **kwargs):
-        tokens = generate(*args, **kwargs)  # host array: the decode has finished
+        result = generate(*args, **kwargs)  # host arrays: the decode has finished
         marks[-1]["end"] = time.perf_counter()
+        tokens = result["sequences"] if isinstance(result, dict) else result
         if tokens.ndim != 2 or tokens.shape[0] != 1 or not (
             (tokens >= 0) & (tokens < config.vocab_size)).all():
             raise RuntimeError(f"decode produced invalid tokens of shape {tokens.shape}")
         generated.append(int((tokens != opts.pad_token_id).sum()))
-        return tokens
+        return result
 
     cb._score_fn, cb._score_to_keywords = counted_score, recorded_keywords
     cb.encode_and_spot, cb.generator.generate = timed_encode_and_spot, recorded_generate
+    cb.generator._generate_with_fallback = timed_fallback
+    cb.generator._retrieve_segment = recorded_segment
 
     mel_cuda.launches = 0
     matmul_s8_cuda.launches = 0
@@ -560,25 +692,37 @@ def _drive_slice(cb, config, opts, dataset, device, label, int8_stages=None):
     t_end = time.perf_counter()
     launches = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches, "k2_shapes": k2_shapes}
     del cb._score_to_keywords, cb.encode_and_spot, cb.generator.generate
+    del cb.generator._generate_with_fallback, cb.generator._retrieve_segment
     cb._score_fn = score_fn
 
+    first = 0  # index of the utterance's first window in ``spotted``
     for i, (item, m) in enumerate(zip(dataset, marks)):
-        decode = m["end"] - m["spot_end"]
-        print(f"phase B {label}: utterance {i}: {len(item['audio']) / 16000:.2f} s audio, "
+        decode = m["end"] - m["mel_end"] - m["spot_s"]
+        found = [len(k) for k in spotted[first:first + m["windows"]]]
+        first += m["windows"]
+        print(f"phase B {label}: utterance {i}: {item['seconds']:.2f} s audio"
+              f"{' (44.1 kHz WAV)' if 'path' in item else ''}, {m['windows']} window(s), "
               f"wall {m['end'] - m['start']!r} s = mel {m['mel_end'] - m['start']!r} s "
-              f"+ encode and spot {m['spot_end'] - m['spot_start']!r} s "
+              f"+ encode and spot {m['spot_s']!r} s "
               f"+ prefill and beam-5 decode {decode!r} s ({decode / max(generated[i], 1) * 1e3!r} ms "
-              f"per generated token); {generated[i]} generated tokens, "
-              f"{len(spotted[i])} keywords spotted {spotted[i][:5]}")
-    print(f"phase B {label}: run_test {t_end - t_run!r} s for {len(dataset)} utterances, of which "
-          f"entity recall and bootstrap CIs {t_end - marks[-1]['end']!r} s; entity recall "
+              f"per generated token); {generated[i]} generated tokens, keywords spotted per window {found}")
+    for w in windows:
+        print(f"phase B {label}: utterance {w['utterance']} window: prompt {w['prompt']} tokens, "
+              f"{w['tokens']} tokens decoded in {w['seconds']!r} s = {w['seconds'] / max(w['tokens'], 1) * 1e3!r} "
+              f"ms per token; seek advance {w.get('advance')} of {w.get('frames')} frames, "
+              f"{w.get('segments')} segment(s)")
+    n_windows = sum(m["windows"] for m in marks)
+    print(f"phase B {label}: run_test {t_end - t_run!r} s for {len(dataset)} utterances ({n_windows} windows), "
+          f"of which entity recall and bootstrap CIs {t_end - marks[-1]['end']!r} s; entity recall "
           f"{results['Entity Recall']!r} [{results['Entity Recall LB']!r}, {results['Entity Recall UB']!r}]; "
-          f"mel kernel launches {launches['mel']}; K2 launches {launches['k2']}; "
+          f"RTFx {results['RTFx']!r}; mel kernel launches {launches['mel']}; K2 launches {launches['k2']}; "
           f"segments scored {len(scored)} x {scored[0] if scored else 0} keywords")
-    if launches["mel"] < len(dataset):
+    if launches["mel"] != len(dataset):
         raise RuntimeError(f"mel kernel launched {launches['mel']} times for {len(dataset)} utterances")
-    if not (len(scored) == len(spotted) == len(generated) == len(marks) == len(dataset)):
-        raise RuntimeError("not every segment was scored and decoded")
+    if not (len(scored) == len(spotted) == n_windows and len(generated) == len(marks) == len(dataset)):
+        raise RuntimeError("not every window was scored and every utterance decoded")
+    if len(windows) != sum(m["windows"] for item, m in zip(dataset, marks) if item["seconds"] > 30):
+        raise RuntimeError("a longform window went undecoded")
     return marks, launches, scored
 
 
@@ -594,14 +738,20 @@ def phase_b_slice(device, shapes):
 
     rng = np.random.default_rng(SEED + 2)
     dataset = []
-    for i, seconds in enumerate((5.5, 17.25, 29.75)):
+    for i, seconds in enumerate((5.5, 17.25, 29.75, LONGFORM_SECONDS)):
         wav = _audio(1, int(16000 * seconds), rng)[0]
-        dataset.append({
-            "audio": wav,
+        item = {
+            "seconds": seconds,
             "transcript": f"kw{i} appears in utterance {i}",
             "hotword_labels": np.eye(N_KW, dtype=np.int64)[i],
             "speaker": f"s{i % 2}",
-        })
+        }
+        if seconds > 30:  # the longform utterance arrives as a file, as the CLI reads it
+            item["path"] = Path(__file__).resolve().parent / "build" / "chip_smoke" / "longform_44k.wav"
+            _write_wav_44k(item["path"], wav)
+        else:
+            item["audio"] = wav
+        dataset.append(item)
 
     fp32_marks, fp32_launches, _ = _drive_slice(cb, config, opts, dataset, device, "fp32")
     # the int8 slice's weights: residual-branch BNs no longer zero
@@ -610,10 +760,9 @@ def phase_b_slice(device, shapes):
         cb, config, opts, dataset, device, "int8", int8_stages=S8_STAGES)
     chunks = -(-scored[0] // CHUNK)
     for i, (f, q) in enumerate(zip(fp32_marks, int8_marks)):
-        print(f"phase B: utterance {i}: encode and spot int8 {q['spot_end'] - q['spot_start']!r} s "
-              f"vs fp32 {f['spot_end'] - f['spot_start']!r} s")
-    _check_k2_main_path("phase B int8", int8_launches, shapes, chunks * len(dataset),
-                        f"{chunks} chunks x {len(dataset)} segments")
+        print(f"phase B: utterance {i}: encode and spot int8 {q['spot_s']!r} s vs fp32 {f['spot_s']!r} s")
+    _check_k2_main_path("phase B int8", int8_launches, shapes, chunks * len(scored),
+                        f"{chunks} chunks x {len(scored)} windows")
     if fp32_launches["k2"] != 0:
         raise RuntimeError("the fp32 scorer launched K2")
     return fp32_launches, int8_launches, kws, stacks
@@ -838,7 +987,8 @@ def _stft_log10_mel(audio, window, fb):
 
 
 def phase_c(device):
-    """K1 at [1, 480000] and [8, 480000], 80 mels: device time from CUDA-graph
+    """K1 at [1, 480000], [8, 480000] and the longform [1, 760000], 80 mels:
+    device time from CUDA-graph
     replays, beside the least time of one graph node; the kernel's own run
     time (CUPTI); the eager wrapper's time and its host time per call; the
     plain version's eager time (it copies its tables to the card on every
@@ -857,8 +1007,8 @@ def phase_c(device):
     window = torch.hann_window(400, periodic=True, device=device)
     fb = torch.from_numpy(mel_filter_bank(80)).to(device)
     out = {}
-    for batch in (1, 8):
-        audio = torch.from_numpy(_audio(batch, 480000, rng)).to(device)
+    for batch, n_samples in ((1, 480000), (8, 480000), (1, int(16000 * LONGFORM_SECONDS))):
+        audio = torch.from_numpy(_audio(batch, n_samples, rng)).to(device)
         kernel = lambda: mel_cuda.log10_mel(audio, 80)  # noqa: E731
         plain = lambda: log10_mel_plain(audio, 80)  # noqa: E731
         stft = lambda: _stft_log10_mel(audio, window, fb)  # noqa: E731
@@ -873,15 +1023,15 @@ def phase_c(device):
             stft_text = f"{stft_ms!r} ms [CUDA-graph replays], max |diff| vs plain {stft_err!r}"
         except RuntimeError as err:
             stft_text = f"not measured: {err}"
-        print(f"phase C: K1 [{batch}, 480000] n_mels=80: device {ms!r} ms ({g1!r}, {g2!r}) "
+        print(f"phase C: K1 [{batch}, {n_samples}] n_mels=80: device {ms!r} ms ({g1!r}, {g2!r}) "
               f"[CUDA-graph replays], of which the kernel runs {alone!r} ms [CUPTI, mean of 20]; "
               f"eager wrapper {eager!r} ms ({e1!r}, {e2!r}), its host time {host!r} ms a call "
               f"[mean of 200 enqueued back to back]; plain torch "
               f"eager {plain_ms!r} ms ({p1!r}, {p2!r}); medians of 25 CUDA-event timings each")
-        print(f"phase C: [{batch}, 480000] torch.stft (cuFFT) -> |.|^2 -> drop last frame -> "
+        print(f"phase C: [{batch}, {n_samples}] torch.stft (cuFFT) -> |.|^2 -> drop last frame -> "
               f"filterbank -> log10, several library calls the port never makes, for scale only: "
               f"{stft_text}")
-        out[batch] = (ms, plain_ms)
+        out[(batch, n_samples)] = (ms, plain_ms)
     return out
 
 
@@ -905,11 +1055,14 @@ def k1_bound(n_samples: int = 480000, n_mels: int = 80) -> dict:
 
 
 def print_k1_bound() -> dict:
-    k1 = k1_bound()
-    print(f"phase C: K1 bound at [1, 480000] n_mels=80 {k1['ms']!r} ms, {k1['by']}-bound "
-          f"({k1['bytes']} B; {k1['ops']!r} FP32 operations with a real FFT per frame and "
-          f"{k1['taps']} nonzero filterbank taps); K1's direct DFT would need "
-          f"{k1['dft_ms']!r} ms at the FP32 peak")
+    """Prints K1's bound at [1, 480000] and at the longform [1, 760000];
+    returns the first."""
+    for n_samples in (int(16000 * LONGFORM_SECONDS), 480000):
+        k1 = k1_bound(n_samples)
+        print(f"phase C: K1 bound at [1, {n_samples}] n_mels=80 {k1['ms']!r} ms, {k1['by']}-bound "
+              f"({k1['bytes']} B; {k1['ops']!r} FP32 operations with a real FFT per frame and "
+              f"{k1['taps']} nonzero filterbank taps); K1's direct DFT would need "
+              f"{k1['dft_ms']!r} ms at the FP32 peak")
     return k1
 
 
@@ -992,12 +1145,12 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    # the JAX reference runs its einsums at precision="highest": full fp32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda", 0)
-
     from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
+    from enhance_cb_whisper_tpu_torch.runtime.precision import reference_precision
+
+    # the JAX reference runs its einsums at precision="highest": full fp32
+    reference_precision()
+    device = torch.device("cuda", 0)
 
     t_start = time.perf_counter()
     if argv == ["--k1"]:  # K1 alone: build, phase A, K1's timings
@@ -1016,7 +1169,9 @@ def main(argv) -> int:
 
     max_abs_err = phase_a(device)
     mismatches, k2_err = phase_a2(device, shapes)
+    check_tf32_off(device)
     phase_b_reference(device)
+    phase_b_longform_reference(device)
     fp32_launches, int8_launches, kws, stacks = phase_b_slice(device, shapes)
     phase_d(device, kws, stacks, shapes)
     times = phase_c(device)
@@ -1025,7 +1180,7 @@ def main(argv) -> int:
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(_card())
-    ms, plain_ms = times[1]
+    ms, plain_ms = times[(1, 480000)]
     print(json.dumps({"kernels": [
         {"name": "log10_mel", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
          "launches": fp32_launches["mel"], "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,

@@ -9,8 +9,12 @@ front end (hand-written CUDA kernel ``csrc/mel.cu``) → Whisper encoder →
 catalog keyword spotting → biased beam/greedy decode → entity recall.
 Slice 2 adds int8 keyword spotting (``models/quant.py``, whose bottleneck
 1×1 convolutions run the hand-written kernel ``csrc/matmul_s8.cu``) for
-CB-Whisper and the paper-1 KWS eval (``runtime/kws_engine.py``).  Entry
-points run on the card unless the caller passes ``device="cpu"``.  The
+CB-Whisper and the paper-1 KWS eval (``runtime/kws_engine.py``).  Longform
+transcription adds the 30 s seek loop with condition-on-prev
+prompts and the temperature-fallback ladder (``decoding/generate.py``),
+and the resampling audio front end (``audio/io.py``).  Entry points run on
+the card unless the caller passes ``device="cpu"``, and turn TF32 off
+there (``runtime/precision.py``).  The
 package imports torch and numpy, never jax, flax or the JAX package: the
 numpy-only helpers it needs are copied in.
 """

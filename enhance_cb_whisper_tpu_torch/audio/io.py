@@ -2,24 +2,33 @@
 enhance_cb_whisper_tpu/audio/io.py).
 
 * :func:`read_wav` decodes PCM WAV with the stdlib (mono mix-down);
+* :func:`resample` runs the C++ polyphase resampler (``csrc/resample.cpp``,
+  built with g++ at first use); :func:`load_audio_16k` is WAV decode plus
+  resampling to 16 kHz;
 * :func:`prepare_features` mirrors WhisperFeatureExtractor's padding and
   attention-mask semantics (pad/truncate to 30 s for shortform, pad to a
   hop multiple for longform) on top of the mel front end, which runs on
   ``device`` — the fused CUDA kernel on the card.
 
-Resampling and non-WAV decoding (the C++ resampler, ffmpeg) are not ported
-yet: audio must already be 16 kHz.
+Unlike the JAX package, nothing falls back: a failed resampler build
+raises (scipy's filter would give other samples), and a file that is not
+PCM WAV raises (there is no ffmpeg decoder, as in the JAX package on a
+machine without ffmpeg).
 """
 
 from __future__ import annotations
 
+import ctypes
 import wave
+from math import gcd
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from ..ops.mel import HOP_LENGTH, N_SAMPLES, log_mel_spectrogram
+from ..ops.mel import HOP_LENGTH, N_SAMPLES, SAMPLE_RATE, log_mel_spectrogram
+
+_resampler = None
 
 
 def read_wav(path: str) -> Tuple[np.ndarray, int]:
@@ -45,6 +54,47 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
     if n_channels > 1:
         data = data.reshape(-1, n_channels).mean(axis=1)
     return data, rate
+
+
+def _resampler_library():
+    global _resampler
+    if _resampler is None:
+        from ..build import build_host_library
+
+        lib = ctypes.CDLL(str(build_host_library("resample.cpp")))
+        f = ctypes.POINTER(ctypes.c_float)
+        lib.resample_poly.argtypes = [f, ctypes.c_int64, f, ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+        lib.resample_poly.restype = ctypes.c_int
+        _resampler = lib
+    return _resampler
+
+
+def resample(waveform: np.ndarray, orig_sr: int, target_sr: int = SAMPLE_RATE) -> np.ndarray:
+    """Polyphase windowed-sinc resampling from ``orig_sr`` to ``target_sr``:
+    ``ceil(n * up / down)`` float32 samples."""
+    if orig_sr == target_sr:
+        return waveform.astype(np.float32)
+    g = gcd(orig_sr, target_sr)
+    up, down = target_sr // g, orig_sr // g
+    x = np.ascontiguousarray(waveform, dtype=np.float32)
+    out = np.empty((-(-x.size * up // down),), np.float32)
+    f = ctypes.POINTER(ctypes.c_float)
+    ret = _resampler_library().resample_poly(
+        x.ctypes.data_as(f), x.size, out.ctypes.data_as(f), out.size, up, down)
+    if ret != 0:
+        raise RuntimeError(f"resample_poly failed on {x.size} samples ({orig_sr} -> {target_sr} Hz)")
+    return out
+
+
+def load_audio_16k(path: str) -> np.ndarray:
+    """A PCM WAV file as 16 kHz mono float32."""
+    if not path.lower().endswith(".wav"):
+        raise RuntimeError(f"cannot decode {path}: the port reads PCM WAV only (no ffmpeg decoder)")
+    try:
+        wav, sr = read_wav(path)
+    except (wave.Error, EOFError, ValueError) as err:
+        raise RuntimeError(f"cannot decode {path}: not a PCM WAV file ({err})") from err
+    return resample(wav, sr, SAMPLE_RATE)
 
 
 def prepare_features(

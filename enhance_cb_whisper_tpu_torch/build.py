@@ -1,13 +1,14 @@
-"""Build the package's CUDA sources into shared libraries at first use.
+"""Build the package's native sources into shared libraries at first use.
 
 Each kernel file under ``csrc/`` exposes a plain C entry point (pointers,
 sizes and the stream; returns ``cudaGetLastError()``), so it compiles with
 ``nvcc`` alone in seconds, without PyTorch's headers, and loads with
-:mod:`ctypes`.  Libraries land in ``build/kernels/`` at the repository root
-(git-ignored), named by a hash of the source, every local header it
-includes and the flags, so a changed source or header is rebuilt and an
-unchanged one is reused.  The compiler's output is kept beside the library
-(``<library>.log``).
+:mod:`ctypes`.  The host resampler (``csrc/resample.cpp``) is plain C++
+and compiles with ``g++``.  Libraries land in ``build/kernels/`` at the
+repository root (git-ignored), named by a hash of the source, every local
+header it includes and the flags, so a changed source or header is rebuilt
+and an unchanged one is reused.  The compiler's output is kept beside the
+library (``<library>.log``).  A failed build raises.
 """
 
 from __future__ import annotations
@@ -29,6 +30,16 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+# the JAX package's flags for the same resampler source
+# (enhance_cb_whisper_tpu/audio/native/__init__.py)
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+
+
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the host resampler needs a C++ compiler")
+    return found
 
 
 def _nvcc() -> str:
@@ -76,8 +87,16 @@ def source_digest(src: Path, flags) -> str:
 def build_library(source: str, extra_flags=()) -> Path:
     """Compile ``csrc/<source>`` to a shared library with ``NVCC_FLAGS``
     and the library's own ``extra_flags``; returns its path."""
-    src = CSRC_DIR / source
-    flags = (*NVCC_FLAGS, *extra_flags)
+    return _build(CSRC_DIR / source, (*NVCC_FLAGS, *extra_flags), _nvcc)
+
+
+def build_host_library(source: str) -> Path:
+    """Compile the plain C++ ``csrc/<source>`` with g++ and ``HOST_FLAGS``;
+    returns the library's path."""
+    return _build(CSRC_DIR / source, HOST_FLAGS, _gxx)
+
+
+def _build(src: Path, flags, compiler) -> Path:
     out = BUILD_DIR / f"lib{src.stem}_{source_digest(src, flags)}.so"
     if out.exists():
         return out
@@ -88,11 +107,11 @@ def build_library(source: str, extra_flags=()) -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *flags, "-o", tmp, str(src)],
+            [compiler(), *flags, "-o", tmp, str(src)],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"{Path(proc.args[0]).name} failed on {src.name}:\n{proc.stdout}{proc.stderr}")
         out.with_suffix(".so.log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:

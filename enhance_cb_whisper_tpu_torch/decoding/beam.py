@@ -23,7 +23,7 @@ package's ancestry map.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -157,11 +157,24 @@ def greedy_search(
     max_length: int = 448,
     pad_token_id: int = 50257,
     eos_token_id: int = 50257,
+    do_sample: bool = False,
+    temperature: float = 1.0,
+    noise: Optional[Callable[[int, Tuple[int, ...]], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Greedy decode; returns (sequences [B, max_length], sum of the
-    log-softmax of the PROCESSED scores over generated tokens incl. eos [B])."""
+    """Greedy decode (``do_sample=False``) or multinomial sampling at
+    ``temperature`` (the fallback ladder's sampled rungs); returns
+    (sequences [B, max_length], sum of the log-softmax of the PROCESSED
+    scores over generated tokens incl. eos [B], never divided by the
+    temperature).
+
+    A sampled step is ``argmax(processed / temperature + g)`` with ``g =
+    noise(cur_len, processed.shape)`` standard Gumbel draws: the body of
+    ``jax.random.categorical`` in the JAX package, whose draws a caller can
+    inject to sample the same tokens."""
     device = prompt.device
     batch, plen = prompt.shape
+    if do_sample and noise is None:
+        raise ValueError("sampling needs a noise source")
     tokens = torch.full((batch, max_length), pad_token_id, dtype=torch.long, device=device)
     tokens[:, :plen] = prompt
     sum_lp = torch.zeros((batch,), dtype=torch.float32, device=device)
@@ -173,7 +186,11 @@ def greedy_search(
         processed = apply_logits_processors(
             processors, logits.to(torch.float32), tokens, cur_len, prompt_len
         )
-        next_tok = torch.argmax(processed, dim=-1)
+        if do_sample:
+            gumbel = noise(cur_len, tuple(processed.shape)).to(device, torch.float32)
+            next_tok = torch.argmax(processed / temperature + gumbel, dim=-1)
+        else:
+            next_tok = torch.argmax(processed, dim=-1)
         tok_lp = torch.gather(torch.log_softmax(processed, dim=-1), 1, next_tok[:, None])[:, 0]
         next_tok = torch.where(finished, torch.full_like(next_tok, pad_token_id), next_tok)
         sum_lp = sum_lp + torch.where(finished, torch.zeros_like(tok_lp), tok_lp)

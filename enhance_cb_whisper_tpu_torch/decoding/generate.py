@@ -1,23 +1,39 @@
-"""Whisper generation, shortform path (port of
-enhance_cb_whisper_tpu/decoding/generate.py).
+"""Whisper generation (port of enhance_cb_whisper_tpu/decoding/generate.py):
+shortform, and the longform seek loop with condition-on-prev prompts and
+the temperature-fallback ladder.
 
-One utterance of at most 30 s: pad the mel to the 3000-frame segment,
-encode it (or take the encoding from the keyword-spotting hook, which runs
-the ONE encoder forward that feeds both spotting and cross-attention),
-precompute the cross-attention K/V, prefill ``[<|startofprev|>, keywords,
-*init_tokens]`` into a fresh KV cache and run beam or greedy search to
-``max_target_positions``.
+Shortform (one utterance of at most 30 s): pad the mel to the 3000-frame
+segment, encode it (or take the encoding from the keyword-spotting hook,
+which runs the ONE encoder forward that feeds both spotting and
+cross-attention), precompute the cross-attention K/V, prefill
+``[<|startofprev|>, keywords, *init_tokens]`` into a fresh KV cache and run
+beam or greedy search to ``max_target_positions``.
 
-Not in this slice: the longform seek loop, the temperature-fallback
-ladder, batched and packed decode.  ``generate`` raises for inputs that
-need them.  Prompt-length bucketing existed only to bound JAX compiles and
-is dropped: the prompt is prefilled at its true length.
+Longform (more than 3000 frames, or a batch above 1): every unfinished
+row's next 30 s window is decoded together.  Per window: the spotting hook,
+one encoder forward, the prompt ``[<|startofprev|>, keywords, previous
+text, *init_tokens]``, then the fallback ladder, which re-decodes only the
+rows whose output is repetitive or unsure at the next temperature.  The
+output's timestamps cut it into segments and move each row's seek.
+
+Sampled rungs draw Gumbel noise from a source ``(rung, segment_idx,
+cur_len, shape) -> tensor``.  The default, :func:`cpu_gumbel_noise`, draws
+on the CPU, so the CPU and the card sample the same tokens; the JAX
+package's own draws can be injected in its place.
+
+Not ported yet: packed decode (``generate_packed``: its vacant slots,
+``real_rows`` hook argument and fixed-width prompts) and beam-sample
+(``num_beams > 1`` at a temperature above 0, which the ladder never asks
+for).  Prompt-length bucketing existed only to bound JAX compiles and is
+dropped: the prompt is prefilled at its true length.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+import zlib
+from functools import partial
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,11 +46,26 @@ from ..models.whisper import (
     init_cache,
     precompute_cross_kv,
 )
+from ..runtime.precision import reference_precision
 from .beam import beam_search, greedy_search
 from .logits_process import LogitsProcessorConfig
-from .prompt import strip_prompt
+from .prompt import prepare_decoder_input_ids, segment_prev_tokens, strip_prompt
 
+TIME_PRECISION = 0.02
 INPUT_STRIDE = 2
+
+# (rung, segment_idx, cur_len, shape) -> standard Gumbel draws of ``shape``
+NoiseSource = Callable[[int, int, int, Tuple[int, ...]], torch.Tensor]
+
+
+def cpu_gumbel_noise(rung: int, segment_idx: int, cur_len: int,
+                     shape: Tuple[int, ...]) -> torch.Tensor:
+    """Standard Gumbel draws on the CPU from a generator seeded by
+    ``(rung, segment_idx, cur_len)``: the same numbers on every device and
+    in every run, whichever step asks first."""
+    seed = np.random.SeedSequence([rung, segment_idx, cur_len]).generate_state(1, np.uint64)[0]
+    uniform = torch.rand(shape, generator=torch.Generator().manual_seed(int(seed)))
+    return -torch.log(-torch.log(uniform.clamp_min(torch.finfo(torch.float32).tiny)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,8 +113,38 @@ class GenerationOptions:
         return self.language_token_id is None and len(self.lang_token_ids) > 0
 
 
+def _compression_ratio(tokens: Sequence[int], vocab_size: int) -> float:
+    """zlib compression ratio over token bytes (high = repetitive).  The
+    byte width comes from the vocab size, not from the sequence (HF
+    ``_retrieve_compression_ratio``: ``int(log2(vocab_size) / 8) + 1``)."""
+    if len(tokens) == 0:
+        return 0.0
+    length = int(np.log2(vocab_size) / 8) + 1
+    raw = b"".join(int(t).to_bytes(length, "little") for t in tokens)
+    return len(raw) / len(zlib.compress(raw))
+
+
+@dataclasses.dataclass
+class _LongformRow:
+    """Host-side longform decode state for ONE utterance (one batch row)."""
+
+    features: Any  # [1, n_mels, T] full-utterance mel
+    max_frames: int
+    order: int = 0  # batch row of the utterance
+    seek: int = 0
+    segments: List[dict] = dataclasses.field(default_factory=list)
+    condition: bool = False
+    # language token detected from this row's FIRST window (None = not yet
+    # detected, or detection off)
+    lang_token_id: Optional[int] = None
+
+    @property
+    def done(self) -> bool:
+        return self.seek >= self.max_frames
+
+
 class WhisperGenerator:
-    """Shortform Whisper generation around a fixed (config, params).
+    """Whisper generation around a fixed (config, params).
 
     ``params`` is the torch parameter dict of :mod:`..models.whisper`
     (:func:`..convert.from_jax_whisper_params`), already on ``device``."""
@@ -92,6 +153,8 @@ class WhisperGenerator:
         self.config = config
         self.params = params
         self.device = torch.device(device)
+        if self.device.type == "cuda":
+            reference_precision()
         self.n_segment_frames = INPUT_STRIDE * config.max_source_positions
 
     # ------------------------------------------------------------------ steps
@@ -163,9 +226,16 @@ class WhisperGenerator:
         attention_mask: Optional[np.ndarray],
         opts: GenerationOptions,
         return_timestamps: bool,
-    ) -> Tuple[np.ndarray, np.ndarray]:
-        """Prefill the prompt, run beam/greedy to max_target_positions;
-        returns (full sequences incl. prompt [B, max_len], scores [B])."""
+        temperature: float = 0.0,
+        noise: Optional[Callable[[int, Tuple[int, ...]], torch.Tensor]] = None,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Prefill the prompt, run beam/greedy/sampling to
+        max_target_positions; returns (full sequences incl. prompt
+        [B, max_len], scores [B], no-speech probabilities [B]).  ``noise``
+        maps (cur_len, shape) to Gumbel draws for a sampled rung.  The
+        no-speech probability (softmax at ``no_speech_token_id`` of the
+        first generated position) is computed only when a threshold will
+        read it, else 0."""
         batch, plen = decoder_input_ids.shape
         max_length = opts.max_target_positions
         pmask = (
@@ -174,16 +244,28 @@ class WhisperGenerator:
             else np.ones((batch, plen), dtype=np.int64)
         )
         processors = self._processors(dataclasses.replace(opts, return_timestamps=return_timestamps))
+        use_sampling = temperature > 0.0
         K = opts.num_beams
+        if use_sampling and K > 1:
+            raise NotImplementedError(
+                "beam-sample (num_beams > 1 at a temperature above 0) is not ported; "
+                "the fallback ladder samples with num_beams=1"
+            )
         reps = K if K > 1 else 1
         ctx = self._make_ctx(cross_kv, pmask, max_length, reps)
         prompt = torch.from_numpy(np.asarray(decoder_input_ids, dtype=np.int64)).to(self.device)
-        cache, _ = self._prefill(prompt.repeat_interleave(reps, dim=0), ctx, max_length)
+        cache, first_logits = self._prefill(prompt.repeat_interleave(reps, dim=0), ctx, max_length)
+        if opts.no_speech_threshold is not None:
+            probs = torch.softmax(first_logits.to(torch.float32), dim=-1)
+            no_speech_probs = probs[::reps, opts.no_speech_token_id].cpu().numpy()
+        else:
+            no_speech_probs = np.zeros((batch,), np.float32)
         if K == 1:
             seqs, scores = greedy_search(
                 self._decode_step, prompt, plen, cache, ctx, processors,
                 max_length=max_length, pad_token_id=opts.pad_token_id,
-                eos_token_id=opts.eos_token_id,
+                eos_token_id=opts.eos_token_id, do_sample=use_sampling,
+                temperature=float(temperature) if use_sampling else 1.0, noise=noise,
             )
         else:
             seqs, scores = beam_search(
@@ -191,31 +273,42 @@ class WhisperGenerator:
                 num_beams=K, max_length=max_length, length_penalty=opts.length_penalty,
                 pad_token_id=opts.pad_token_id, eos_token_id=opts.eos_token_id,
             )
-        return seqs.cpu().numpy(), scores.cpu().numpy()
+        return seqs.cpu().numpy(), scores.cpu().numpy(), no_speech_probs
 
-    # ------------------------------------------------------------- shortform
+    # -------------------------------------------------------------- dispatch
 
     @torch.no_grad()
     def generate(
         self,
-        input_features: torch.Tensor,  # [1, n_mels, T <= 3000]
+        input_features: torch.Tensor,  # [B, n_mels, T]
         opts: GenerationOptions,
         attention_mask: Optional[np.ndarray] = None,
         keyword_spotting: Optional[Callable] = None,
+        return_segments: bool = False,
         encode_spot: Optional[Callable] = None,
-    ) -> np.ndarray:
-        """Shortform generate (one utterance of at most 30 s); returns the
+        noise: NoiseSource = cpu_gumbel_noise,
+    ):
+        """Shortform for one utterance of at most 3000 frames: the
         generated tokens [1, max_len - prompt_len] with the keyword prompt
-        stripped.  ``attention_mask`` is accepted for API parity; a single
-        shortform window decodes the whole padded segment, as in the
-        reference."""
+        stripped (``attention_mask`` unused, as in the reference).
+        Otherwise the longform seek loop over every row, each ending where
+        its ``attention_mask`` [B, T] ends: the right-padded tokens of each
+        row's segments [B, n], or with ``return_segments`` a dict with
+        those ``"sequences"`` and each row's ``"segments"`` (dicts with
+        ``start``, ``end`` in seconds and ``tokens``).
+
+        ``encode_spot(segment_mels, start_of_prev=False) -> (keyword_tokens,
+        encoding | None)`` is the single-encode hook (one encoder forward
+        feeds spotting and cross-attention); ``keyword_spotting`` returns
+        the keyword tokens only.  ``noise`` feeds the ladder's sampled
+        rungs."""
         total_frames = input_features.shape[-1]
-        if total_frames > self.n_segment_frames or input_features.shape[0] != 1:
-            raise NotImplementedError(
-                "longform and batched generation are not ported yet: "
-                "this slice decodes one utterance of at most 30 s"
-            )
-        return self._generate_shortform(input_features, opts, keyword_spotting, encode_spot)
+        if total_frames <= self.n_segment_frames and input_features.shape[0] == 1:
+            return self._generate_shortform(input_features, opts, keyword_spotting, encode_spot)
+        return self._generate_longform(
+            input_features, opts, attention_mask, keyword_spotting, return_segments,
+            encode_spot, noise,
+        )
 
     def _generate_shortform(self, input_features, opts, keyword_spotting, encode_spot=None):
         padded_seg = self._pad_segment(input_features)
@@ -235,12 +328,331 @@ class WhisperGenerator:
         if opts.needs_lang_detection:
             detected = int(self._detect_language_ids(cross_kv, 1, opts)[0])
         decoder_ids = np.asarray([prompt_ids + opts.init_tokens(detected)], dtype=np.int64)
-        seqs, _ = self._decode_prompted(
+        seqs, _, _ = self._decode_prompted(
             cross_kv, decoder_ids, None, opts, return_timestamps=opts.return_timestamps,
         )
         return strip_prompt(seqs, len(prompt_ids))
 
-    def _pad_segment(self, seg: torch.Tensor) -> torch.Tensor:
+    # -------------------------------------------------------------- longform
+
+    def _pad_segment(self, seg) -> torch.Tensor:
         seg = torch.as_tensor(seg, dtype=torch.float32, device=self.device)
         pad = self.n_segment_frames - seg.shape[-1]
         return F.pad(seg, (0, pad)) if pad else seg
+
+    def _run_longform_window(
+        self,
+        rows: List[_LongformRow],
+        opts: GenerationOptions,
+        keyword_spotting,
+        encode_spot,
+        prev_enabled: bool,
+        condition_any: bool,
+        segment_idx: int,
+        noise: NoiseSource,
+    ) -> None:
+        """Decode ONE 30 s window of every row in ``rows`` (the unfinished
+        ones) and advance their seeks.
+
+        ``prev_enabled`` is HF's row-0 condition-on-prev gate
+        (``len(current_segments[0]) > 0``); ``condition_any`` is
+        ``any(condition flags)`` over ALL utterances, finished included."""
+        timestamp_begin = opts.no_timestamps_token_id + 1
+        seek_num_frames = [min(r.max_frames - r.seek, self.n_segment_frames) for r in rows]
+        seg = torch.cat([
+            self._pad_segment(r.features[:, :, r.seek : r.seek + n])
+            for r, n in zip(rows, seek_num_frames)
+        ])
+
+        enc = None
+        if encode_spot is not None:
+            keywords_tokens, enc = encode_spot(seg)
+        elif keyword_spotting is not None:
+            keywords_tokens = keyword_spotting(input_features=seg)
+        else:
+            keywords_tokens = [[] for _ in rows]
+
+        prev_tokens = [
+            [t for s in r.segments for t in segment_prev_tokens(s, timestamp_begin)]
+            if r.condition else None
+            for r in rows
+        ]
+        use_prev = prev_enabled and any(p is not None and len(p) > 0 for p in prev_tokens)
+
+        if enc is None:
+            enc = self._encode(seg)
+        cross_kv = self._cross_kv_fn(enc)
+
+        # language auto-detection: each row once, on its own first window
+        # (frames [0:3000], HF's detect_language operand)
+        init_tokens: Any = opts.init_tokens()
+        if opts.needs_lang_detection:
+            todo = [j for j, r in enumerate(rows) if r.lang_token_id is None]
+            if todo:
+                detected = self._detect_language_ids(cross_kv, len(rows), opts)
+                for j in todo:
+                    rows[j].lang_token_id = int(detected[j])
+            init_tokens = [opts.init_tokens(r.lang_token_id) for r in rows]
+
+        decoder_ids, attn = prepare_decoder_input_ids(
+            init_tokens=init_tokens,
+            keywords_tokens=keywords_tokens,
+            prev_tokens_per_batch=prev_tokens if use_prev else None,
+            condition_on_prev=condition_any,
+            max_target_positions=opts.max_target_positions,
+            pad_token_id=opts.pad_token_id,
+            prev_sot_token_id=opts.prev_sot_token_id,
+        )
+
+        cond_local = [r.condition for r in rows]
+        seqs, _, should_skip = self._generate_with_fallback(
+            cross_kv, decoder_ids, attn, opts, cond_local, list(range(len(rows))),
+            segment_idx=segment_idx, noise=noise,
+        )
+
+        plen = decoder_ids.shape[1]
+        for j, r in enumerate(rows):
+            r.condition = cond_local[j]
+            if should_skip[j]:
+                # silence detected: drop the segment, advance the window
+                r.seek += seek_num_frames[j]
+                continue
+            seek_seq = self._trim_generated(seqs[j, plen:], opts)
+            time_offset = r.seek * TIME_PRECISION / INPUT_STRIDE
+            segments, segment_offset = self._retrieve_segment(
+                seek_seq, float(time_offset), timestamp_begin, int(seek_num_frames[j]),
+            )
+            r.segments += segments
+            r.seek += segment_offset
+
+    def _generate_longform(
+        self, input_features, opts, attention_mask, keyword_spotting,
+        return_segments, encode_spot, noise: NoiseSource,
+    ):
+        batch = input_features.shape[0]
+        total = input_features.shape[-1]
+        if attention_mask is not None:
+            max_frames = np.asarray(attention_mask).sum(-1).astype(np.int64)
+        else:
+            max_frames = np.full((batch,), total, dtype=np.int64)
+        rows = [
+            _LongformRow(
+                features=input_features[i : i + 1],
+                max_frames=int(max_frames[i]),
+                order=i,
+                condition=opts.condition_on_prev_tokens,
+            )
+            for i in range(batch)
+        ]
+
+        segment_idx = 0
+        while any(not r.done for r in rows):
+            segment_idx += 1
+            self._run_longform_window(
+                [r for r in rows if not r.done],
+                opts,
+                keyword_spotting,
+                encode_spot,
+                prev_enabled=len(rows[0].segments) > 0,
+                condition_any=any(r.condition for r in rows),
+                segment_idx=segment_idx,
+                noise=noise,
+            )
+
+        sequences = self._pad_sequences_right(
+            [[t for s in r.segments for t in s["tokens"]] for r in rows],
+            opts.pad_token_id,
+        )
+        if return_segments:
+            return {"sequences": sequences, "segments": [r.segments for r in rows]}
+        return sequences
+
+    @staticmethod
+    def _take_rows(cross_kv, rows: List[int]):
+        """Rows ``rows`` of the batch axis of every layer's cross K/V
+        ([B, T_enc, H, Dh] each)."""
+        idx = torch.as_tensor(rows, dtype=torch.long, device=cross_kv[0]["k"].device)
+        return [{name: t.index_select(0, idx) for name, t in layer.items()} for layer in cross_kv]
+
+    def _need_fallback(self, gen_with_eos, score, no_speech_prob, opts, num_beams_used: int):
+        """HF ``_need_fallback`` on one row: (fallback, skip).
+
+        ``gen_with_eos`` keeps the trailing eos: both the compression ratio
+        and the avg-logprob denominator count it.  Beam scores are already
+        length-normalized; greedy/sampled scores are the logprob sum over
+        generated tokens incl. eos."""
+        avg_lp = (
+            float(score)
+            if num_beams_used > 1
+            else float(score) / max(len(gen_with_eos), 1)
+        )
+        fallback, skip = False, False
+        if opts.compression_ratio_threshold is not None:
+            ratio = _compression_ratio(gen_with_eos, self.config.vocab_size)
+            if ratio > opts.compression_ratio_threshold:
+                fallback = True
+        if opts.logprob_threshold is not None and avg_lp < opts.logprob_threshold:
+            fallback = True
+        if opts.no_speech_threshold is not None:
+            if float(no_speech_prob) > opts.no_speech_threshold and (
+                opts.logprob_threshold is None or avg_lp < opts.logprob_threshold
+            ):
+                fallback = False
+                skip = True
+        return fallback, skip
+
+    def _generate_with_fallback(self, cross_kv, decoder_ids, attn, opts, condition_flags,
+                                active, segment_idx: int, noise: NoiseSource):
+        """Temperature fallback ladder (HF ``generate_with_fallback``):
+        retry at the next temperature while the output is repetitive (zlib
+        compression ratio) or unsure (mean logprob); a segment whose
+        no-speech probability passes its threshold with a low logprob is
+        skipped.
+
+        * only the rows that still need fallback are decoded again;
+        * sampled rungs (temperature > 0) decode with ``num_beams=1``;
+        * per row, conditioning for the NEXT window follows the rung that
+          produced the kept result: ``condition_on_prev and temperature <
+          0.5`` (written into ``condition_flags[active[row]]``);
+        * the last rung's result is kept even if it still fails;
+        * ``should_skip`` is per ORIGINAL row (docs/PARITY.md #14).
+        Rung ``ti`` of window ``segment_idx`` samples with
+        ``noise(ti, segment_idx, ...)``."""
+        B, plen = decoder_ids.shape
+        kept_seqs: List[Optional[np.ndarray]] = [None] * B
+        kept_scores = np.zeros((B,), np.float32)
+        should_skip = [False] * B
+        fallback_map = list(range(B))  # original row of each current row
+        cur_cross_kv, cur_ids, cur_attn = cross_kv, decoder_ids, attn
+        for ti, temperature in enumerate(opts.temperature):
+            do_sample = temperature is not None and float(temperature) > 0.0
+            opts_rung = dataclasses.replace(opts, num_beams=1) if do_sample else opts
+            seqs, scores, no_speech = self._decode_prompted(
+                cur_cross_kv, cur_ids, cur_attn, opts_rung,
+                return_timestamps=opts.return_timestamps,
+                temperature=float(temperature or 0.0),
+                noise=partial(noise, ti, segment_idx),
+            )
+            new_map: List[int] = []
+            new_rows: List[int] = []
+            for row in range(seqs.shape[0]):
+                orig = fallback_map[row]
+                gen_eos = self._trim_generated(seqs[row, plen:], opts, keep_eos=True)
+                fallback, skip = self._need_fallback(
+                    gen_eos, scores[row], no_speech[row], opts, opts_rung.num_beams,
+                )
+                kept_seqs[orig] = seqs[row]
+                kept_scores[orig] = float(scores[row])
+                should_skip[orig] = skip
+                condition_flags[active[orig]] = bool(
+                    opts.condition_on_prev_tokens
+                    and (temperature is None or float(temperature) < 0.5)
+                )
+                if fallback:
+                    new_map.append(orig)
+                    new_rows.append(row)
+            fallback_map = new_map
+            if not fallback_map or ti == len(opts.temperature) - 1:
+                break
+            cur_ids = cur_ids[new_rows]
+            cur_attn = cur_attn[new_rows] if cur_attn is not None else None
+            cur_cross_kv = self._take_rows(cur_cross_kv, new_rows)
+        return np.stack(kept_seqs), kept_scores, should_skip
+
+    @staticmethod
+    def _trim_generated(tokens: np.ndarray, opts: GenerationOptions,
+                        keep_eos: bool = False) -> List[int]:
+        """Strip TRAILING padding, then the final eos unless ``keep_eos``
+        (HF: padding removed with eos kept for the fallback metrics, eos
+        stripped afterwards for segmentation).  A pad token emitted
+        MID-sequence is kept, like HF."""
+        out = tokens.tolist()
+        n_trail = 0
+        while n_trail < len(out) and out[-1 - n_trail] == opts.pad_token_id:
+            n_trail += 1
+        if opts.pad_token_id == opts.eos_token_id and n_trail > 0:
+            n_trail -= 1  # the final "pad" is the eos itself: keep it here
+        if n_trail:
+            out = out[:-n_trail]
+        if not keep_eos and out and out[-1] == opts.eos_token_id:
+            out.pop()
+        return [int(t) for t in out]
+
+    @staticmethod
+    def _retrieve_segment(
+        seek_sequence: List[int],
+        time_offset: float,
+        timestamp_begin: int,
+        seek_num_frames: int,
+    ) -> Tuple[List[dict], int]:
+        """Timestamp-driven segmentation + seek advance (HF
+        ``_retrieve_segment``): (segments, frames to advance the seek)."""
+        seq = np.asarray(seek_sequence, dtype=np.int64)
+        ts_mask = seq >= timestamp_begin
+        if seq.size == 0:
+            return [], seek_num_frames
+        single_timestamp_ending = seq.size >= 2 and not ts_mask[-2] and ts_mask[-1]
+        consecutive = np.where(ts_mask[:-1] & ts_mask[1:])[0] + 1
+
+        if consecutive.size > 0:
+            slices = consecutive.tolist()
+            if single_timestamp_ending:
+                slices.append(seq.size)
+            else:
+                # the closing timestamp of the final pair belongs to the
+                # last segment
+                slices[-1] += 1
+            segments = []
+            last_slice = 0
+            for i, current_slice in enumerate(slices):
+                is_last = i == len(slices) - 1
+                sliced = seq[last_slice:current_slice]
+                start_pos = int(sliced[0]) - timestamp_begin
+                end_idx = -1 if (not is_last or single_timestamp_ending) else -2
+                end_pos = int(sliced[end_idx]) - timestamp_begin
+                segments.append({
+                    "start": time_offset + start_pos * TIME_PRECISION,
+                    "end": time_offset + end_pos * TIME_PRECISION,
+                    "tokens": sliced.tolist(),
+                })
+                last_slice = current_slice
+            if single_timestamp_ending:
+                segment_offset = seek_num_frames
+            else:
+                # seek to the last "end of segment" timestamp (first of the
+                # closing pair), discarding the unfinished tail
+                last_ts_pos = int(seq[last_slice - 2]) - timestamp_begin
+                segment_offset = last_ts_pos * INPUT_STRIDE
+        else:
+            timestamps = seq[ts_mask]
+            # HF computes int(snf * time_precision_features / time_precision)
+            # in FLOAT32; its truncation differs from snf // 2 in both
+            # directions (snf=1686 -> 842, snf=1756 -> 878)
+            last_ts_pos = int(
+                np.float32(seek_num_frames)
+                * np.float32(TIME_PRECISION / INPUT_STRIDE)
+                / np.float32(TIME_PRECISION)
+            )
+            if timestamps.size > 0 and int(timestamps[-1]) != timestamp_begin:
+                last_ts_pos = int(timestamps[-1]) - timestamp_begin
+            segments = [{
+                "start": time_offset,
+                "end": time_offset + last_ts_pos * TIME_PRECISION,
+                "tokens": seq.tolist(),
+            }]
+            segment_offset = seek_num_frames
+
+        if segment_offset <= 0:
+            # deliberate deviation (docs/PARITY.md #19): a closing timestamp
+            # pair at position 0 gives offset 0 and would stall HF's seek
+            # loop; the full window is advanced instead
+            segment_offset = seek_num_frames
+        return segments, segment_offset
+
+    @staticmethod
+    def _pad_sequences_right(seqs: List[List[int]], pad_token_id: int) -> np.ndarray:
+        max_len = max((len(s) for s in seqs), default=0)
+        out = np.full((len(seqs), max_len), pad_token_id, dtype=np.int64)
+        for i, s in enumerate(seqs):
+            out[i, : len(s)] = s
+        return out

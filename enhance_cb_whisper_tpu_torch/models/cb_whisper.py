@@ -1,11 +1,15 @@
 """CB-Whisper: contextual-biasing ASR with on-the-fly keyword spotting
-(port of enhance_cb_whisper_tpu/models/cb_whisper.py, shortform batch-1).
+(port of enhance_cb_whisper_tpu/models/cb_whisper.py, batch 1, shortform
+and longform).
 
-Per utterance: ONE encoder forward yields both the L2-normalized layer
+Per 30 s segment: ONE encoder forward yields both the L2-normalized layer
 stack (keyword spotting) and the encoding that feeds cross-attention (when
 the KWS encoder is the ASR encoder); the whole catalog is scored against the
 stack; class-1 argmax keywords become the decoder prompt; beam search
-decodes; entity recall and bootstrap CIs are computed at the end.
+decodes; an utterance longer than 30 s takes the generator's seek loop,
+one window at a time; entity recall and bootstrap CIs are computed at the
+end.  Batched and packed eval (``forward_batch``, ``forward_packed``,
+``run_test(batch_size > 1)``) are not ported yet.
 :meth:`CBWhisper.enable_int8_spotting` swaps the fp32 ResNet scorer for
 the int8 one after a lazy calibration on the first segments.
 
@@ -33,6 +37,7 @@ from ..catalog.database import (
 from ..decoding.generate import GenerationOptions, WhisperGenerator
 from ..metrics import entity_recall, evaluate_with_conf_int
 from ..ops.resize import resize_matrix
+from ..runtime.precision import reference_precision
 from ..runtime.profiler import RTFxMeter
 from .kws import KWSModel
 from .quant import calibrate_act_scales, make_quantized_kws_apply, quantize_resnet_classifier
@@ -74,6 +79,8 @@ class CBWhisper:
         self.config = config
         self.whisper_config = whisper_config
         self.device = torch.device(device)
+        if self.device.type == "cuda":
+            reference_precision()
         self.kws_model = kws_model.to(self.device).eval()
         self.catalog = catalog
         self.opts = generation_options
@@ -226,17 +233,20 @@ class CBWhisper:
 
     def forward(self, input_features, attention_mask: Optional[np.ndarray] = None,
                 oracle: Optional[List[str]] = None) -> str:
-        """Transcribe one utterance (<= 30 s) with contextual biasing; returns
-        the stripped transcript string."""
+        """Transcribe one utterance with contextual biasing (the seek loop
+        when it is longer than 30 s; ``attention_mask`` [1, T] marks its
+        true frames); returns the stripped transcript string."""
         self.oracle_buffer = oracle or []
-        tokens = self.generator.generate(
+        result = self.generator.generate(
             self._features(input_features),
             self.opts,
             attention_mask=attention_mask,
             keyword_spotting=self.keyword_spotting,
+            return_segments=True,
             encode_spot=self._encode_spot_hook(),
         )
-        return self.decode_fn(tokens[0]).strip()
+        tokens = result["sequences"][0] if isinstance(result, dict) else result[0]
+        return self.decode_fn(tokens).strip()
 
     # -------------------------------------------------------------------- test
 

@@ -1,1 +1,1 @@
-"""Runtime helpers (throughput meter)."""
+"""Runtime helpers: throughput meter, KWS engine, reference precision."""

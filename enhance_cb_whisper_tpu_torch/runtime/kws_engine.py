@@ -31,6 +31,7 @@ from ..metrics import evaluate_with_conf_int, prf_at_threshold
 from ..models.quant import calibrate_act_scales, make_quantized_kws_apply, quantize_resnet_classifier
 from ..models.resnet import ResNetConfig
 from ..ops.resize import resize_matrix
+from .precision import reference_precision
 
 
 def _bucket(n: int, step: int = 128, lo: int = 128) -> int:
@@ -49,6 +50,8 @@ class KWSEngine:
         self.resnet_config = resnet_config or ResNetConfig(num_channels=12, num_labels=2)
         self.features_size = tuple(features_size)
         self.device = torch.device(device)
+        if self.device.type == "cuda":
+            reference_precision()
         self._catalog_cache: Dict[int, Any] = {}
         self._int8_apply = None
 

@@ -1,0 +1,22 @@
+"""Full-FP32 matmuls and convolutions on the card.
+
+The JAX package runs its parity-critical products at
+``precision="highest"``.  PyTorch lets cuDNN convolutions take TF32 by
+default (``torch.backends.cudnn.allow_tf32`` is ``True``), which would put
+the fp32 scorer's ResNet convolutions about 1e-3 away from the reference.
+:func:`reference_precision` turns TF32 off for cuBLAS and cuDNN; the entry
+points that run on the card (``CBWhisper``, ``WhisperGenerator``,
+``KWSEngine``) call it when their device is CUDA.  The flags are global to
+the process and stay off: nothing restores them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def reference_precision() -> None:
+    """Disallow TF32 in cuBLAS matmuls and cuDNN convolutions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+

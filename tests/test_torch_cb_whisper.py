@@ -179,3 +179,55 @@ def test_spotting_failure_raises(pipelines):
     _, port_cb = pipelines
     with pytest.raises(RuntimeError):
         port_cb.encode_and_spot(torch.zeros((1, 80, 17)))
+
+
+def test_run_test_longform_matches_jax(pipelines):
+    """``run_test`` at batch 1 over one 50 s utterance (two windows):
+    keywords spotted per window, the seek loop's transcript and entity
+    recall agree with JAX.  The decoder's timestamp embedding rows are
+    zeroed, so a window's output holds no timestamp pair after its first
+    token and the seek moves a whole window (a plain random decoder closes
+    a pair every few tokens and crawls through the audio)."""
+    jax_cb, port_cb = pipelines
+    rng = np.random.default_rng(2)
+    audio = (rng.standard_normal(16000 * 50) * 0.1).astype(np.float32)
+    dataset = [{**_dataset()[0], "audio": audio}]
+    params = init_whisper_params(np.random.default_rng(0), JaxWhisperConfig(**CFG))
+    no_ts = jax.tree.map(np.copy, params)
+    no_ts["decoder"]["embed_tokens"]["weight"][101:] = 0.0
+    spotted = {"jax": [], "port": []}
+    preds = {"jax": [], "port": []}
+    results = {}
+    # one intra-op thread: the port's tiny decode steps stay fast when the
+    # test workers share the machine's cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        jax_cb.generator.swap_params(no_ts)
+        port_cb.generator.params = from_jax_whisper_params(no_ts, device="cpu")
+        for name, cb, mel_fn in (
+            ("jax", jax_cb, lambda item: jax_prepare_features(item["audio"])),
+            ("port", port_cb, lambda item: prepare_features(item["audio"], device="cpu")),
+        ):
+            score_to_keywords = cb._score_to_keywords
+
+            def recorded(*args, _name=name, _fn=score_to_keywords, **kwargs):
+                out = _fn(*args, **kwargs)
+                spotted[_name].extend(out)
+                return out
+
+            cb._score_to_keywords = recorded
+            try:
+                results[name] = cb.run_test(dataset, mel_fn, num_bootstraps=5, predictions_out=preds[name])
+            finally:
+                del cb._score_to_keywords
+    finally:
+        torch.set_num_threads(threads)
+        jax_cb.generator.swap_params(params)
+        port_cb.generator.params = from_jax_whisper_params(params, device="cpu")
+    features, mask = prepare_features(audio, device="cpu")
+    assert features.shape[-1] == 5000 and mask.sum() == 5000
+    assert len(spotted["port"]) >= 2, "the utterance was not cut into windows"
+    assert spotted["port"] == spotted["jax"]
+    assert preds["port"] == preds["jax"] and preds["port"][0]
+    assert results["port"]["Entity Recall"] == results["jax"]["Entity Recall"]

@@ -110,7 +110,7 @@ def test_search_token_exact_over_seeds(generators, num_beams):
         j_xkv = jgen._cross_kv_fn(jgen._encode(jnp.asarray(mel)))
         t_xkv = tgen._cross_kv_fn(tgen._encode(torch.from_numpy(mel)))
         j_seqs, j_scores, _ = jgen._decode_prompted(j_xkv, ids, attn, jopts, return_timestamps=True)
-        t_seqs, t_scores = tgen._decode_prompted(t_xkv, ids, attn, topts, return_timestamps=True)
+        t_seqs, t_scores, _ = tgen._decode_prompted(t_xkv, ids, attn, topts, return_timestamps=True)
         np.testing.assert_array_equal(t_seqs, j_seqs)
         np.testing.assert_allclose(t_scores, j_scores, rtol=0, atol=1e-4)
         # the decode really ran past the prompt
@@ -125,7 +125,8 @@ def test_generate_shortform_matches_jax(generators, language):
     """The shortform entry point: a <30 s mel is padded to the segment,
     a spotting callback supplies the prompt, the prompt is stripped; the
     language token is given, or detected from the segment (HF
-    detect_language: [sot] prefill, argmax over the language tokens)."""
+    detect_language: [sot] prefill, argmax over the language tokens).  A
+    3001-frame mel decodes through the longform path, as in JAX."""
     jcfg, tcfg, jgen, tgen = generators
     params = jw.init_whisper_params(np.random.default_rng(4), jcfg)
     jgen.swap_params(params)
@@ -143,5 +144,19 @@ def test_generate_shortform_matches_jax(generators, language):
     want = jgen.generate(mel, jopts, keyword_spotting=spot)
     got = tgen.generate(torch.from_numpy(mel), topts, keyword_spotting=spot)
     np.testing.assert_array_equal(got, np.asarray(want))
-    with pytest.raises(NotImplementedError):
-        tgen.generate(torch.zeros((1, 80, 3001)), topts)
+    # one frame more than a segment takes the longform seek loop: greedy,
+    # no prompt hook, and a decoder whose timestamp rows are damped and
+    # whose eos row is boosted, so the first window's output ends early
+    # and the seek moves past it (a plain random decoder closes a
+    # timestamp pair every few tokens and crawls through the audio)
+    params = jw.init_whisper_params(np.random.default_rng(0), jcfg)
+    params["decoder"]["embed_tokens"]["weight"][NO_TS + 1:] *= 0.5
+    params["decoder"]["embed_tokens"]["weight"][2] *= 3.0
+    jgen.swap_params(params)
+    tgen.params = from_jax_whisper_params(params, device="cpu")
+    mel = np.random.default_rng(6).standard_normal((1, 80, 3001)).astype(np.float32)
+    jopts, topts = (dataclasses.replace(o, num_beams=1) for o in (jopts, topts))
+    want = jgen.generate(mel, jopts)
+    got = tgen.generate(torch.from_numpy(mel), topts)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert got.shape[0] == 1 and (got != 0).sum() > 0

@@ -1,0 +1,47 @@
+"""TF32 stays off on the card: ``reference_precision`` clears both of
+PyTorch's TF32 switches and leaves them cleared; the entry points call it
+for a CUDA device only, so a CPU run leaves the caller's flags alone."""
+
+import numpy as np
+import pytest
+import torch
+
+from enhance_cb_whisper_tpu_torch.convert import from_jax_whisper_params
+from enhance_cb_whisper_tpu_torch.decoding.generate import WhisperGenerator
+from enhance_cb_whisper_tpu_torch.models.whisper import WhisperConfig, init_whisper_params
+from enhance_cb_whisper_tpu_torch.runtime.kws_engine import KWSEngine
+from enhance_cb_whisper_tpu_torch.runtime.precision import reference_precision
+
+
+@pytest.fixture
+def tf32_on():
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _flags():
+    return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+
+def test_reference_precision_clears_both_flags(tf32_on):
+    assert _flags() == (True, True)
+    reference_precision()
+    assert _flags() == (False, False)
+    reference_precision()  # idempotent, and nothing turns them back on
+    assert _flags() == (False, False)
+
+
+def test_cpu_entry_points_leave_the_flags(tf32_on):
+    cfg = WhisperConfig(vocab_size=16, d_model=8, encoder_layers=1, encoder_attention_heads=2,
+                        decoder_layers=1, decoder_attention_heads=2, encoder_ffn_dim=16,
+                        decoder_ffn_dim=16, max_source_positions=4, max_target_positions=8,
+                        num_mel_bins=4)
+    params = from_jax_whisper_params(init_whisper_params(np.random.default_rng(0), cfg), device="cpu")
+    WhisperGenerator(cfg, params, device="cpu")
+    KWSEngine(device="cpu")
+    assert _flags() == (True, True)
