@@ -12,7 +12,11 @@ Slice 2 adds int8 keyword spotting (``models/quant.py``, whose bottleneck
 CB-Whisper and the paper-1 KWS eval (``runtime/kws_engine.py``).  Longform
 transcription adds the 30 s seek loop with condition-on-prev
 prompts and the temperature-fallback ladder (``decoding/generate.py``),
-and the resampling audio front end (``audio/io.py``).  Entry points run on
+and the resampling audio front end (``audio/io.py``).  The command line
+(``cli/``: ``cb-whisper.py test`` and ``kws.py test|validate`` from config
+files) reads the eval datasets (``data/``), HF Whisper checkpoint
+directories (``models/whisper_loader.py``) and KWS checkpoints
+(``models/torch_compat.py``, ``runtime/checkpoint.py``).  Entry points run on
 the card unless the caller passes ``device="cpu"``, and turn TF32 off
 there (``runtime/precision.py``).  The
 package imports torch and numpy, never jax, flax or the JAX package: the

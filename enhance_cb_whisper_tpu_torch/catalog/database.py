@@ -17,12 +17,14 @@ chunks: sim einsum with the resize folded in → ResNet → softmax.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..ops.resize import resize_matrix
+from .store import hidden_states_exist, load_hidden_states
 
 
 def _round_up(n: int, m: int) -> int:
@@ -50,6 +52,7 @@ class KeywordCatalog:
         cls,
         keywords: Sequence[str],
         stacks: Sequence[Optional[np.ndarray]],  # each [L, T_k, D] or None (ghost)
+        group_size: int = 100,
         pad_multiple: int = 8,
     ) -> "KeywordCatalog":
         """Ghost keywords (missing caches) get zero features and mask 0,
@@ -73,7 +76,25 @@ class KeywordCatalog:
             hs[i, :, : s.shape[1], :] = s
             frames[i] = s.shape[1]
             mask[i] = 1.0
-        return cls(list(keywords), hs, frames, mask)
+        return cls(list(keywords), hs, frames, mask, group_size)
+
+    @classmethod
+    def from_bin_dir(
+        cls,
+        keywords: Sequence[str],
+        directory: str,
+        group_size: int = 100,
+        suffix: str = ".bin",
+    ) -> "KeywordCatalog":
+        """Load the reference's keywords-hs layout: ``{idx}.bin`` (or the
+        ``.npy`` beside it) per keyword, the index zero-padded to the width
+        of the last one; a keyword with no file is a ghost."""
+        zfill = len(str(len(keywords) - 1))
+        stacks: List[Optional[np.ndarray]] = []
+        for idx in range(len(keywords)):
+            path = os.path.join(directory, str(idx).zfill(zfill) + suffix)
+            stacks.append(load_hidden_states(path) if hidden_states_exist(path) else None)
+        return cls.from_arrays(keywords, stacks, group_size)
 
     def resize_weights(self, out_h: int) -> np.ndarray:
         """[N_pad, out_h, T_k_max]: per-keyword height-resize matrices

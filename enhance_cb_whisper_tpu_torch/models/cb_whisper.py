@@ -54,6 +54,7 @@ class CBWhisperConfig:
     keyword_prompt_prepend: str = "("
     keyword_prompt_append: str = ")"
     keyword_separator: str = " "
+    keywords_per_group: int = 100
 
 
 class CBWhisper:

@@ -47,6 +47,25 @@ class WhisperConfig:
     eos_token_id: int = 50257
     pad_token_id: int = 50257
 
+    @classmethod
+    def from_hf(cls, hf_config: Dict[str, Any]) -> "WhisperConfig":
+        """From an HF ``config.json`` dict; a key it lacks takes
+        ``transformers.WhisperConfig``'s default, as ``from_pretrained``
+        would give it."""
+        values = {**_HF_WHISPER_DEFAULTS, **hf_config}
+        return cls(**{f.name: values[f.name] for f in dataclasses.fields(cls)})
+
+
+# transformers.WhisperConfig's constructor defaults for the fields above
+_HF_WHISPER_DEFAULTS = {
+    "vocab_size": 51865, "num_mel_bins": 80, "d_model": 384,
+    "encoder_layers": 4, "encoder_attention_heads": 6,
+    "decoder_layers": 4, "decoder_attention_heads": 6,
+    "encoder_ffn_dim": 1536, "decoder_ffn_dim": 1536,
+    "max_source_positions": 1500, "max_target_positions": 448,
+    "decoder_start_token_id": 50257, "eos_token_id": 50256, "pad_token_id": 50256,
+}
+
 
 # ---------------------------------------------------------------------------
 # primitives

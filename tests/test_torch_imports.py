@@ -4,6 +4,7 @@ imports in a fresh interpreter with neither jax, flax nor the JAX package
 version for CPU tensors without counting a launch; and the entry points
 place their work on the card unless the caller asks for the CPU."""
 
+import inspect
 import os
 import pkgutil
 import subprocess
@@ -81,12 +82,18 @@ def test_entry_points_default_to_the_card():
     no card they raise instead of quietly running on the CPU."""
     from enhance_cb_whisper_tpu_torch.audio.io import prepare_features
     from enhance_cb_whisper_tpu_torch.catalog.database import KeywordCatalog, device_put_catalog
+    from enhance_cb_whisper_tpu_torch.cli import run_cli
     from enhance_cb_whisper_tpu_torch.convert import from_jax_quantized_params, from_jax_whisper_params
     from enhance_cb_whisper_tpu_torch.decoding.generate import GenerationOptions, WhisperGenerator
     from enhance_cb_whisper_tpu_torch.models.cb_whisper import CBWhisper, CBWhisperConfig
     from enhance_cb_whisper_tpu_torch.models.kws import KWSModel
     from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
     from enhance_cb_whisper_tpu_torch.models.whisper import WhisperConfig
+    from enhance_cb_whisper_tpu_torch.models.whisper_loader import (
+        load_hf_whisper,
+        load_whisper_from_pretrained,
+        load_whisper_from_safetensors,
+    )
     from enhance_cb_whisper_tpu_torch.runtime.kws_engine import KWSEngine
 
     cfg = WhisperConfig(vocab_size=16, d_model=8, encoder_layers=1, decoder_layers=1,
@@ -108,6 +115,9 @@ def test_entry_points_default_to_the_card():
     }
     assert WhisperGenerator(cfg, {}).device.type == "cuda"
     assert KWSEngine().device.type == "cuda"
+    # the CLI and the checkpoint loaders hand their device down to these
+    for fn in (run_cli, load_whisper_from_pretrained, load_whisper_from_safetensors, load_hf_whisper):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
     for name, call in calls.items():
         if torch.cuda.is_available():
             call()
