@@ -54,8 +54,8 @@ E.  drives the port's command line (``run_cli``) on the repo's config
     layout of phase B's 100 keywords and two utterances (16 kHz and
     44.1 kHz WAVs): ``cb-whisper.py test`` on configs/cb-whisper-acl.yaml
     launches K1 exactly once per utterance, and ``kws.py test`` on
-    configs/kws-acl.yaml with ``kws_int8`` and ``ECW_S8_PALLAS`` launches
-    K2 exactly 22 x 13 per utterance at phase A2's shapes (the kernel
+    configs/kws-acl.yaml with ``kws_int8`` (and no environment variable)
+    launches K2 exactly 22 x 13 per utterance at phase A2's shapes (the kernel
     line's ``cli_launches``).  Its directory is deleted at the end;
 C.  times K1 and K2 and their plain versions on the card, each by the
     median of CUDA-event timings of CUDA-graph replays (device time
@@ -983,25 +983,6 @@ def _write_tokenizer(directory: Path) -> None:
         tokenizer.save_pretrained(str(directory))
 
 
-def _hf_whisper_state(params, host: bool = True) -> dict:
-    """The port's Whisper params under the names of HF's
-    ``WhisperForConditionalGeneration``, on the host (or where they are)."""
-    state = {}
-
-    def walk(tree, prefix):
-        for key, value in tree.items():
-            if key == "layers":
-                for i, layer in enumerate(value):
-                    walk(layer, f"{prefix}layers.{i}.")
-            elif isinstance(value, dict):
-                walk(value, f"{prefix}{key}.")
-            else:
-                state[prefix + key] = value.detach().cpu().contiguous() if host else value
-
-    walk(params, "model.")
-    return state
-
-
 def _write_whisper_checkpoint(directory: Path, config, params) -> dict:
     """An HF checkpoint directory: config.json, model.safetensors,
     generation_config.json and the tokenizer.  Returns the state written."""
@@ -1009,8 +990,10 @@ def _write_whisper_checkpoint(directory: Path, config, params) -> dict:
 
     from safetensors.torch import save_file
 
+    from enhance_cb_whisper_tpu_torch.models.whisper_loader import hf_whisper_state
+
     directory.mkdir(parents=True, exist_ok=True)
-    state = _hf_whisper_state(params)
+    state = {k: v.cpu() for k, v in hf_whisper_state(params).items()}
     save_file(state, str(directory / "model.safetensors"))
     (directory / "config.json").write_text(json.dumps(
         {"model_type": "whisper", "architectures": ["WhisperForConditionalGeneration"],
@@ -1021,21 +1004,13 @@ def _write_whisper_checkpoint(directory: Path, config, params) -> dict:
 
 
 def _write_lightning_kws(path: Path, kws) -> None:
-    """The port's ``KWSModel`` as a reference Lightning checkpoint: HF
-    ``ResNetModel`` names under ``model.feature_extractor``, the head at
-    ``model.classifier.1``."""
-    import re
-
+    """The port's ``KWSModel`` as a reference Lightning checkpoint."""
     import torch
 
-    state = {}
-    for key, value in kws.state_dict().items():
-        key = key.replace("feature_extractor.embedder.", "feature_extractor.embedder.embedder.")
-        key = re.sub(r"stage_(\d+)_block_(\d+)\.layer_(\d+)", r"encoder.stages.\1.layers.\2.layer.\3", key)
-        key = re.sub(r"stage_(\d+)_block_(\d+)\.shortcut", r"encoder.stages.\1.layers.\2.shortcut", key)
-        state[key.replace("model.classifier.", "model.classifier.1.")] = value.detach().cpu()
+    from enhance_cb_whisper_tpu_torch.models.torch_compat import lightning_resnet_classifier
+
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({"state_dict": state}, str(path))
+    torch.save({"state_dict": lightning_resnet_classifier(kws.state_dict(), kws.config)}, str(path))
 
 
 def _write_acl(root: Path, keywords, stacks, utterances) -> None:
@@ -1231,15 +1206,12 @@ def phase_e_medium(root: Path, config, params, kws, stacks, shapes) -> dict:
     ``load_whisper_from_pretrained`` reads every tensor back exactly; runs
     ``cb-whisper.py test`` on the flagship config (fp32, beam 5, oracle kws,
     150x750, slice (10, 22), 100 keywords per group), K1 exactly once per
-    utterance; then ``kws.py test`` with ``kws_int8`` and
-    ``ECW_S8_PALLAS=stage_1,stage_2,stage_3``, K2 exactly 22 x 13 per
-    utterance at phase A2's shapes."""
-    import os
-
+    utterance; then ``kws.py test`` with ``kws_int8`` and no environment
+    variable set, K2 exactly 22 x 13 per utterance at phase A2's shapes."""
     import torch
 
     from enhance_cb_whisper_tpu_torch.cli import run_cli
-    from enhance_cb_whisper_tpu_torch.models.whisper_loader import load_whisper_from_pretrained
+    from enhance_cb_whisper_tpu_torch.models.whisper_loader import hf_whisper_state, load_whisper_from_pretrained
     from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, mel_cuda
 
     rng = np.random.default_rng(SEED + 11)
@@ -1251,7 +1223,7 @@ def phase_e_medium(root: Path, config, params, kws, stacks, shapes) -> dict:
     read_config, read = load_whisper_from_pretrained(str(root / "whisper"))
     torch.cuda.synchronize()
     t_read = time.perf_counter() - t0
-    read, original = _hf_whisper_state(read, host=False), _hf_whisper_state(params, host=False)
+    read, original = hf_whisper_state(read), hf_whisper_state(params)
     same = read_config == config and sorted(read) == sorted(written) and all(
         torch.equal(read[k], original[k]) for k in original)
     print(f"phase E: whisper-medium checkpoint directory of {len(written)} tensors, {size} B: written in "
@@ -1297,22 +1269,14 @@ def phase_e_medium(root: Path, config, params, kws, stacks, shapes) -> dict:
     argv = ["test", "--config", str(CONFIGS / "kws-acl.yaml"), "--set", f"AISHELL_ROOT={root}",
             "--set", "MODALITY=tts", "--set", f"ACL_ROOT={root / 'acl'}", "--set", f"CKPT={root / 'kws.ckpt'}",
             "--model.init_args.kws_int8", "true", "--model.init_args.kws_int8_calibration_batches", "2"]
-    previous = os.environ.get("ECW_S8_PALLAS")
-    os.environ["ECW_S8_PALLAS"] = ",".join(S8_STAGES)
     matmul_s8_cuda.launches = 0
     t0 = time.perf_counter()
-    try:
-        with _recorded_k2_shapes() as k2_shapes:
-            kws_results = run_cli(argv)
-            torch.cuda.synchronize()
-    finally:
-        if previous is None:
-            del os.environ["ECW_S8_PALLAS"]
-        else:
-            os.environ["ECW_S8_PALLAS"] = previous
+    with _recorded_k2_shapes() as k2_shapes:
+        kws_results = run_cli(argv)
+        torch.cuda.synchronize()
     kws_wall = time.perf_counter() - t0
     k2 = {"k2": matmul_s8_cuda.launches, "k2_shapes": k2_shapes}
-    print(f"phase E kws.py test (kws_int8, ECW_S8_PALLAS={','.join(S8_STAGES)}): run_cli {kws_wall!r} s; "
+    print(f"phase E kws.py test (kws_int8): run_cli {kws_wall!r} s; "
           f"P {kws_results['Precision']!r} R {kws_results['Recall']!r} F1 {kws_results['F1']!r} "
           f"[{kws_results['F1_LB']!r}, {kws_results['F1_UB']!r}]")
     chunks = -(-len(keywords) // CHUNK)

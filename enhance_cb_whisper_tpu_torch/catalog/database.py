@@ -84,7 +84,6 @@ class KeywordCatalog:
         keywords: Sequence[str],
         directory: str,
         group_size: int = 100,
-        suffix: str = ".bin",
     ) -> "KeywordCatalog":
         """Load the reference's keywords-hs layout: ``{idx}.bin`` (or the
         ``.npy`` beside it) per keyword, the index zero-padded to the width
@@ -92,7 +91,7 @@ class KeywordCatalog:
         zfill = len(str(len(keywords) - 1))
         stacks: List[Optional[np.ndarray]] = []
         for idx in range(len(keywords)):
-            path = os.path.join(directory, str(idx).zfill(zfill) + suffix)
+            path = os.path.join(directory, str(idx).zfill(zfill) + ".bin")
             stacks.append(load_hidden_states(path) if hidden_states_exist(path) else None)
         return cls.from_arrays(keywords, stacks, group_size)
 

@@ -15,7 +15,9 @@ CB-Whisper knobs ``compute_dtype`` other than float32, ``vocab_int8``,
 ``eval_batch_size > 1`` and ``eval_packed`` (ROADMAP.md §1 names the item
 of each).  ``kv_staging``, a TPU cache-write layout that changes no
 result, is accepted and does nothing.  ``kws_int8`` runs the fused s8
-kernel only on the stages ``ECW_S8_PALLAS`` names, as the JAX CLI does.
+kernel K2 on every bottleneck 1×1 conv whose shapes it takes, as the JAX
+CLI does with ``ECW_S8_PALLAS`` naming every stage; the port reads no
+environment variable.
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ def _paper1_kws_resnet(model_args):
 
 def _run_paper1(subcommand: str, config: Dict[str, Any], device):
     from ..data.datamodule import KWSDataMod
-    from ..models.quant import default_s8_1x1
+    from ..models.quant import s8_stages
     from ..runtime.kws_engine import KWSEngine
 
     if subcommand == "fit":
@@ -126,7 +128,7 @@ def _run_paper1(subcommand: str, config: Dict[str, Any], device):
         variables = engine.enable_int8_scoring(
             variables, datamodule.test_dataset,
             calibration_batches=int(model_args.get("kws_int8_calibration_batches", 4)),
-            s8_1x1=default_s8_1x1(),
+            s8_1x1=s8_stages(resnet_config),
         )
     return engine.test(variables, datamodule)
 
@@ -221,7 +223,7 @@ def _run_cbwhisper(subcommand: str, config: Dict[str, Any], predictions_out=None
     from ..audio.io import load_audio_16k, prepare_features
     from ..data.datasets import ACL6060KeywordDataset, AishellHotwordDataset
     from ..models.cb_whisper import CBWhisper, CBWhisperConfig
-    from ..models.quant import default_s8_1x1
+    from ..models.quant import s8_stages
     from ..models.whisper_loader import load_whisper_from_pretrained
 
     model_args = get(config, "model.init_args", {}) or {}
@@ -288,7 +290,7 @@ def _run_cbwhisper(subcommand: str, config: Dict[str, Any], predictions_out=None
         # int8 spotting, calibrated lazily over the first scored segments
         module.enable_int8_spotting(
             calibration_batches=int(model_args.get("kws_int8_calibration_batches", 4)),
-            s8_1x1=default_s8_1x1(),
+            s8_1x1=s8_stages(resnet_config),
         )
 
     def mel_fn(item):

@@ -1,12 +1,14 @@
 """The eval half of the KWS data module (port of
 enhance_cb_whisper_tpu/data/datamodule.py).
 
-:class:`KWSDataMod` keeps the reference's constructor surface —
+:class:`KWSDataMod` keeps the reference constructor's checks —
 ``train_info`` / ``val_info`` / ``test_info`` dataset descriptors,
 ``features_size``, ``hotwords_per_group``, the utterance-examples batch-size
 /4 rewrite — and builds the validation and test datasets in
 ``setup("validate" | "test")``.  The training datasets, sampler and
-collators wait for the training slice: ``setup("fit")`` raises.
+collators, and the constructor options that only they read, wait for the
+training slice (the CLI's ``filter_kwargs`` drops such options from a
+config): ``setup("fit")`` raises.
 """
 
 from __future__ import annotations
@@ -38,21 +40,13 @@ class KWSDataMod:
         self,
         batch_size: int,
         sampling: str,
-        num_workers: int = 0,
         train_info: Optional[Sequence] = None,
         val_info: Optional[Sequence] = None,
         test_info=None,
         hotwords_per_group: int = 100,
         features_size: Optional[Tuple[int, int]] = None,
         test_split: str = "test",
-        whisper_ckpt: str = "openai/whisper-large-v2",
-        max_duration: Optional[float] = None,
-        resample_every_epoch: bool = True,
-        device_features: bool = False,
-        **kwargs,
     ):
-        # num_workers, whisper_ckpt, max_duration, resample_every_epoch and
-        # device_features configure training data, which is not ported
         self.features_size = features_size
         self.batch_size = batch_size
         self.sampling = sampling

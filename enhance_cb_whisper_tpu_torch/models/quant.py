@@ -26,14 +26,14 @@ exact because every partial sum is an integer below 127²·k²·C_in < 2⁵³
 (float32 or TF32 would round above 2²⁴).  In static mode the bottleneck
 1×1 convolutions of the stages named in ``s8_1x1`` run on the fused s8
 matmul + requant kernel K2 (:mod:`..ops.matmul_s8`) instead; this stage set
-is the explicit counterpart of the JAX package's ``pallas_1x1`` argument.
-The JAX package reads that set from the ``ECW_S8_PALLAS`` environment
-variable; in the port only the CLI does, through :func:`default_s8_1x1`.
+is the explicit counterpart of the JAX package's ``pallas_1x1`` argument
+(read there from the ``ECW_S8_PALLAS`` environment variable, empty by
+default; the port reads no environment).  The CLI hands every stage
+(:func:`s8_stages`), so each 1×1 conv whose shapes K2 takes runs on it.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -47,15 +47,11 @@ from .resnet import ResNetConfig
 _EPS = 1e-5  # BatchNorm epsilon of models/resnet.py
 
 
-def default_s8_1x1() -> frozenset:
-    """The stages ``ECW_S8_PALLAS`` names (``"stage_2,stage_3"``), resolved as
-    the JAX package's ``_default_pallas_1x1`` resolves them: unset, ``""``,
-    ``"0"`` or ``"none"`` name none, so K2 runs only when the variable
-    names stages."""
-    raw = os.environ.get("ECW_S8_PALLAS", "")
-    if raw in ("", "0", "none"):
-        return frozenset()
-    return frozenset(s for s in raw.split(",") if s)
+def s8_stages(config: ResNetConfig) -> frozenset:
+    """Every stage of ``config``, as ``s8_1x1``: the bottleneck 1×1 convs
+    whose K and N are multiples of 128 then run on K2, the others on the
+    integer conv."""
+    return frozenset(f"stage_{i}" for i in range(len(config.depths)))
 
 
 def _fold_conv_bn(w_oihw: np.ndarray, gamma, beta, mean, var) -> Dict[str, np.ndarray]:

@@ -22,6 +22,8 @@ import torch
 
 from .resnet import ResNetConfig
 
+_CLASSIFIER = "classifier.1"  # the reference head: Sequential(Flatten, Linear)
+_OUT_PREFIX = "model."  # KWSModel keeps its ResNet classifier under .model
 _CONV_NORM = ("convolution.weight", "normalization.weight", "normalization.bias",
               "normalization.running_mean", "normalization.running_var")
 
@@ -48,19 +50,15 @@ def migrate_legacy_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def load_hf_resnet_classifier(state_dict: Mapping[str, Any], config: ResNetConfig,
-                              prefix: str = "", classifier_prefix: str = "classifier.1",
-                              out_prefix: str = "model.") -> Dict[str, torch.Tensor]:
-    """The reference's ResNet classifier (keys under ``prefix``) → entries of
-    ``KWSModel.state_dict()`` (under ``out_prefix``), for
-    :meth:`.kws.KWSModel.load_converted`."""
-    src = prefix + "feature_extractor."
-    dst = out_prefix + "feature_extractor."
-    out: Dict[str, torch.Tensor] = {}
+def _key_pairs(config: ResNetConfig, prefix: str):
+    """(reference key under ``prefix``, ``KWSModel.state_dict()`` key) of
+    every tensor the classifier may hold; each block's shortcut is listed
+    whether the block has one or not."""
+    src, dst = prefix + "feature_extractor.", _OUT_PREFIX + "feature_extractor."
+    pairs = []
 
     def conv_norm(name_in: str, name_out: str) -> None:
-        for leaf in _CONV_NORM:
-            out[f"{dst}{name_out}.{leaf}"] = _f32(state_dict[f"{src}{name_in}.{leaf}"])
+        pairs.extend((f"{src}{name_in}.{leaf}", f"{dst}{name_out}.{leaf}") for leaf in _CONV_NORM)
 
     conv_norm("embedder.embedder", "embedder")
     n_layers = {"bottleneck": 3, "basic": 2}[config.layer_type]
@@ -68,10 +66,30 @@ def load_hf_resnet_classifier(state_dict: Mapping[str, Any], config: ResNetConfi
         for b in range(depth):
             base = f"encoder.stages.{s}.layers.{b}"
             block = f"stage_{s}_block_{b}"
-            if f"{src}{base}.shortcut.convolution.weight" in state_dict:
-                conv_norm(f"{base}.shortcut", f"{block}.shortcut")
+            conv_norm(f"{base}.shortcut", f"{block}.shortcut")
             for i in range(n_layers):
                 conv_norm(f"{base}.layer.{i}", f"{block}.layer_{i}")
-    for leaf in ("weight", "bias"):
-        out[f"{out_prefix}classifier.{leaf}"] = _f32(state_dict[f"{prefix}{classifier_prefix}.{leaf}"])
-    return out
+    pairs.extend((f"{prefix}{_CLASSIFIER}.{leaf}", f"{_OUT_PREFIX}classifier.{leaf}")
+                 for leaf in ("weight", "bias"))
+    return pairs
+
+
+def load_hf_resnet_classifier(state_dict: Mapping[str, Any], config: ResNetConfig,
+                              prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The reference's ResNet classifier (keys under ``prefix``) → entries of
+    ``KWSModel.state_dict()``, for :meth:`.kws.KWSModel.load_converted`."""
+    return {
+        port: _f32(state_dict[ref]) for ref, port in _key_pairs(config, prefix)
+        if ".shortcut." not in ref or ref in state_dict
+    }
+
+
+def lightning_resnet_classifier(state_dict: Mapping[str, torch.Tensor],
+                                config: ResNetConfig) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`load_hf_resnet_classifier`: a ``KWSModel``
+    state dict under the reference Lightning checkpoint's names (``model.``
+    prefix), on the host."""
+    return {
+        ref: state_dict[port].detach().cpu() for ref, port in _key_pairs(config, "model.")
+        if ".shortcut." not in port or port in state_dict
+    }

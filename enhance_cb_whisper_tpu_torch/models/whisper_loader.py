@@ -75,22 +75,36 @@ def load_hf_whisper(state_dict: Mapping[str, torch.Tensor], config: WhisperConfi
     return {"encoder": encoder, "decoder": decoder}
 
 
-def load_whisper_from_safetensors(path: str, config: WhisperConfig, device="cuda") -> Dict[str, Any]:
-    """Params from one ``model.safetensors`` (a file, or the directory that
-    holds it)."""
+def hf_whisper_state(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`load_hf_whisper`: the port's params under the
+    names of HF's ``WhisperForConditionalGeneration`` (no ``proj_out``),
+    contiguous, on the device they lie on."""
+    state: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix):
+        for key, value in tree.items():
+            if key == "layers":
+                for i, layer in enumerate(value):
+                    walk(layer, f"{prefix}layers.{i}.")
+            elif isinstance(value, dict):
+                walk(value, f"{prefix}{key}.")
+            else:
+                state[prefix + key] = value.contiguous()
+
+    walk(params, "model.")
+    return state
+
+
+def _read_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The HF weights of a checkpoint directory, in any of its file forms,
+    or of one ``.safetensors`` file."""
     from safetensors.torch import load_file
 
-    f = path if path.endswith(".safetensors") else os.path.join(path, "model.safetensors")
-    return load_hf_whisper(load_file(f), config, device)
-
-
-def _read_state_dict(directory: str) -> Dict[str, torch.Tensor]:
-    """The HF weights of a checkpoint directory, in any of its file forms."""
-    from safetensors.torch import load_file
-
-    single = os.path.join(directory, "model.safetensors")
-    index = os.path.join(directory, "model.safetensors.index.json")
-    pickled = os.path.join(directory, "pytorch_model.bin")
+    if path.endswith(".safetensors"):
+        return load_file(path)
+    single = os.path.join(path, "model.safetensors")
+    index = os.path.join(path, "model.safetensors.index.json")
+    pickled = os.path.join(path, "pytorch_model.bin")
     if os.path.exists(single):
         return load_file(single)
     if os.path.exists(index):
@@ -98,13 +112,19 @@ def _read_state_dict(directory: str) -> Dict[str, torch.Tensor]:
             shards = sorted(set(json.load(f)["weight_map"].values()))
         sd: Dict[str, torch.Tensor] = {}
         for shard in shards:
-            sd.update(load_file(os.path.join(directory, shard)))
+            sd.update(load_file(os.path.join(path, shard)))
         return sd
     if os.path.exists(pickled):
         return torch.load(pickled, map_location="cpu", weights_only=True)
     raise FileNotFoundError(
-        f"{directory} holds none of model.safetensors, model.safetensors.index.json, pytorch_model.bin"
+        f"{path} holds none of model.safetensors, model.safetensors.index.json, pytorch_model.bin"
     )
+
+
+def load_whisper_from_safetensors(path: str, config: WhisperConfig, device="cuda") -> Dict[str, Any]:
+    """Params from one ``.safetensors`` file, or from a checkpoint directory
+    in any of its forms, with a config the caller holds."""
+    return load_hf_whisper(_read_state_dict(path), config, device)
 
 
 def load_whisper_from_pretrained(name_or_path: str, device="cuda") -> Tuple[WhisperConfig, Dict[str, Any]]:

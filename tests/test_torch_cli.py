@@ -13,9 +13,10 @@ margins so that some keywords are spotted and others not.
 * ``cb-whisper.py test`` through both CLIs gives identical transcripts,
   identical spotted keywords per segment and equal entity recall with its
   bootstrap bounds (equal only within one process: the CIs number speakers
-  by ``enumerate(set(...))``), in fp32 and under ``kws_int8`` with
-  ``ECW_S8_PALLAS=stage_1`` (Pallas in interpret mode on the JAX side, the
-  kernel's plain version on the port's).  The config's placeholders are
+  by ``enumerate(set(...))``), in fp32 and under ``kws_int8``.  The port's
+  ``kws_int8`` takes K2 wherever its shapes allow with no environment
+  variable set (the kernel's plain version here); the JAX CLI does so with
+  ``ECW_S8_PALLAS`` naming every stage (Pallas in interpret mode).  The config's placeholders are
   filled by ``--set`` and one value by a dotted override.
 * ``kws.py test`` and ``validate`` through both CLIs give equal metrics
   (validation loss to rtol 1e-5, the f32 sums running in another order).
@@ -48,9 +49,10 @@ from enhance_cb_whisper_tpu_torch.convert import from_jax_whisper_params
 from enhance_cb_whisper_tpu_torch.data.datasets import ACL6060KeywordDataset
 from enhance_cb_whisper_tpu_torch.models.cb_whisper import CBWhisper
 from enhance_cb_whisper_tpu_torch.models.kws import init_kws_model
+from enhance_cb_whisper_tpu_torch.models.quant import s8_stages
 from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
 from enhance_cb_whisper_tpu_torch.models.whisper import WhisperConfig, encoder_kws_stack, init_whisper_params
-from enhance_cb_whisper_tpu_torch.models.whisper_loader import load_whisper_from_pretrained
+from enhance_cb_whisper_tpu_torch.models.whisper_loader import hf_whisper_state, load_whisper_from_pretrained
 from enhance_cb_whisper_tpu_torch.ops.resize import resize_matrix
 from enhance_cb_whisper_tpu_torch.runtime.kws_engine import KWSEngine
 
@@ -62,6 +64,8 @@ KW_LAYERS = 2
 OUT = (32, 48)
 RESNET = dict(num_channels=KW_LAYERS, embedding_size=32, hidden_sizes=(128, 512), depths=(1, 3),
               num_labels=2)
+# what the JAX CLI needs to route the int8 scorer as the port's always does
+ALL_STAGES = ",".join(sorted(s8_stages(ResNetConfig(**RESNET))))
 GC = dict(decoder_start_token_id=3, no_timestamps_token_id=100, eos_token_id=2, pad_token_id=0,
           suppress_tokens=None, begin_suppress_tokens=None, max_initial_timestamp_index=10,
           prev_sot_token_id=99)
@@ -109,20 +113,6 @@ def _flax_variables(model):
     return {"params": params, "batch_stats": stats}
 
 
-def _hf_state(params, prefix="model."):
-    """The port's Whisper params under HF ``WhisperForConditionalGeneration`` names."""
-    state = {}
-    for key, value in params.items():
-        if key == "layers":
-            for i, layer in enumerate(value):
-                state.update(_hf_state(layer, f"{prefix}layers.{i}."))
-        elif isinstance(value, dict):
-            state.update(_hf_state(value, f"{prefix}{key}."))
-        else:
-            state[prefix + key] = value.contiguous()
-    return state
-
-
 def _centre(model, margins):
     """Lower the class-1 bias into the widest gap among the middle margins,
     so decisions differ by keyword and sit far from the threshold."""
@@ -162,7 +152,7 @@ def env(tmp_path_factory):
     params = from_jax_whisper_params(
         init_whisper_params(np.random.default_rng(0), WhisperConfig.from_hf(hf_config.to_dict())),
         device="cpu")
-    save_file(_hf_state(params), os.path.join(whisper_ckpt, "model.safetensors"))
+    save_file(hf_whisper_state(params), os.path.join(whisper_ckpt, "model.safetensors"))
     acl = str(root / "acl")
     make_acl(acl, kw_layers=KW_LAYERS, whisper_dim=32, n_keywords=6, n_utts=3, ghost=(2,))
     make_acl(acl, kw_layers=KW_LAYERS, whisper_dim=32, n_keywords=6, n_utts=3, split="dev", seed=5)
@@ -267,7 +257,7 @@ def test_cbwhisper_cli_matches_jax(env, tmp_path, monkeypatch, mode):
     argv = ["test", "--config", cfg, "--set", f"ACL_ROOT={env['acl']}",
             "--set", f"KWS_CKPT={env['kws']['cb']}", "--model.init_args.num_bootstraps", "40"]
     if mode == "int8":
-        monkeypatch.setenv("ECW_S8_PALLAS", "stage_1")
+        monkeypatch.setenv("ECW_S8_PALLAS", ALL_STAGES)
     jax_preds, jax_kw, port_preds, port_kw = [], [], [], []
     real_run_test = JaxCBWhisper.run_test
     monkeypatch.setattr(JaxCBWhisper, "run_test",
@@ -276,10 +266,11 @@ def test_cbwhisper_cli_matches_jax(env, tmp_path, monkeypatch, mode):
     _record_keywords(monkeypatch, CBWhisper, port_kw)
 
     want = jax_cli.run_cli(list(argv))
+    monkeypatch.delenv("ECW_S8_PALLAS", raising=False)  # the port reads no environment
     FakeTokenizer.handed.clear()
     k2_calls = _count_k2_calls(monkeypatch)
     got = port_cli.run_cli(list(argv), device="cpu", predictions_out=port_preds)
-    assert bool(k2_calls) == (mode == "int8")  # ECW_S8_PALLAS=stage_1 reached the scorer
+    assert bool(k2_calls) == (mode == "int8")  # kws_int8 alone reached K2's wrapper
 
     assert FakeTokenizer.handed == ["ints"] * 3  # plain lists of Python ints
     assert len(port_preds) == 3 and port_preds == jax_preds
@@ -314,10 +305,11 @@ def _kws_config(env, path, split="test", **extra):
 def test_kws_cli_matches_jax(env, tmp_path, monkeypatch, subcommand, mode):
     extra = {"kws_int8": True, "kws_int8_calibration_batches": 2} if mode == "int8" else {}
     if mode == "int8":
-        monkeypatch.setenv("ECW_S8_PALLAS", "stage_1")
+        monkeypatch.setenv("ECW_S8_PALLAS", ALL_STAGES)
     split = "dev" if subcommand == "validate" else "test"
     argv = [subcommand, "--config", _kws_config(env, tmp_path / "kws.yaml", split, **extra)]
     want = jax_cli.run_cli(list(argv))
+    monkeypatch.delenv("ECW_S8_PALLAS", raising=False)
     k2_calls = _count_k2_calls(monkeypatch)
     got = port_cli.run_cli(list(argv), device="cpu")
     assert bool(k2_calls) == (mode == "int8")

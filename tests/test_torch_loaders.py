@@ -5,13 +5,15 @@
   as a sharded safetensors index and as a float16 copy.  The port's
   ``load_whisper_from_pretrained`` must give the same config and, tensor for
   tensor, exactly (atol 0) what ``from_jax_whisper_params`` makes of the JAX
-  loader's params.
+  loader's params.  ``hf_whisper_state``, the inverse writer, gives back
+  the file's tensors under their own names.
 * KWS: a reference Lightning ``.ckpt`` (current keys and the legacy
   ``model.resnet.*`` keys) and a JAX ``save_checkpoint`` directory of the
   same weights (float32 and bfloat16 leaves).  The port's
   ``_load_kws_variables`` must equal ``from_flax_resnet_variables`` of the
   JAX CLI's ``_load_kws_variables`` exactly, and load into the port's
-  ``KWSModel``.
+  ``KWSModel``.  ``lightning_resnet_classifier``, the inverse writer,
+  gives back the checkpoint's tensors under their own names.
 * A missing ``msgpack`` raises ``ImportError`` instead of falling back.
 """
 
@@ -35,7 +37,10 @@ from enhance_cb_whisper_tpu_torch.cli import main as port_cli
 from enhance_cb_whisper_tpu_torch.convert import from_flax_resnet_variables, from_jax_whisper_params
 from enhance_cb_whisper_tpu_torch.models.kws import KWSModel
 from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
+from enhance_cb_whisper_tpu_torch.models.torch_compat import lightning_resnet_classifier
 from enhance_cb_whisper_tpu_torch.models.whisper_loader import (
+    hf_whisper_state,
+    load_hf_whisper,
     load_whisper_from_pretrained,
     load_whisper_from_safetensors,
 )
@@ -107,6 +112,20 @@ def test_whisper_loader_matches_jax(whisper_dirs, kind):
         assert torch.equal(params["decoder"]["embed_tokens"]["weight"], want)
 
 
+def test_hf_whisper_state_inverts_the_loader(whisper_dirs):
+    from safetensors.torch import load_file
+
+    path = whisper_dirs["safetensors"]
+    cfg, params = load_whisper_from_pretrained(path, device="cpu")
+    stored = {k: v for k, v in load_file(os.path.join(path, "model.safetensors")).items()
+              if k != "proj_out.weight"}
+    written = hf_whisper_state(params)
+    assert sorted(written) == sorted(stored)
+    for key, value in stored.items():
+        assert torch.equal(written[key], value.float()), key
+    _assert_trees_equal(load_hf_whisper(written, cfg, device="cpu"), params)
+
+
 def _randomize(sd, seed):
     g = torch.Generator().manual_seed(seed)
     out = {}
@@ -154,6 +173,17 @@ def test_kws_lightning_ckpt_matches_jax(lightning_ckpts, layout):
     got = port_cli._load_kws_variables(path, ResNetConfig(**RESNET))
     _assert_states_equal(got, _jax_state(path, JaxResNetConfig(**RESNET)))
     KWSModel(ResNetConfig(**RESNET)).load_converted(got)
+
+
+def test_lightning_writer_inverts_the_loader(lightning_ckpts):
+    path = lightning_ckpts["current"]
+    stored = torch.load(path, weights_only=True)["state_dict"]
+    got = port_cli._load_kws_variables(path, ResNetConfig(**RESNET))
+    written = lightning_resnet_classifier(got, ResNetConfig(**RESNET))
+    assert sorted(written) == sorted(k for k in stored if not k.endswith("num_batches_tracked"))
+    for key, value in written.items():
+        assert torch.equal(value, stored[key]), key
+    _assert_states_equal(port_cli._load_kws_variables(path, ResNetConfig(**RESNET)), got)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
