@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # every phase
     python3 chip_smoke.py --k1     # K1 alone: its build, phase A and its phase C times
+    python3 chip_smoke.py --serving  # the kernels' build, phase A2 and phase F alone
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, started together), then:
@@ -57,6 +58,23 @@ E.  drives the port's command line (``run_cli``) on the repo's config
     configs/kws-acl.yaml with ``kws_int8`` (and no environment variable)
     launches K2 exactly 22 x 13 per utterance at phase A2's shapes (the kernel
     line's ``cli_launches``).  Its directory is deleted at the end;
+F.  serving: on the tiny model, ``generate_packed`` at ``slots=3`` over
+    five mels of 0.6-2.5 windows and one of zero length, with int8
+    spotting, condition-on-prev and a ladder whose every rung trips, on
+    the CPU and on the card (identical (order, sequences, segments)),
+    ``slots=3`` = ``slots=1`` on the card, vacant slots kept out of int8
+    calibration (by count), ``forward_batch`` and the CLI with
+    ``eval_packed`` CPU = card; then at whisper-medium widths (phase B's
+    model and utterances) ``run_test(packed=True, batch_size=1)`` and a
+    ``TranscriptionService(slots=4)`` given all four at once (every
+    ticket's transcript = its slots=1 one), ``swap_params`` on the live
+    service to a second random checkpoint (seed 1; the next utterance
+    decodes under it) and to one of another architecture (raises through
+    ``result()``), and the same with the int8 scorer; K1 once per
+    utterance and K2 exactly 22 x 13 per scored row-window (the kernel
+    line's ``packed_launches``, over the int8 service run); walls, RTFx,
+    windows and their occupied slots, ms per decode step at slots 1 and 4,
+    peak memory;
 C.  times K1 and K2 and their plain versions on the card, each by the
     median of CUDA-event timings of CUDA-graph replays (device time
     without host gaps) and of eager calls: K1 at [1, 480000], [8, 480000]
@@ -353,10 +371,11 @@ def _unzero_residual_bn(kws, value: float = 0.2) -> None:
                 module.weight.fill_(value)
 
 
-def _tiny_pipeline(device, resnet=None, class1_shift: float = 0.0):
+def _tiny_pipeline(device, resnet=None, class1_shift: float = 0.0, whisper_params=None):
     """A tiny random CB-Whisper (the CPU tests' dims) on ``device``; a given
     ``resnet`` gets nonzero residual-branch BNs (for the int8 path) and its
-    class-1 bias lowered by ``class1_shift``."""
+    class-1 bias lowered by ``class1_shift``; ``whisper_params`` (numpy, the
+    JAX layout) replace the seed's Whisper weights."""
     import torch
 
     from enhance_cb_whisper_tpu_torch.catalog.database import KeywordCatalog
@@ -373,7 +392,8 @@ def _tiny_pipeline(device, resnet=None, class1_shift: float = 0.0):
         max_source_positions=1500, max_target_positions=40,
     )
     rng = np.random.default_rng(SEED)
-    params = from_jax_whisper_params(init_whisper_params(rng, cfg), device)
+    params = init_whisper_params(rng, cfg)
+    params = from_jax_whisper_params(params if whisper_params is None else whisper_params, device)
     keywords = [f"kw{i}" for i in range(6)]
     stacks = _stacks(rng, len(keywords), 2, lambda i: int(rng.integers(3, 12)), 64)
     if resnet is None:
@@ -480,35 +500,42 @@ def check_tf32_off(device) -> None:
         raise RuntimeError("CBWhisper on the card left TF32 on")
 
 
+def _seekable_tiny_params(cfg):
+    """The tiny model's weights (numpy seed) with a decoder that leaves its
+    windows: channel 0 of the decoder's final LayerNorm pinned to 1 and
+    every timestamp row of the (tied) embedding at -50 there, so timestamp
+    logits sit 50 below the rest, a window's output is its forced first
+    timestamp and text, and the seek moves a whole window (a plain random
+    decoder closes a timestamp pair every few tokens and crawls ~0.5 s a
+    window)."""
+    from enhance_cb_whisper_tpu_torch.models.whisper import init_whisper_params
+
+    params = init_whisper_params(np.random.default_rng(SEED), cfg)
+    final_norm = params["decoder"]["layer_norm"]
+    final_norm["weight"][0], final_norm["bias"][0] = 0.0, 1.0
+    params["decoder"]["embed_tokens"]["weight"][101:, 0] = -50.0  # no_timestamps_token_id 100 + 1
+    return params
+
+
 def phase_b_longform_reference(device) -> None:
     """The longform seek loop of a tiny random Whisper, CPU vs card, on the
     same numpy mel: a 2.5-window utterance at batch 1 and a batch of two of
     unequal lengths, condition-on-prev and timestamps on, a ladder
     (0.0, 0.2, 0.4) whose every rung trips (a logprob threshold of 0) and
     the default CPU-seeded noise on both sides.  Sequences, segments and
-    the rungs decoded must be identical.
-
-    A random decoder closes a timestamp pair every few tokens, and its seek
-    then crawls through the audio ~0.5 s a window.  So channel 0 of the
-    decoder's final LayerNorm is pinned to 1 and every timestamp row of
-    the (tied) embedding holds -50 there: timestamp logits sit 50 below
-    the rest, a window's output is its forced first timestamp and text,
-    and the seek moves a whole window."""
+    the rungs decoded must be identical.  The decoder leaves its windows
+    (:func:`_seekable_tiny_params`)."""
     import dataclasses
 
     import torch
 
     from enhance_cb_whisper_tpu_torch.convert import from_jax_whisper_params
     from enhance_cb_whisper_tpu_torch.decoding.generate import WhisperGenerator
-    from enhance_cb_whisper_tpu_torch.models.whisper import init_whisper_params
 
     t_start = time.perf_counter()
     tiny = _tiny_pipeline("cpu")
     cfg = tiny.whisper_config
-    params = init_whisper_params(np.random.default_rng(SEED), cfg)
-    final_norm = params["decoder"]["layer_norm"]
-    final_norm["weight"][0], final_norm["bias"][0] = 0.0, 1.0
-    params["decoder"]["embed_tokens"]["weight"][tiny.opts.no_timestamps_token_id + 1:, 0] = -50.0
+    params = _seekable_tiny_params(cfg)
     # beam-5 at temperature 0; the sampled rungs decode with one beam
     opts = dataclasses.replace(tiny.opts, temperature=(0.0, 0.2, 0.4), logprob_threshold=0.0)
     rng = np.random.default_rng(SEED + 7)
@@ -597,6 +624,24 @@ def _write_wav(path: Path, wav_16k: np.ndarray, rate: int = 44100) -> None:
         w.writeframes((pcm * 32767).astype("<i2").tobytes())
 
 
+def _centre_class1(cb, segment) -> None:
+    """A random head says "present" for every keyword or for none (keyword
+    to keyword, its logit margin varies far less than its offset): centre
+    its class-1 bias on the catalog's median margin over one 30 s
+    ``segment`` so the spotter passes some keywords and not others."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.models.whisper import encoder_kws_stack
+
+    cb._ensure_catalog()
+    with torch.no_grad():
+        stack = encoder_kws_stack(cb.generator.params, segment, cb.whisper_config,
+                                  layer_slice=cb.kws_layer_slice)
+        _, logits = cb._score_fn(cb._catalog_dev, stack[0], cb._utt_w)
+        margin = logits[:N_KW, 1] - logits[:N_KW, 0]
+        cb.kws_model.model.classifier.bias[1] -= margin.median()
+
+
 def _drive_slice(cb, config, opts, dataset, device, label, int8_stages=None):
     """Warm up, then ``run_test`` over ``dataset`` with each stage timed;
     returns per-utterance marks, per-window records of the longform
@@ -605,34 +650,27 @@ def _drive_slice(cb, config, opts, dataset, device, label, int8_stages=None):
     import torch
 
     from enhance_cb_whisper_tpu_torch.audio.io import load_audio_16k, prepare_features
-    from enhance_cb_whisper_tpu_torch.models.whisper import encoder_kws_stack
     from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, mel_cuda
 
-    scored, spotted, generated, marks, windows = [], [], [], [], []
+    scored, spotted, generated, marks, windows, mel_seconds = [], [], [], [], [], []
     score_to_keywords = cb._score_to_keywords
     encode_and_spot, generate = cb.encode_and_spot, cb.generator.generate
     with_fallback, retrieve_segment = cb.generator._generate_with_fallback, cb.generator._retrieve_segment
+    forward = cb.forward
 
     def mel_fn(item):
-        """The CLI's front end: a file goes through load_audio_16k."""
-        marks.append({"start": time.perf_counter(), "spot_s": 0.0, "windows": 0})
+        """The CLI's front end: a file goes through load_audio_16k.  In
+        run_test it runs in the prefetch thread, ahead of the decode: its
+        time is host time (K1 is asynchronous) and overlaps the previous
+        utterance's decode."""
+        t0 = time.perf_counter()
         wav = load_audio_16k(str(item["path"])) if "path" in item else item["audio"]
         out = prepare_features(wav, n_mels=config.num_mel_bins, device=device)
-        torch.cuda.synchronize()
-        marks[-1]["mel_end"] = time.perf_counter()
+        mel_seconds.append(time.perf_counter() - t0)
         return out
 
-    # a random head says "present" for every keyword or for none (keyword
-    # to keyword, its logit margin varies far less than its offset); centre
-    # its class-1 bias on the catalog's median margin over a warm-up
-    # utterance so the spotter passes some keywords and not others
     warm = cb.generator._pad_segment(mel_fn(dataset[0])[0])
-    cb._ensure_catalog()
-    with torch.no_grad():
-        stack = encoder_kws_stack(cb.generator.params, warm, config, layer_slice=cb.kws_layer_slice)
-        _, logits = cb._score_fn(cb._catalog_dev, stack[0], cb._utt_w)
-        margin = logits[:N_KW, 1] - logits[:N_KW, 0]
-        cb.kws_model.model.classifier.bias[1] -= margin.median()
+    _centre_class1(cb, warm)
     if int8_stages is not None:
         # calibrate on the warm-up utterance: with the default of 4 and three
         # utterances the int8 scorer would never take over
@@ -643,7 +681,11 @@ def _drive_slice(cb, config, opts, dataset, device, label, int8_stages=None):
     torch.cuda.synchronize()
     if int8_stages is not None and cb._int8_pending:
         raise RuntimeError("int8 spotting did not calibrate on the warm-up utterance")
-    marks.clear()
+    mel_seconds.clear()
+
+    def timed_forward(*args, **kwargs):
+        marks.append({"start": time.perf_counter(), "spot_s": 0.0, "windows": 0})
+        return forward(*args, **kwargs)
 
     score_fn = cb._score_fn
 
@@ -654,8 +696,8 @@ def _drive_slice(cb, config, opts, dataset, device, label, int8_stages=None):
         scored.append(int(logits.shape[0]))
         return probs, logits
 
-    def recorded_keywords(stacks_):
-        out = score_to_keywords(stacks_)
+    def recorded_keywords(stacks_, real_rows=None):
+        out = score_to_keywords(stacks_, real_rows)
         spotted.extend(out)
         return out
 
@@ -693,7 +735,7 @@ def _drive_slice(cb, config, opts, dataset, device, label, int8_stages=None):
         generated.append(int((tokens != opts.pad_token_id).sum()))
         return result
 
-    cb._score_fn, cb._score_to_keywords = counted_score, recorded_keywords
+    cb._score_fn, cb._score_to_keywords, cb.forward = counted_score, recorded_keywords, timed_forward
     cb.encode_and_spot, cb.generator.generate = timed_encode_and_spot, recorded_generate
     cb.generator._generate_with_fallback = timed_fallback
     cb.generator._retrieve_segment = recorded_segment
@@ -706,19 +748,19 @@ def _drive_slice(cb, config, opts, dataset, device, label, int8_stages=None):
         torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches, "k2_shapes": k2_shapes}
-    del cb._score_to_keywords, cb.encode_and_spot, cb.generator.generate
+    del cb._score_to_keywords, cb.forward, cb.encode_and_spot, cb.generator.generate
     del cb.generator._generate_with_fallback, cb.generator._retrieve_segment
     cb._score_fn = score_fn
 
     first = 0  # index of the utterance's first window in ``spotted``
     for i, (item, m) in enumerate(zip(dataset, marks)):
-        decode = m["end"] - m["mel_end"] - m["spot_s"]
+        decode = m["end"] - m["start"] - m["spot_s"]
         found = [len(k) for k in spotted[first:first + m["windows"]]]
         first += m["windows"]
         print(f"phase B {label}: utterance {i}: {item['seconds']:.2f} s audio"
               f"{' (44.1 kHz WAV)' if 'path' in item else ''}, {m['windows']} window(s), "
-              f"wall {m['end'] - m['start']!r} s = mel {m['mel_end'] - m['start']!r} s "
-              f"+ encode and spot {m['spot_s']!r} s "
+              f"mel {mel_seconds[i]!r} s (host, in the prefetch thread, beside the decode before it); "
+              f"wall {m['end'] - m['start']!r} s = encode and spot {m['spot_s']!r} s "
               f"+ prefill and beam-5 decode {decode!r} s ({decode / max(generated[i], 1) * 1e3!r} ms "
               f"per generated token); {generated[i]} generated tokens, keywords spotted per window {found}")
     for w in windows:
@@ -734,24 +776,17 @@ def _drive_slice(cb, config, opts, dataset, device, label, int8_stages=None):
           f"segments scored {len(scored)} x {scored[0] if scored else 0} keywords")
     if launches["mel"] != len(dataset):
         raise RuntimeError(f"mel kernel launched {launches['mel']} times for {len(dataset)} utterances")
-    if not (len(scored) == len(spotted) == n_windows and len(generated) == len(marks) == len(dataset)):
+    if not (len(scored) == len(spotted) == n_windows
+            and len(generated) == len(marks) == len(mel_seconds) == len(dataset)):
         raise RuntimeError("not every window was scored and every utterance decoded")
     if len(windows) != sum(m["windows"] for item, m in zip(dataset, marks) if item["seconds"] > 30):
         raise RuntimeError("a longform window went undecoded")
     return marks, launches, scored
 
 
-def phase_b_slice(device, shapes):
-    """The main path at whisper-medium widths, fp32 then int8 scoring.
-    Returns (fp32 launches, int8 launches, ResNet-50 model, catalog stacks,
-    Whisper config and params)."""
-    import torch
-
-    t0 = time.perf_counter()
-    cb, config, opts, kws, stacks = _medium_pipeline(device)
-    torch.cuda.synchronize()
-    print(f"phase B: whisper-medium + ResNet-50 KWS built in {time.perf_counter() - t0:.1f} s")
-
+def _slice_dataset():
+    """The main path's utterances: 5.5, 17.25 and 29.75 s of audio, and a
+    47.5 s one written as a 44.1 kHz WAV (the CLI reads files)."""
     rng = np.random.default_rng(SEED + 2)
     dataset = []
     for i, seconds in enumerate((5.5, 17.25, 29.75, LONGFORM_SECONDS)):
@@ -768,7 +803,21 @@ def phase_b_slice(device, shapes):
         else:
             item["audio"] = wav
         dataset.append(item)
+    return dataset
 
+
+def phase_b_slice(device, shapes):
+    """The main path at whisper-medium widths, fp32 then int8 scoring.
+    Returns (fp32 launches, int8 launches, the CBWhisper, its dataset, the
+    catalog's keyword stacks)."""
+    import torch
+
+    t0 = time.perf_counter()
+    cb, config, opts, kws, stacks = _medium_pipeline(device)
+    torch.cuda.synchronize()
+    print(f"phase B: whisper-medium + ResNet-50 KWS built in {time.perf_counter() - t0:.1f} s")
+
+    dataset = _slice_dataset()
     fp32_marks, fp32_launches, _ = _drive_slice(cb, config, opts, dataset, device, "fp32")
     # the int8 slice's weights: residual-branch BNs no longer zero
     _unzero_residual_bn(kws)
@@ -781,7 +830,7 @@ def phase_b_slice(device, shapes):
                         f"{chunks} chunks x {len(scored)} windows")
     if fp32_launches["k2"] != 0:
         raise RuntimeError("the fp32 scorer launched K2")
-    return fp32_launches, int8_launches, kws, stacks, config, cb.generator.params
+    return fp32_launches, int8_launches, cb, dataset, stacks
 
 
 def _device_breakdown(label, fn) -> None:
@@ -1068,29 +1117,35 @@ def _gap_shift(margins) -> float:
 
 @contextlib.contextmanager
 def _recorded_cli_run():
-    """Per-utterance marks of a CB-Whisper CLI run: the start of its audio
-    read, the end of its transcription and the keywords spotted in it."""
+    """Per-utterance marks of a CB-Whisper CLI run: the host seconds of its
+    audio read (in run_test's prefetch thread, beside the decode before
+    it), the start and end of its transcription and the keywords spotted
+    in it."""
     import torch
 
     import enhance_cb_whisper_tpu_torch.audio.io as audio_io
     from enhance_cb_whisper_tpu_torch.models.cb_whisper import CBWhisper
 
-    marks = []
+    marks, loads = [], []
     load, forward, score = audio_io.load_audio_16k, CBWhisper.forward, CBWhisper._score_to_keywords
 
     def timed_load(path):
-        marks.append({"start": time.perf_counter(), "keywords": []})
-        return load(path)
+        t0 = time.perf_counter()
+        out = load(path)
+        loads.append(time.perf_counter() - t0)
+        return out
 
     def timed_forward(self, *args, **kwargs):
+        marks.append({"start": time.perf_counter(), "keywords": []})
         out = forward(self, *args, **kwargs)  # a host string: the decode has finished
         if self.device.type == "cuda":
             torch.cuda.synchronize()
         marks[-1]["end"] = time.perf_counter()
+        marks[-1]["load"] = loads[len(marks) - 1]
         return out
 
-    def recorded_score(self, stacks):
-        out = score(self, stacks)
+    def recorded_score(self, stacks, *args, **kwargs):
+        out = score(self, stacks, *args, **kwargs)
         marks[-1]["keywords"].extend(out)
         return out
 
@@ -1110,22 +1165,22 @@ def _cb_argv(root: Path, *overrides):
             "--set", f"KWS_CKPT={root / 'kws.ckpt'}", *overrides]
 
 
-def phase_e_tiny(root: Path) -> None:
-    """The CLI on a tiny random checkpoint directory (Whisper's real vocab
-    and specials, d_model 64) and a 6-keyword ACL layout: ``run_cli(...,
-    device="cpu")`` and ``run_cli(...)`` (the card) give identical
-    transcripts, keywords and entity recall with its bounds, and the card's
-    run launches K1 once per utterance."""
+def _write_tiny_cli(root: Path):
+    """A tiny random checkpoint directory (Whisper's real vocab and
+    specials, d_model 64), a 2-channel ResNet-50 ``.ckpt`` whose class-1
+    bias sits in the widest gap of the keywords' margins on these
+    utterances, and a 6-keyword ACL layout of a 6.0 s and a 9.5 s WAV under
+    ``root``.  Returns the ``cb-whisper.py test`` argv for them and the
+    number of keywords and of utterances."""
     import torch
 
+    from enhance_cb_whisper_tpu_torch.audio.io import load_audio_16k, prepare_features
     from enhance_cb_whisper_tpu_torch.catalog.database import (
         KeywordCatalog,
         device_put_catalog,
         make_catalog_score_fn,
     )
-    from enhance_cb_whisper_tpu_torch.cli import run_cli
     from enhance_cb_whisper_tpu_torch.convert import from_jax_whisper_params
-    from enhance_cb_whisper_tpu_torch.audio.io import load_audio_16k, prepare_features
     from enhance_cb_whisper_tpu_torch.models.kws import init_kws_model
     from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
     from enhance_cb_whisper_tpu_torch.models.whisper import (
@@ -1133,10 +1188,8 @@ def phase_e_tiny(root: Path) -> None:
         encoder_kws_stack,
         init_whisper_params,
     )
-    from enhance_cb_whisper_tpu_torch.ops import mel_cuda
     from enhance_cb_whisper_tpu_torch.ops.resize import resize_matrix
 
-    t0 = time.perf_counter()
     cfg = WhisperConfig(
         num_mel_bins=80, d_model=64, encoder_layers=3, encoder_attention_heads=4, decoder_layers=2,
         decoder_attention_heads=4, encoder_ffn_dim=128, decoder_ffn_dim=128, max_target_positions=40,
@@ -1149,8 +1202,6 @@ def phase_e_tiny(root: Path) -> None:
     utterances = _utterances(rng, ((6.0, 16000), (9.5, 44100)), keywords, 2, cfg.d_model)
     _write_acl(root / "acl", keywords, stacks, utterances)
 
-    # a 2-channel ResNet-50, its class-1 bias in the widest gap of the
-    # keywords' margins on these utterances (CPU)
     kws = init_kws_model(ResNetConfig.from_version("resnet-50", num_channels=2),
                          torch.Generator().manual_seed(SEED))
     score = make_catalog_score_fn(lambda x: kws(x).logits, out_size=(32, 48))
@@ -1171,6 +1222,19 @@ def phase_e_tiny(root: Path) -> None:
     argv = _cb_argv(root, "--model.init_args.kws_features_size", "[32, 48]",
                     "--model.init_args.kws_layer_slice", "[1, 3]",
                     "--model.init_args.kws_num_channels", "2", "--model.init_args.num_bootstraps", "200")
+    return argv, len(keywords), len(utterances)
+
+
+def phase_e_tiny(root: Path) -> None:
+    """The CLI on the tiny checkpoint directory of :func:`_write_tiny_cli`:
+    ``run_cli(..., device="cpu")`` and ``run_cli(...)`` (the card) give
+    identical transcripts, keywords and entity recall with its bounds, and
+    the card's run launches K1 once per utterance."""
+    from enhance_cb_whisper_tpu_torch.cli import run_cli
+    from enhance_cb_whisper_tpu_torch.ops import mel_cuda
+
+    t0 = time.perf_counter()
+    argv, n_keywords, n_utterances = _write_tiny_cli(root)
     runs = {}
     for dev in ("cpu", "cuda"):
         preds = []
@@ -1189,10 +1253,10 @@ def phase_e_tiny(root: Path) -> None:
           f"cuda {recall[1]!r}; mel kernel launches on the card {mel}")
     if cpu_preds != gpu_preds or cpu_kw != gpu_kw or recall[0] != recall[1]:
         raise RuntimeError("the CLI on the card disagrees with the CLI on the CPU")
-    if len(gpu_preds) != len(utterances) or mel != len(utterances):
-        raise RuntimeError(f"the card's CLI run launched K1 {mel} times for {len(utterances)} utterances")
+    if len(gpu_preds) != n_utterances or mel != n_utterances:
+        raise RuntimeError(f"the card's CLI run launched K1 {mel} times for {n_utterances} utterances")
     counts = [len(seg) for u in gpu_kw for seg in u]
-    if not 0 < sum(counts) < len(keywords) * len(counts):
+    if not 0 < sum(counts) < n_keywords * len(counts):
         raise RuntimeError(f"the tiny CLI run spotted no keyword or every keyword: {gpu_kw}")
 
 
@@ -1252,8 +1316,9 @@ def phase_e_medium(root: Path, config, params, kws, stacks, shapes) -> dict:
     launches = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches}
     for u, m in zip(utterances, marks):
         seconds = m["end"] - m["start"]
-        print(f"phase E cb-whisper.py test: utterance of {u['seconds']} s ({u['rate']} Hz WAV): wall "
-              f"{seconds!r} s, RTFx {u['seconds'] / seconds!r}, keywords spotted {m['keywords']}")
+        print(f"phase E cb-whisper.py test: utterance of {u['seconds']} s ({u['rate']} Hz WAV): WAV read "
+              f"{m['load']!r} s (prefetch thread); transcription wall {seconds!r} s, RTFx "
+              f"{u['seconds'] / seconds!r}, keywords spotted {m['keywords']}")
     print(f"phase E cb-whisper.py test: run_cli {wall!r} s in all; entity recall "
           f"{results['Entity Recall']!r} [{results['Entity Recall LB']!r}, {results['Entity Recall UB']!r}]; "
           f"RTFx {results['RTFx']!r}; mel kernel launches {launches['mel']}, K2 launches {launches['k2']}; "
@@ -1301,6 +1366,454 @@ def phase_e(config, params, kws, stacks, shapes) -> dict:
         shutil.rmtree(PHASE_E_DIR, ignore_errors=True)
     print(f"phase E: {time.perf_counter() - t0:.1f} s in all")
     return launches
+
+
+# ---------------------------------------------------------- phase F: serving
+
+PHASE_F_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "phase_f"
+RESULT_TIMEOUT = 300  # seconds a ticket may take before the run fails
+
+
+@contextlib.contextmanager
+def _recorded_windows(gen):
+    """Each packed window of ``gen`` while the block runs: its width, its
+    occupied slots, the temperatures and rows of its decodes, and its
+    decode's wall time and steps (calls of the decode step)."""
+    import torch
+
+    windows = []
+    run_window, decode_prompted = gen._run_longform_window, gen._decode_prompted
+    with_fallback, decode_step = gen._generate_with_fallback, gen._decode_step
+
+    def recorded_window(rows, *args, **kwargs):
+        windows.append({"width": len(rows), "occupied": sum(r is not None for r in rows),
+                        "orders": [None if r is None else r.order for r in rows],
+                        "decodes": [], "steps": 0, "decode_s": 0.0})
+        return run_window(rows, *args, **kwargs)
+
+    def recorded_decode(cross_kv, ids, *args, **kwargs):
+        windows[-1]["decodes"].append((int(ids.shape[0]), kwargs.get("temperature", 0.0)))
+        return decode_prompted(cross_kv, ids, *args, **kwargs)
+
+    def timed_fallback(*args, **kwargs):
+        if gen.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = with_fallback(*args, **kwargs)  # host arrays: the decode has finished
+        windows[-1]["decode_s"] += time.perf_counter() - t0
+        return out
+
+    def counted_step(*args, **kwargs):
+        windows[-1]["steps"] += 1
+        return decode_step(*args, **kwargs)
+
+    gen._run_longform_window, gen._decode_prompted = recorded_window, recorded_decode
+    gen._generate_with_fallback, gen._decode_step = timed_fallback, counted_step
+    try:
+        yield windows
+    finally:
+        del gen._run_longform_window, gen._decode_prompted, gen._generate_with_fallback, gen._decode_step
+
+
+def _packed_results(pairs):
+    """``generate_packed(..., return_segments=True)``'s yields as plain
+    values: {order: (tokens, [(start, end, tokens) per segment])}."""
+    return {order: (r["sequences"].tolist(), [(s["start"], s["end"], [int(t) for t in s["tokens"]])
+                                             for s in r["segments"]])
+            for order, r in pairs}
+
+
+def phase_f1(device) -> None:
+    """Packed decode on the tiny random CB-Whisper (the K2-eligible ResNet
+    of phase B, int8 spotting with stage_1 on K2; a decoder that leaves its
+    windows), over five mels of 0.6-2.5 windows and one of zero length,
+    with spotting and condition-on-prev:
+
+    * ``generate_packed`` at ``slots=3`` with a ladder whose every rung
+      trips (0.0, 0.2, 0.4; logprob threshold 0): the CPU and the card
+      give identical (order, sequences, segments);
+    * on the card, ``slots=3`` gives every utterance the tokens of
+      ``slots=1`` (temperature 0; int8 calibrated on the first window,
+      whose first row is the first utterance either way);
+    * vacant slots appear at the stream's tail, and a pending int8
+      calibration keeps exactly the real rows of every window;
+    * ``forward_batch`` of two utterances: the CPU = the card;
+    * ``run_cli`` of the tiny checkpoint with ``eval_packed: true`` and
+      ``eval_batch_size: 2``: the CPU and the card give the same
+      transcripts and entity recall, K1 once per utterance on the card."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.cli import run_cli
+    from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
+    from enhance_cb_whisper_tpu_torch.models.whisper import encoder_kws_stack
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, mel_cuda
+
+    t_start = time.perf_counter()
+    k2_tiny = ResNetConfig(num_channels=2, embedding_size=32, hidden_sizes=(128, 512), depths=(1, 3))
+    params = _seekable_tiny_params(_tiny_pipeline("cpu").whisper_config)
+    base = _tiny_pipeline("cpu", k2_tiny, whisper_params=params)
+    cfg = base.whisper_config
+    rng = np.random.default_rng(SEED + 13)
+    mels = [rng.standard_normal((1, cfg.num_mel_bins, n)).astype(np.float32)
+            for n in (1800, 7500, 4100, 3000, 5200)]
+    stream = [(m, None) for m in mels]
+    stream.insert(2, (np.zeros((1, cfg.num_mel_bins, 600), np.float32), np.zeros((1, 600), np.int64)))
+
+    # the class-1 bias in the widest gap of the keywords' margins on the
+    # first windows (CPU, fp32)
+    base._ensure_catalog()
+    margins = []
+    with torch.no_grad():
+        for m in mels:
+            segment = base.generator._pad_segment(torch.from_numpy(m[:, :, :base.generator.n_segment_frames]))
+            stack = encoder_kws_stack(base.encoder_params, segment, cfg, layer_slice=base.kws_layer_slice)
+            _, logits = base._score_fn(base._catalog_dev, stack[0], base._utt_w)
+            margins.extend((logits[:6, 1] - logits[:6, 0]).tolist())
+    shift = _gap_shift(margins)
+
+    def make(dev, calibration_batches=1):
+        cb = _tiny_pipeline(dev, k2_tiny, class1_shift=shift, whisper_params=params)
+        cb.enable_int8_spotting(calibration_batches=calibration_batches, s8_1x1=("stage_1",))
+        return cb
+
+    def packed(cb, opts, slots):
+        return _packed_results(cb.generator.generate_packed(
+            iter(stream), opts, slots=slots, keyword_spotting=cb.keyword_spotting,
+            encode_spot=cb._encode_spot_hook(), return_segments=True))
+
+    ladder = dataclasses.replace(base.opts, temperature=(0.0, 0.2, 0.4), logprob_threshold=0.0)
+    out, windows = {}, {}
+    for dev in ("cpu", device):
+        cb = make(dev)
+        matmul_s8_cuda.launches = 0
+        with _recorded_windows(cb.generator) as recorded:
+            out[str(dev)] = packed(cb, ladder, 3)
+        windows[str(dev)] = [(w["width"], w["occupied"], w["decodes"]) for w in recorded]
+        k2 = matmul_s8_cuda.launches
+    cpu, gpu = out["cpu"], out[str(device)]
+    temperatures = {t for w in windows["cpu"] for _, t in w[2]}
+    occupancy = [w[1] for w in windows["cpu"]]
+    print(f"phase F1: tiny generate_packed slots=3, ladder (0.0, 0.2, 0.4) whose every rung trips, int8 "
+          f"spotting: {len(occupancy)} windows, occupied slots per window {occupancy}, decodes at "
+          f"temperatures {sorted(temperatures)}; results in order of completion {list(gpu)}, tokens per "
+          f"utterance {[len(gpu[k][0]) for k in sorted(gpu)]}; cpu vs cuda (order, sequences, segments) "
+          f"identical: {list(cpu.items()) == list(gpu.items())}; K2 launches on the card {k2}")
+    if list(cpu.items()) != list(gpu.items()) or windows["cpu"] != windows[str(device)]:
+        raise RuntimeError("packed decode on the card disagrees with the CPU")
+    if sorted(gpu) != list(range(len(stream))) or gpu[2] != ([], []) or not all(
+            gpu[k][0] for k in gpu if k != 2):
+        raise RuntimeError(f"packed decode lost an utterance or decoded the empty one: {gpu}")
+    if 0.4 not in temperatures or min(occupancy) >= 3 or k2 <= 0:
+        raise RuntimeError("the packed reference run did not climb the ladder, leave a slot vacant or launch K2")
+
+    plain = base.opts  # temperature 0: no sampled rung
+    slots3, slots1 = packed(make(device), plain, 3), packed(make(device), plain, 1)
+    print(f"phase F1: on the card, slots=3 and slots=1 (int8 calibrated on the first window) give every "
+          f"utterance the same tokens and segments: {slots3 == slots1}")
+    if slots3 != slots1:
+        raise RuntimeError(f"slots=3 differs from slots=1 on the card: {slots3} vs {slots1}")
+
+    cb = make(device, calibration_batches=10**6)  # never completes: every real row is kept
+    with _recorded_windows(cb.generator) as recorded:
+        packed(cb, plain, 3)
+    real = sum(w["occupied"] for w in recorded)
+    vacant = sum(w["width"] - w["occupied"] for w in recorded)
+    print(f"phase F1: int8 calibration over slots=3: {len(cb._int8_calib_stacks)} segments kept for "
+          f"{real} real and {vacant} vacant row-windows (occupied per window "
+          f"{[w['occupied'] for w in recorded]})")
+    if len(cb._int8_calib_stacks) != real or vacant == 0:
+        raise RuntimeError("a vacant slot entered the int8 calibration set")
+
+    batch = {}
+    for dev in ("cpu", device):
+        batch[str(dev)] = make(dev).forward_batch([torch.from_numpy(m) for m in mels[:2]], [None, None])
+    print(f"phase F1: forward_batch of two utterances, cpu vs cuda transcripts identical: "
+          f"{batch['cpu'] == batch[str(device)]} (lengths {[len(t) for t in batch['cpu']]})")
+    if batch["cpu"] != batch[str(device)] or not all(batch["cpu"]):
+        raise RuntimeError("forward_batch on the card disagrees with the CPU")
+
+    try:
+        argv, _, n_utterances = _write_tiny_cli(PHASE_F_DIR / "tiny")
+        argv += ["--model.init_args.eval_packed", "true", "--model.init_args.eval_batch_size", "2"]
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            preds = []
+            mel_cuda.launches = 0
+            kwargs = {"device": "cpu"} if dev == "cpu" else {}  # the default device: the card
+            results = run_cli(list(argv), predictions_out=preds, **kwargs)
+            runs[dev] = (preds, tuple(results[k] for k in ("Entity Recall", "Entity Recall LB",
+                                                           "Entity Recall UB")), mel_cuda.launches)
+    finally:
+        shutil.rmtree(PHASE_F_DIR, ignore_errors=True)
+    print(f"phase F1: run_cli with eval_packed true, eval_batch_size 2: transcripts identical "
+          f"{runs['cpu'][0] == runs['cuda'][0]}, entity recall [LB, UB] cpu {runs['cpu'][1]!r} cuda "
+          f"{runs['cuda'][1]!r}; mel kernel launches on the card {runs['cuda'][2]}")
+    if runs["cpu"][:2] != runs["cuda"][:2] or runs["cuda"][2] != n_utterances or len(runs["cuda"][0]) != n_utterances:
+        raise RuntimeError("the packed CLI on the card disagrees with the CPU")
+    print(f"phase F1: {time.perf_counter() - t_start:.1f} s in all")
+
+
+def _second_checkpoint(params, seed: int):
+    """Another random checkpoint of ``params``'s architecture, drawn on its
+    device from ``seed`` at ``init_whisper_params``'s scales: every matrix
+    normal(0, 0.02), the encoder's sinusoid positions, LayerNorms and
+    biases as they are."""
+    import torch
+
+    def draw(tree, path, gen):
+        if isinstance(tree, dict):
+            return {k: draw(v, path + (k,), gen) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [draw(v, path + (str(i),), gen) for i, v in enumerate(tree)]
+        if tree.ndim < 2 or path[:2] == ("encoder", "embed_positions"):
+            return tree
+        return torch.randn(tree.shape, generator=gen, device=tree.device) * 0.02
+
+    first = params["decoder"]["embed_tokens"]["weight"]
+    return draw(params, (), torch.Generator(device=first.device).manual_seed(seed))
+
+
+def _gemm_row_variance(params) -> None:
+    """Whether cuBLAS gives a row the same fp32 bits whatever the rows
+    beside it: rows 0-4 of the decoder's products at M = 20 (a beam-5
+    decode step at slots=4) against the same 5 rows alone (slots=1), and
+    the encoder's at M = 6000 against 1500 (4 windows against 1).  Printed,
+    not checked: packed transcripts stay the same only while no beam
+    choice is that close."""
+    import torch
+    import torch.nn.functional as F
+
+    layer = params["decoder"]["layers"][0]
+    gen = torch.Generator(device=layer["fc1"]["weight"].device).manual_seed(SEED)
+    cases = [("decoder fc1", layer["fc1"]["weight"], 5, 20), ("decoder fc2", layer["fc2"]["weight"], 5, 20),
+             ("vocab projection", params["decoder"]["embed_tokens"]["weight"], 5, 20),
+             ("encoder fc1", params["encoder"]["layers"][0]["fc1"]["weight"], 1500, 6000)]
+    parts = []
+    for name, w, m_small, m_big in cases:
+        x = torch.randn((m_big, w.shape[1]), generator=gen, device=w.device)
+        big, small = F.linear(x, w)[:m_small], F.linear(x[:m_small].clone(), w)
+        parts.append(f"{name} (M {m_small} vs {m_big}): bitwise equal {torch.equal(big, small)}, "
+                     f"max |diff| {(big - small).abs().max().item()!r}")
+    print("phase F2: cuBLAS fp32 rows alone vs beside others: " + "; ".join(parts))
+
+
+def phase_f2(device, cb, dataset, shapes) -> dict:
+    """Serving at whisper-medium widths: phase B's model, ResNet-50 scorer,
+    100-keyword catalog, beam-5 fp32 decode with timestamps and
+    condition-on-prev, and phase B's four utterances (the 47.5 s one read
+    from its WAV):
+
+    1. ``run_test(packed=True, batch_size=1)``, then a
+       ``TranscriptionService(slots=4)`` given all four at once: every
+       ticket's transcript equals its ``slots=1`` transcript;
+    2. ``swap_params`` to a second random checkpoint (seed 1) on the live
+       service and one more submission, which decodes under the new
+       weights (equal to a ``slots=1`` run under them); a checkpoint of
+       another architecture then raises through ``result()``;
+    3. 1 again with the int8 scorer (``enable_int8_spotting(1, s8_1x1=
+       stages 1-3)``, calibrated on the first window in both runs).
+
+    K1 launches exactly once per utterance and K2 exactly 22 x 13 per row
+    of every window (vacant slots are scored too), at phase A2's shapes.
+    Returns the launches of the int8 service run."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.audio.io import load_audio_16k, prepare_features
+    from enhance_cb_whisper_tpu_torch.models.cb_whisper import CBWhisper
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, mel_cuda
+    from enhance_cb_whisper_tpu_torch.runtime.serving import TranscriptionService
+
+    t_start = time.perf_counter()
+    config = cb.whisper_config
+    per_window = len(shapes) * -(-cb.catalog.num_padded // CHUNK)  # K2 launches per scored row
+
+    def prompt_ids_fn(text):
+        """One token per spotted keyword (up to 48), so each utterance's
+        prompt names its own keywords (phase B's fake tokenizer keeps 8
+        characters, which most keyword sets share)."""
+        return [50361] + [100 + int(k[2:]) for k in text.strip("()").split()][:48]
+
+    def fresh(int8=False):
+        """A CBWhisper over phase B's weights and ResNet-50 (its own
+        generator, so a swap stays in it); the fp32 scorer, or int8."""
+        module = CBWhisper(
+            config=cb.config, whisper_config=config, whisper_params=cb.generator.params,
+            kws_model=cb.kws_model, catalog=cb.catalog, generation_options=cb.opts,
+            prompt_ids_fn=prompt_ids_fn, decode_fn=cb.decode_fn, kws_layer_slice=cb.kws_layer_slice,
+            device=device,
+        )
+        if int8:
+            module.enable_int8_spotting(calibration_batches=1, s8_1x1=S8_STAGES)
+        return module
+
+    def mel_fn(item):
+        wav = load_audio_16k(str(item["path"])) if "path" in item else item["audio"]
+        return prepare_features(wav, n_mels=config.num_mel_bins, device=device)
+
+    # phase D re-centred the shared head on its own data: centre it on this
+    # run's first utterance again (the JSON line's K2 count does not see this)
+    _centre_class1(cb, cb.generator._pad_segment(mel_fn(dataset[0])[0]))
+    _gemm_row_variance(cb.generator.params)
+
+    def report(label, wall, audio_seconds, windows, launches, texts, peak):
+        steps = sum(w["steps"] for w in windows)
+        decode_s = sum(w["decode_s"] for w in windows)
+        occupied = [w["occupied"] for w in windows]
+        print(f"phase F2 {label}: wall {wall!r} s for {audio_seconds!r} s of audio, RTFx "
+              f"{audio_seconds / wall!r}; {len(windows)} windows of width {[w['width'] for w in windows]}, "
+              f"occupied slots {occupied} (mean {np.mean(occupied)!r}); decode {decode_s!r} s over {steps} "
+              f"steps = {decode_s / max(steps, 1) * 1e3!r} ms per step; mel kernel launches "
+              f"{launches['mel']}, K2 launches {launches['k2']}; peak memory allocated {peak} B; "
+              f"tokens per transcript {[len(t.split()) for t in texts]}, {len(set(texts))} distinct; "
+              f"first tokens {[t.split()[:6] for t in texts]}")
+
+    @contextlib.contextmanager
+    def keywords_by_utterance(module, windows):
+        """The keywords spotted for each utterance, window by window."""
+        score, spotted = module._score_to_keywords, {}
+
+        def recorded(stacks, real_rows=None):
+            out = score(stacks, real_rows)
+            for order, keywords in zip(windows[-1]["orders"], out):
+                if order is not None:
+                    spotted.setdefault(order, []).append(keywords)
+            return out
+
+        module._score_to_keywords = recorded
+        try:
+            yield spotted
+        finally:
+            del module._score_to_keywords
+
+    def check_launches(label, launches, windows, n_utterances, int8):
+        rows = sum(w["width"] for w in windows)
+        if launches["mel"] != n_utterances:
+            raise RuntimeError(f"{label}: K1 launched {launches['mel']} times for {n_utterances} utterances")
+        if int8:
+            _check_k2_main_path(label, launches, shapes, rows * per_window // len(shapes),
+                                f"{per_window // len(shapes)} chunks x {rows} scored rows")
+        elif launches["k2"]:
+            raise RuntimeError(f"{label}: the fp32 scorer launched K2")
+
+    def reference(label, module, items, int8=False):
+        """``run_test(packed=True, batch_size=1)``: the slots=1 transcripts."""
+        preds = []
+        mel_cuda.launches = matmul_s8_cuda.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _recorded_windows(module.generator) as windows, _recorded_k2_shapes() as k2_shapes, \
+                keywords_by_utterance(module, windows) as spotted:
+            results = module.run_test(items, mel_fn, num_bootstraps=20, batch_size=1, packed=True,
+                                      predictions_out=preds)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches, "k2_shapes": k2_shapes}
+        report(label, wall, sum(i["seconds"] for i in items), windows, launches, preds,
+               torch.cuda.max_memory_allocated())
+        print(f"phase F2 {label}: run_test RTFx {results['RTFx']!r}, entity recall "
+              f"{results['Entity Recall']!r}")
+        check_launches(label, launches, windows, len(items), int8)
+        if len(preds) != len(items) or not all(preds) or any(w["width"] != 1 for w in windows):
+            raise RuntimeError(f"{label}: invalid output {preds}")
+        return preds, spotted
+
+    def serve(label, svc, module, items, int8=False):
+        """All of ``items`` submitted at once; their transcripts in order."""
+        mel_cuda.launches = matmul_s8_cuda.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _recorded_windows(module.generator) as windows, _recorded_k2_shapes() as k2_shapes, \
+                keywords_by_utterance(module, windows) as spotted:
+            features = [mel_fn(item) for item in items]  # K1, once per utterance
+            tickets = [svc.submit(f, m) for f, m in features]
+            texts = [svc.result(t, timeout=RESULT_TIMEOUT) for t in tickets]
+            torch.cuda.synchronize()
+        first_ticket = tickets[0]
+        spotted = {order - first_ticket: keywords for order, keywords in spotted.items()}
+        wall = time.perf_counter() - t0
+        launches = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches, "k2_shapes": k2_shapes}
+        report(label, wall, sum(i["seconds"] for i in items), windows, launches, texts,
+               torch.cuda.max_memory_allocated())
+        check_launches(label, launches, windows, len(items), int8)
+        if any(w["width"] != svc._slots for w in windows):
+            raise RuntimeError(f"{label}: a window launched narrower than the service's slots")
+        return texts, launches, spotted
+
+    def same(label, got, want):
+        """Ticket transcripts and keywords against the slots=1 ones; on a
+        difference, the first token (decode step) where the schedules part
+        and the keywords spotted differently."""
+        (texts, spotted), (solo_texts, solo_spotted) = got, want
+        ok = texts == solo_texts and spotted == solo_spotted
+        print(f"phase F2 {label}: every ticket's transcript and keywords per window equal its slots=1 ones: "
+              f"{ok}; keywords spotted per utterance and window "
+              f"{[[len(k) for k in spotted[i]] for i in sorted(spotted)]}")
+        if not ok:
+            for i, (g, w) in enumerate(zip(texts, solo_texts)):
+                g, w = g.split(), w.split()
+                if g != w:
+                    k = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))
+                    print(f"phase F2 {label}: utterance {i} parts at generated token {k}: slots=4 "
+                          f"{g[max(0, k - 3):k + 3]} vs slots=1 {w[max(0, k - 3):k + 3]}")
+                for n, (a, b) in enumerate(zip(spotted.get(i, []), solo_spotted.get(i, []))):
+                    if a != b:
+                        print(f"phase F2 {label}: utterance {i} window {n} keywords only at slots=4 "
+                              f"{sorted(set(a) - set(b))}, only at slots=1 {sorted(set(b) - set(a))}")
+            raise RuntimeError(f"{label}: the service's transcripts depend on the schedule")
+
+    solo = reference("fp32 run_test(packed=True, batch_size=1)", fresh(), dataset)
+    module = fresh()
+    svc = TranscriptionService(module, slots=4)
+    try:
+        texts, _, spotted = serve("fp32 TranscriptionService(slots=4)", svc, module, dataset)
+        same("fp32", (texts, spotted), solo)
+
+        params2 = _second_checkpoint(cb.generator.params, seed=1)
+        ref_module = fresh()
+        ref_module.generator.swap_params(params2)
+        item = dataset[1]
+        solo_new, _ = reference("seed 1 run_test(packed=True, batch_size=1)", ref_module, [item])
+        del ref_module
+        t0 = time.perf_counter()
+        svc.swap_params(params2)
+        swapped = serve("seed 1 after swap_params on the live service", svc, module, [item])[0]
+        print(f"phase F2: swap_params + one utterance {time.perf_counter() - t0!r} s; the new weights' "
+              f"transcript equals slots=1 under seed 1: {swapped == solo_new}; differs from seed 0's: "
+              f"{swapped[0] != solo[0][1]}")
+        if swapped != solo_new or swapped[0] == solo[0][1]:
+            raise RuntimeError("the swapped service did not decode under the new weights")
+        del params2
+
+        bad = dict(cb.generator.params, decoder=dict(cb.generator.params["decoder"]))
+        embed = bad["decoder"]["embed_tokens"]["weight"]
+        bad["decoder"]["embed_tokens"] = {"weight": embed[:, : embed.shape[1] // 2]}
+        svc.swap_params(bad)
+        try:
+            svc.result(svc._next_ticket, timeout=RESULT_TIMEOUT)
+            raise AssertionError("unreachable: a mismatched checkpoint was accepted")
+        except RuntimeError as err:
+            cause = err.__cause__
+            print(f"phase F2: swap_params of another architecture raised through result(): {err!r} from "
+                  f"{cause!r}")
+            if not (isinstance(cause, ValueError) and "architecture mismatch" in str(cause)):
+                raise
+    finally:
+        svc.close(wait=False)
+        svc._worker.join(RESULT_TIMEOUT)
+    if svc._worker.is_alive():
+        raise RuntimeError("the serving worker did not stop")
+    del module, svc
+
+    solo8 = reference("int8 run_test(packed=True, batch_size=1)", fresh(int8=True), dataset, int8=True)
+    module = fresh(int8=True)
+    with TranscriptionService(module, slots=4) as svc:
+        texts8, launches8, spotted8 = serve("int8 TranscriptionService(slots=4)", svc, module, dataset, int8=True)
+    same("int8", (texts8, spotted8), solo8)
+    print(f"phase F2: {time.perf_counter() - t_start:.1f} s in all")
+    return launches8
 
 
 def _median_ms(fn, reps: int = 25) -> float:
@@ -1537,7 +2050,7 @@ def _card() -> str:
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--k1"]):
+    if argv not in ([], ["--k1"], ["--serving"]):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1564,16 +2077,27 @@ def main(argv) -> int:
         return 0
     build_kernels()
     shapes = k2_launch_shapes(ResNetConfig.from_version("resnet-50", num_channels=12))
+    if argv == ["--serving"]:  # phase A2 and the serving phase F alone
+        phase_a2(device, shapes)
+        phase_f1(device)
+        cb = _medium_pipeline(device)[0]
+        _unzero_residual_bn(cb.kws_model)
+        phase_f2(device, cb, _slice_dataset(), shapes)
+        print(f"chip_smoke --serving: passed in {time.perf_counter() - t_start:.1f} s")
+        print(_card())
+        return 0
 
     max_abs_err = phase_a(device)
     mismatches, k2_err = phase_a2(device, shapes)
     check_tf32_off(device)
     phase_b_reference(device)
     phase_b_longform_reference(device)
-    fp32_launches, int8_launches, kws, stacks, config, params = phase_b_slice(device, shapes)
-    phase_d(device, kws, stacks, shapes)
-    cli_launches = phase_e(config, params, kws, stacks, shapes)
-    del params
+    fp32_launches, int8_launches, cb, dataset, stacks = phase_b_slice(device, shapes)
+    phase_d(device, cb.kws_model, stacks, shapes)
+    cli_launches = phase_e(cb.whisper_config, cb.generator.params, cb.kws_model, stacks, shapes)
+    phase_f1(device)
+    packed_launches = phase_f2(device, cb, dataset, shapes)
+    del cb
     times = phase_c(device)
     k2 = phase_c_k2(device, shapes)
     k1 = print_k1_bound()
@@ -1584,10 +2108,12 @@ def main(argv) -> int:
     print(json.dumps({"kernels": [
         {"name": "log10_mel", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
          "launches": fp32_launches["mel"], "cli_launches": cli_launches["mel"],
+         "packed_launches": packed_launches["mel"],
          "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": k1["ms"], "bound_by": k1["by"], "library_ms": None},
         {"name": "matmul_s8_requant", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
          "launches": int8_launches["k2"], "cli_launches": cli_launches["k2"],
+         "packed_launches": packed_launches["k2"],
          "max_abs_err": k2_err, "mismatches": mismatches,
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": "bytes", "library_ms": None},

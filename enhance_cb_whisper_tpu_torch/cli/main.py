@@ -11,10 +11,11 @@ Models are built through the port's entry points on ``device`` (the card
 by default; they turn TF32 off there).  What the port does not carry yet
 raises instead of being ignored: ``fit`` and the paper-2 models, and the
 CB-Whisper knobs ``compute_dtype`` other than float32, ``vocab_int8``,
-``decoder_int8``, ``kv_cache_int8``, ``cross_kv_int8``, ``encoder_int8``,
-``eval_batch_size > 1`` and ``eval_packed`` (ROADMAP.md §1 names the item
-of each).  ``kv_staging``, a TPU cache-write layout that changes no
-result, is accepted and does nothing.  ``kws_int8`` runs the fused s8
+``decoder_int8``, ``kv_cache_int8``, ``cross_kv_int8`` and ``encoder_int8``
+(ROADMAP.md §1 names the item of each).  ``eval_batch_size`` and
+``eval_packed`` pick batched or packed decode, as in the JAX CLI.
+``kv_staging``, a TPU cache-write layout that changes no result, is
+accepted and does nothing.  ``kws_int8`` runs the fused s8
 kernel K2 on every bottleneck 1×1 conv whose shapes it takes, as the JAX
 CLI does with ``ECW_S8_PALLAS`` naming every stage; the port reads no
 environment variable.
@@ -208,12 +209,6 @@ def _check_cbwhisper_knobs(model_args) -> None:
     for flag in _UNPORTED_FLAGS:
         if model_args.get(flag):
             raise NotImplementedError(f"{flag} is not ported yet: ROADMAP.md §1 item 4")
-    if int(model_args.get("eval_batch_size", 1)) > 1:
-        raise NotImplementedError(
-            "eval_batch_size > 1 (batched decode) is not ported yet: ROADMAP.md §1 item 3"
-        )
-    if model_args.get("eval_packed"):
-        raise NotImplementedError("eval_packed (packed decode) is not ported yet: ROADMAP.md §1 item 3")
 
 
 def _run_cbwhisper(subcommand: str, config: Dict[str, Any], predictions_out=None, device="cuda"):
@@ -300,6 +295,11 @@ def _run_cbwhisper(subcommand: str, config: Dict[str, Any], predictions_out=None
     return module.run_test(
         dataset, mel_fn,
         num_bootstraps=model_args.get("num_bootstraps", 1000),
+        # > 1 decodes several utterances per seek loop (oracle='kws')
+        batch_size=model_args.get("eval_batch_size", 1),
+        # continuous batching: a finished utterance hands its slot to the
+        # next one (CBWhisper.forward_packed, slots=eval_batch_size)
+        packed=bool(model_args.get("eval_packed", False)),
         predictions_out=predictions_out,
     )
 

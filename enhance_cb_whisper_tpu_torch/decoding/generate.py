@@ -21,19 +21,29 @@ cur_len, shape) -> tensor``.  The default, :func:`cpu_gumbel_noise`, draws
 on the CPU, so the CPU and the card sample the same tokens; the JAX
 package's own draws can be injected in its place.
 
-Not ported yet: packed decode (``generate_packed``: its vacant slots,
-``real_rows`` hook argument and fixed-width prompts) and beam-sample
-(``num_beams > 1`` at a temperature above 0, which the ladder never asks
-for).  Prompt-length bucketing existed only to bound JAX compiles and is
-dropped: the prompt is prefilled at its true length.
+Packed (continuous-batching) decode, :meth:`WhisperGenerator.generate_packed`:
+a fixed number of batch slots decode one window each per launch, and a
+finished utterance's slot is refilled from a stream.  A vacant slot decodes
+a zero mel with an empty prompt, is kept out of the ladder and out of int8
+calibration (the ``real_rows`` hook argument), and its output is dropped.
+Each row conditions on its own history and takes the fixed-width prompt
+layout, so an utterance's tokens do not depend on what shares its launch.
+:meth:`WhisperGenerator.swap_params` replaces the weights in place (the
+serving layer's hot swap).
+
+Not ported yet: beam-sample (``num_beams > 1`` at a temperature above 0,
+which the ladder never asks for).  Prompt-length bucketing existed only to
+bound JAX compiles and is dropped: the prompt is prefilled at its true
+length, and a packed run's prompts all have one width.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import zlib
 from functools import partial
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -157,6 +167,54 @@ class WhisperGenerator:
             reference_precision()
         self.n_segment_frames = INPUT_STRIDE * config.max_source_positions
 
+    # ------------------------------------------------------------------ util
+
+    def swap_params(self, params: Dict[str, Any]) -> None:
+        """Hot checkpoint swap for serving: replace the weights in place.
+
+        ``params`` must have the same keys, shapes and dtypes as the current
+        dict (a checkpoint of the same architecture); it is moved to the
+        generator's device.  Any mismatch raises ``ValueError`` and leaves
+        the weights as they were.  The JAX package also re-quantizes the
+        weights here when its int8 vocab or decoder levers are on; the port
+        has neither lever, so there is nothing to replay.
+
+        Not synchronized with an in-flight decode: a swap from another
+        thread mid-utterance would mix checkpoints across its windows.
+        Quiesce first, or go through
+        ``runtime.serving.TranscriptionService.swap_params``, which drains
+        the work in flight before it swaps (an epoch barrier)."""
+        def layout(tree):
+            if isinstance(tree, dict):
+                return {k: layout(v) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return [layout(v) for v in tree]
+            return (tuple(tree.shape), str(tree.dtype).replace("torch.", ""))
+
+        if layout(params) != layout(self.params):
+            raise ValueError(
+                "swap_params: checkpoint architecture mismatch (keys, shapes or "
+                "dtypes differ); build a new WhisperGenerator instead"
+            )
+
+        def to_device(tree):
+            if isinstance(tree, dict):
+                return {k: to_device(v) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return [to_device(v) for v in tree]
+            return torch.as_tensor(tree).to(self.device)
+
+        self.params = to_device(params)
+
+    @torch.no_grad()
+    def detect_language(self, input_features, opts: GenerationOptions) -> np.ndarray:
+        """HF ``model.detect_language``: the language token id of each batch
+        row, detected from its first 30 s window."""
+        seg = torch.as_tensor(input_features, dtype=torch.float32, device=self.device)
+        seg = self._pad_segment(seg[:, :, : self.n_segment_frames])
+        cross_kv = self._cross_kv_fn(self._encode(seg))
+        return self._detect_language_ids(cross_kv, seg.shape[0], opts)
+
     # ------------------------------------------------------------------ steps
 
     def _encode(self, mel: torch.Tensor) -> torch.Tensor:
@@ -176,14 +234,25 @@ class WhisperGenerator:
         """Run the prompt through a fresh cache, positioned at
         ``prompt_len - 1``: the decode loop's first step re-feeds the final
         prompt token (rewriting its own slot with identical K/V).  Returns
-        (cache, logits at the final prompt position)."""
+        (cache, logits at the final prompt position).
+
+        One segment's rows (its beams) at a time, into views of the cache:
+        cuBLAS picks its GEMM kernel by the number of rows, so a batched
+        prefill would give a row other bits beside other segments."""
         cache = init_cache(self.config, prompt.shape[0], max_length, self.device)
-        logits, cache = decoder_forward(
-            ctx["params"], prompt, ctx["cross_kv"], self.config,
-            cache=cache, attention_mask=ctx["attn_mask"],
-        )
+        n_seg = ctx["cross_kv"][0]["k"].shape[0]
+        reps = prompt.shape[0] // n_seg
+        logits = []
+        for i in range(n_seg):
+            rows = slice(i * reps, (i + 1) * reps)
+            part = {"index": 0, "layers": [{name: slab[rows] for name, slab in layer.items()}
+                                           for layer in cache["layers"]]}
+            cross_kv = [{name: t[i : i + 1] for name, t in layer.items()} for layer in ctx["cross_kv"]]
+            out, _ = decoder_forward(ctx["params"], prompt[rows], cross_kv, self.config,
+                                     cache=part, attention_mask=ctx["attn_mask"][rows])
+            logits.append(out[:, -1])
         cache["index"] = prompt.shape[1] - 1
-        return cache, logits[:, -1]
+        return cache, torch.cat(logits)
 
     def _make_ctx(self, cross_kv, prompt_mask: np.ndarray, max_length: int, reps: int) -> dict:
         """Cross K/V (NOT tiled across beams: the decoder folds beams into
@@ -342,7 +411,7 @@ class WhisperGenerator:
 
     def _run_longform_window(
         self,
-        rows: List[_LongformRow],
+        rows: List[Optional[_LongformRow]],
         opts: GenerationOptions,
         keyword_spotting,
         encode_spot,
@@ -350,31 +419,62 @@ class WhisperGenerator:
         condition_any: bool,
         segment_idx: int,
         noise: NoiseSource,
+        fixed_prompt: bool = False,
+        fixed_keywords: bool = True,
     ) -> None:
-        """Decode ONE 30 s window of every row in ``rows`` (the unfinished
-        ones) and advance their seeks.
+        """Decode ONE 30 s window of every slot in ``rows`` and advance the
+        seeks of the occupied ones.
 
-        ``prev_enabled`` is HF's row-0 condition-on-prev gate
-        (``len(current_segments[0]) > 0``); ``condition_any`` is
-        ``any(condition flags)`` over ALL utterances, finished included."""
+        ``rows[j] is None`` marks a VACANT slot (packed decode at the
+        stream's tail): it decodes a zero mel with an empty prompt, so the
+        launch keeps its width, stays out of the fallback ladder, and its
+        output is dropped.
+
+        ``prev_enabled`` is the caller's condition-on-prev gate: the
+        fixed-batch path passes HF's row-0 rule (``len(current_segments[0])
+        > 0``), the packed path True, so each utterance conditions on its
+        own history alone.  ``condition_any`` is ``any(condition flags)``
+        over ALL utterances (finished included) on the fixed-batch path and
+        ``condition_on_prev_tokens`` on the packed one.  ``fixed_prompt``
+        and ``fixed_keywords`` pick the fixed-width prompt layout
+        (:func:`.prompt.prepare_decoder_input_ids`)."""
         timestamp_begin = opts.no_timestamps_token_id + 1
-        seek_num_frames = [min(r.max_frames - r.seek, self.n_segment_frames) for r in rows]
+        seek_num_frames = [
+            0 if r is None else min(r.max_frames - r.seek, self.n_segment_frames) for r in rows
+        ]
+        zero_seg = torch.zeros((1, self.config.num_mel_bins, self.n_segment_frames),
+                               dtype=torch.float32, device=self.device)
         seg = torch.cat([
-            self._pad_segment(r.features[:, :, r.seek : r.seek + n])
-            for r, n in zip(rows, seek_num_frames)
+            zero_seg if r is None
+            else self._pad_segment(r.features[:, :, r.seek : r.seek + seek_num_frames[j]])
+            for j, r in enumerate(rows)
         ])
+
+        # vacant slots must not feed a pending int8 calibration: the real-row
+        # mask goes to hooks whose signature takes it (CBWhisper's do; a
+        # plain test callable need not)
+        hook_kwargs = {}
+        hook = encode_spot if encode_spot is not None else keyword_spotting
+        if hook is not None and any(r is None for r in rows):
+            try:
+                takes_mask = "real_rows" in inspect.signature(hook).parameters
+            except (TypeError, ValueError):  # a callable without a signature
+                takes_mask = False
+            if takes_mask:
+                hook_kwargs["real_rows"] = [r is not None for r in rows]
 
         enc = None
         if encode_spot is not None:
-            keywords_tokens, enc = encode_spot(seg)
+            keywords_tokens, enc = encode_spot(seg, **hook_kwargs)
         elif keyword_spotting is not None:
-            keywords_tokens = keyword_spotting(input_features=seg)
+            keywords_tokens = keyword_spotting(input_features=seg, **hook_kwargs)
         else:
             keywords_tokens = [[] for _ in rows]
+        keywords_tokens = [[] if r is None else keywords_tokens[j] for j, r in enumerate(rows)]
 
         prev_tokens = [
             [t for s in r.segments for t in segment_prev_tokens(s, timestamp_begin)]
-            if r.condition else None
+            if r is not None and r.condition else None
             for r in rows
         ]
         use_prev = prev_enabled and any(p is not None and len(p) > 0 for p in prev_tokens)
@@ -387,12 +487,15 @@ class WhisperGenerator:
         # (frames [0:3000], HF's detect_language operand)
         init_tokens: Any = opts.init_tokens()
         if opts.needs_lang_detection:
-            todo = [j for j, r in enumerate(rows) if r.lang_token_id is None]
+            todo = [j for j, r in enumerate(rows) if r is not None and r.lang_token_id is None]
             if todo:
                 detected = self._detect_language_ids(cross_kv, len(rows), opts)
                 for j in todo:
                     rows[j].lang_token_id = int(detected[j])
-            init_tokens = [opts.init_tokens(r.lang_token_id) for r in rows]
+            # a vacant slot's output is dropped: any language token keeps its
+            # prompt row the same width
+            fill = sorted(opts.lang_token_ids)[0]
+            init_tokens = [opts.init_tokens(fill if r is None else r.lang_token_id) for r in rows]
 
         decoder_ids, attn = prepare_decoder_input_ids(
             init_tokens=init_tokens,
@@ -402,16 +505,20 @@ class WhisperGenerator:
             max_target_positions=opts.max_target_positions,
             pad_token_id=opts.pad_token_id,
             prev_sot_token_id=opts.prev_sot_token_id,
+            fixed_width=fixed_prompt,
+            fixed_keywords=fixed_keywords,
         )
 
-        cond_local = [r.condition for r in rows]
+        cond_local = [False if r is None else r.condition for r in rows]
         seqs, _, should_skip = self._generate_with_fallback(
             cross_kv, decoder_ids, attn, opts, cond_local, list(range(len(rows))),
-            segment_idx=segment_idx, noise=noise,
+            segment_idx=segment_idx, noise=noise, vacant=[r is None for r in rows],
         )
 
         plen = decoder_ids.shape[1]
         for j, r in enumerate(rows):
+            if r is None:
+                continue
             r.condition = cond_local[j]
             if should_skip[j]:
                 # silence detected: drop the segment, advance the window
@@ -467,6 +574,126 @@ class WhisperGenerator:
             return {"sequences": sequences, "segments": [r.segments for r in rows]}
         return sequences
 
+    def generate_packed(
+        self,
+        stream: Iterable,
+        opts: GenerationOptions,
+        slots: int = 4,
+        keyword_spotting: Optional[Callable] = None,
+        encode_spot: Optional[Callable] = None,
+        return_segments: bool = False,
+        noise: NoiseSource = cpu_gumbel_noise,
+    ) -> Iterator[Tuple[int, Any]]:
+        """Continuous-batching longform decode over a STREAM of utterances.
+
+        ``slots`` utterances decode as one batch, one 30 s window per
+        launch; a finished utterance hands its slot to the next one from
+        the stream at the next window, so every launch has the same width.
+
+        ``stream`` yields ``(features [1, n_mels, T] or [n_mels, T],
+        attention_mask or None)``.  Yields ``(order, result)`` as utterances
+        COMPLETE, not in submission order; ``order`` is the 0-based position
+        in the stream.  ``result`` is the 1-D int64 token array of the
+        utterance's segments (a ``{"sequences", "segments"}`` dict with
+        ``return_segments``).  A zero-length utterance completes at once
+        without taking a slot.
+
+        Live protocol (``runtime.serving``): the stream may yield ``None``,
+        "nothing available right now": the scheduler stops refilling for
+        this window, decodes the rows in flight and asks again at the next
+        one.  Only ``StopIteration`` ends the stream.  A stream must not
+        yield ``None`` while nothing is in flight (the scheduler would
+        spin); a live stream blocks then until work arrives or it ends.
+
+        Transcripts do not depend on the schedule: each row conditions on
+        its own history (no row-0 gate), and when prompts can vary
+        (spotting configured or conditioning on) every row takes the
+        fixed-width prompt layout, so its prompt positions and decode
+        budget depend on its own content alone.  ``slots=N`` gives every
+        utterance the tokens of ``slots=1``.  A single-window utterance
+        takes the longform segment surface here, not the shortform one.
+        Vacant slots appear only at the stream's tail or when a live stream
+        is idle; they are kept out of int8 calibration."""
+        it = iter(stream)
+        exhausted = False
+        order = 0
+        slots = max(1, int(slots))  # 0 slots would spin without admitting
+        occupied: List[Optional[_LongformRow]] = [None] * slots
+        ready: List[Tuple[int, Any]] = []
+
+        def result_of(tokens, segments):
+            return {"sequences": tokens, "segments": segments} if return_segments else tokens
+
+        def refill():
+            nonlocal exhausted, order
+            for s in range(slots):
+                while occupied[s] is None and not exhausted:
+                    try:
+                        item = next(it)
+                    except StopIteration:
+                        exhausted = True
+                        break
+                    if item is None:
+                        # live stream: nothing right now; decode the rows in
+                        # flight and ask again next window
+                        return
+                    features, attention_mask = item
+                    features = torch.as_tensor(features, dtype=torch.float32, device=self.device)
+                    if features.ndim == 2:
+                        features = features[None]
+                    max_frames = features.shape[-1]
+                    if attention_mask is not None:
+                        max_frames = min(max_frames, int(np.asarray(attention_mask).sum()))
+                    if max_frames <= 0:
+                        ready.append((order, result_of(np.zeros((0,), np.int64), [])))
+                        order += 1
+                        continue
+                    occupied[s] = _LongformRow(
+                        features=features, max_frames=max_frames, order=order,
+                        condition=opts.condition_on_prev_tokens,
+                    )
+                    order += 1
+
+        spotting = keyword_spotting is not None or encode_spot is not None
+        segment_idx = 0
+        while True:
+            # results first, refill second: a live stream decides whether to
+            # block on its queue by counting the work in flight, so
+            # completions must reach it before the next pull
+            yield from ready
+            ready.clear()
+            refill()
+            yield from ready  # zero-length utterances admitted just now
+            ready.clear()
+            if all(r is None for r in occupied):
+                if exhausted:
+                    break
+                continue  # the live stream was idle: ask it again
+            segment_idx += 1
+            # grad mode is per thread and this generator may be resumed from
+            # any thread: no_grad is entered around each window, never held
+            # across a yield
+            with torch.no_grad():
+                self._run_longform_window(
+                    occupied, opts, keyword_spotting, encode_spot,
+                    prev_enabled=True,
+                    # a static flag, not any(row.condition): the fixed-width
+                    # budget split must not depend on who holds the slots
+                    condition_any=opts.condition_on_prev_tokens,
+                    segment_idx=segment_idx,
+                    noise=noise,
+                    fixed_prompt=spotting or opts.condition_on_prev_tokens,
+                    # static per call: with no spotter the keyword field is
+                    # dropped, so the previous text keeps the whole budget
+                    fixed_keywords=spotting,
+                )
+            for s in range(slots):
+                r = occupied[s]
+                if r is not None and r.done:
+                    tokens = np.asarray([t for seg in r.segments for t in seg["tokens"]], np.int64)
+                    ready.append((r.order, result_of(tokens, r.segments)))
+                    occupied[s] = None
+
     @staticmethod
     def _take_rows(cross_kv, rows: List[int]):
         """Rows ``rows`` of the batch axis of every layer's cross K/V
@@ -502,7 +729,8 @@ class WhisperGenerator:
         return fallback, skip
 
     def _generate_with_fallback(self, cross_kv, decoder_ids, attn, opts, condition_flags,
-                                active, segment_idx: int, noise: NoiseSource):
+                                active, segment_idx: int, noise: NoiseSource,
+                                vacant: Optional[List[bool]] = None):
         """Temperature fallback ladder (HF ``generate_with_fallback``):
         retry at the next temperature while the output is repetitive (zlib
         compression ratio) or unsure (mean logprob); a segment whose
@@ -515,7 +743,9 @@ class WhisperGenerator:
           produced the kept result: ``condition_on_prev and temperature <
           0.5`` (written into ``condition_flags[active[row]]``);
         * the last rung's result is kept even if it still fails;
-        * ``should_skip`` is per ORIGINAL row (docs/PARITY.md #14).
+        * ``should_skip`` is per ORIGINAL row (docs/PARITY.md #14);
+        * a ``vacant`` row (packed decode's padding slot) never falls back
+          and is never skipped: its output is dropped.
         Rung ``ti`` of window ``segment_idx`` samples with
         ``noise(ti, segment_idx, ...)``."""
         B, plen = decoder_ids.shape
@@ -541,6 +771,8 @@ class WhisperGenerator:
                 fallback, skip = self._need_fallback(
                     gen_eos, scores[row], no_speech[row], opts, opts_rung.num_beams,
                 )
+                if vacant is not None and vacant[orig]:
+                    fallback, skip = False, False
                 kept_seqs[orig] = seqs[row]
                 kept_scores[orig] = float(scores[row])
                 should_skip[orig] = skip

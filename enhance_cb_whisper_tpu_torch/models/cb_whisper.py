@@ -1,6 +1,6 @@
 """CB-Whisper: contextual-biasing ASR with on-the-fly keyword spotting
-(port of enhance_cb_whisper_tpu/models/cb_whisper.py, batch 1, shortform
-and longform).
+(port of enhance_cb_whisper_tpu/models/cb_whisper.py: batch 1, batched and
+packed, shortform and longform).
 
 Per 30 s segment: ONE encoder forward yields both the L2-normalized layer
 stack (keyword spotting) and the encoding that feeds cross-attention (when
@@ -8,10 +8,13 @@ the KWS encoder is the ASR encoder); the whole catalog is scored against the
 stack; class-1 argmax keywords become the decoder prompt; beam search
 decodes; an utterance longer than 30 s takes the generator's seek loop,
 one window at a time; entity recall and bootstrap CIs are computed at the
-end.  Batched and packed eval (``forward_batch``, ``forward_packed``,
-``run_test(batch_size > 1)``) are not ported yet.
+end.  :meth:`CBWhisper.forward_batch` decodes several utterances in one
+seek loop and :meth:`CBWhisper.forward_packed` streams them through the
+continuous-batching scheduler (``run_test(batch_size, packed)``; the
+serving front door is :mod:`..runtime.serving`).
 :meth:`CBWhisper.enable_int8_spotting` swaps the fp32 ResNet scorer for
-the int8 one after a lazy calibration on the first segments.
+the int8 one after a lazy calibration on the first real segments (a packed
+launch's vacant slots never enter it).
 
 Deviation from the JAX package: spotting has NO broad ``except Exception``
 (JAX cb_whisper.py:333-336, :350-352).  A failing encoder, scorer or kernel
@@ -28,6 +31,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..audio.prefetch import prefetch
 from ..catalog.database import (
     KeywordCatalog,
     calibration_sim_maps_multi,
@@ -131,9 +135,13 @@ class CBWhisper:
         self._int8_s8_1x1 = tuple(s8_1x1)
 
     @staticmethod
-    def _calib_rows(n_seg: int, needed: int) -> List[int]:
-        """Indices of the segments that feed a pending int8 calibration."""
-        return list(range(n_seg))[:needed]
+    def _calib_rows(n_seg: int, needed: int, real_rows=None) -> List[int]:
+        """Indices of the segments that feed a pending int8 calibration.
+        ``real_rows`` (packed decode's real-row mask) leaves out the vacant
+        zero-mel slots: an all-zero segment in the calibration set would
+        skew the static activation scales that K2's epilogue then uses."""
+        rows = [i for i in range(n_seg) if real_rows is None or real_rows[i]]
+        return rows[:needed]
 
     def _calibrate_int8(self, utt_stacks) -> None:
         rcfg = self.kws_model.config
@@ -147,15 +155,16 @@ class CBWhisper:
         )
         self._int8_pending = False
 
-    def _score_to_keywords(self, stacks: torch.Tensor) -> List[List[str]]:
+    def _score_to_keywords(self, stacks: torch.Tensor, real_rows=None) -> List[List[str]]:
         """Catalog scoring + argmax-class-1 dedupe, per segment of ``stacks``
-        [n_seg, L, T_enc, D]."""
+        [n_seg, L, T_enc, D]; ``real_rows`` marks the segments that may
+        feed a pending int8 calibration."""
         if self._int8_pending:
-            # keep segment stacks; fp32 scores them until the calibration
-            # set is full, then the quantized scorer takes over (this
-            # segment included)
+            # keep real segment stacks; fp32 scores them until the
+            # calibration set is full, then the quantized scorer takes over
+            # (this segment included)
             needed = self._int8_calibration_batches - len(self._int8_calib_stacks)
-            rows = self._calib_rows(stacks.shape[0], needed)
+            rows = self._calib_rows(stacks.shape[0], needed, real_rows)
             if rows:
                 self._int8_calib_stacks.extend(stacks[rows].cpu().numpy())
             if len(self._int8_calib_stacks) >= self._int8_calibration_batches:
@@ -175,17 +184,19 @@ class CBWhisper:
         return torch.as_tensor(input_features, dtype=torch.float32, device=self.device)
 
     @torch.no_grad()
-    def spot_keywords(self, input_features) -> List[List[str]]:
-        """Detected keyword strings per segment (argmax class 1, deduped)."""
+    def spot_keywords(self, input_features, real_rows=None) -> List[List[str]]:
+        """Detected keyword strings per segment (argmax class 1, deduped).
+        ``real_rows`` marks packed decode's vacant slots (False), which
+        never feed a pending int8 calibration."""
         self._ensure_catalog()
         stacks = encoder_kws_stack(
             self.encoder_params, self._features(input_features), self.encoder_config,
             layer_slice=self.kws_layer_slice,
         )
-        return self._score_to_keywords(stacks)
+        return self._score_to_keywords(stacks, real_rows)
 
     @torch.no_grad()
-    def encode_and_spot(self, input_features, start_of_prev: bool = False):
+    def encode_and_spot(self, input_features, start_of_prev: bool = False, real_rows=None):
         """The generator's fused hook: (prompt token ids per segment,
         cross-attention encoding [n_seg, T_enc, D]) from one encoder forward."""
         self._ensure_catalog()
@@ -193,16 +204,17 @@ class CBWhisper:
             self.generator.params, self._features(input_features), self.whisper_config,
             layer_slice=self.kws_layer_slice, return_encoding=True,
         )
-        keywords = self._score_to_keywords(stacks)
+        keywords = self._score_to_keywords(stacks, real_rows)
         return self._format_prompt_tokens(keywords, start_of_prev), enc
 
-    def keyword_spotting(self, input_features, start_of_prev: bool = False) -> List[List[int]]:
+    def keyword_spotting(self, input_features, start_of_prev: bool = False,
+                         real_rows=None) -> List[List[int]]:
         """The generate() callback: prompt token ids per segment."""
         num_segments = input_features.shape[0]
         if not self.config.prompt:
             return [[] for _ in range(num_segments)]
         if self.config.oracle == "kws":
-            keywords = self.spot_keywords(input_features)
+            keywords = self.spot_keywords(input_features, real_rows=real_rows)
         else:
             keywords = [list(self.oracle_buffer) for _ in range(num_segments)]
         return self._format_prompt_tokens(keywords, start_of_prev)
@@ -249,7 +261,62 @@ class CBWhisper:
         tokens = result["sequences"][0] if isinstance(result, dict) else result[0]
         return self.decode_fn(tokens).strip()
 
+    def forward_batch(self, features_list: List[Any],
+                      masks_list: List[Optional[np.ndarray]]) -> List[str]:
+        """Transcribe SEVERAL utterances in one seek loop: their mels
+        ([1, n_mels, T_i] each) are right-padded to the longest with
+        attention masks and decoded as one batch, finished rows dropping
+        out.  oracle='kws' only: the gold and random oracles are
+        per-utterance state."""
+        assert self.config.oracle == "kws", (
+            "batched eval supports oracle='kws' only (per-segment spotting); "
+            "gold/random oracles are per-utterance state"
+        )
+        self.oracle_buffer = []
+        feats = [self._features(f) for f in features_list]
+        t_max = max(f.shape[-1] for f in feats)
+        batch = len(feats)
+        mels = torch.zeros((batch, feats[0].shape[1], t_max), dtype=torch.float32, device=self.device)
+        attn = np.zeros((batch, t_max), np.int32)
+        for i, (f, m) in enumerate(zip(feats, masks_list)):
+            t = f.shape[-1]
+            mels[i, :, :t] = f[0]
+            if m is not None:
+                attn[i, : m.shape[-1]] = np.asarray(m).reshape(-1)[:t_max]
+            else:
+                attn[i, :t] = 1
+        result = self.generator.generate(
+            mels, self.opts, attention_mask=attn, keyword_spotting=self.keyword_spotting,
+            return_segments=True, encode_spot=self._encode_spot_hook(),
+        )
+        sequences = result["sequences"] if isinstance(result, dict) else result
+        return [self.decode_fn(sequences[i]).strip() for i in range(batch)]
+
+    def forward_packed(self, stream, slots: int = 4):
+        """Continuous-batching transcription over a STREAM of utterances
+        (:meth:`..decoding.generate.WhisperGenerator.generate_packed`):
+        ``slots`` utterances decode as one batch and a finished slot is
+        refilled from the stream.  ``stream`` yields ``(features [1, n_mels,
+        T], attention_mask or None)``; yields ``(order, transcript)`` as
+        utterances complete (not in stream order).  oracle='kws' only, like
+        :meth:`forward_batch`; each utterance gets the transcript of its own
+        ``slots=1`` decode."""
+        assert self.config.oracle == "kws", (
+            "packed eval supports oracle='kws' only (per-segment spotting); "
+            "gold/random oracles are per-utterance state"
+        )
+        self.oracle_buffer = []
+        for order, result in self.generator.generate_packed(
+            stream, self.opts, slots=slots, keyword_spotting=self.keyword_spotting,
+            encode_spot=self._encode_spot_hook(), return_segments=True,
+        ):
+            yield order, self.decode_fn(result["sequences"]).strip()
+
     # -------------------------------------------------------------------- test
+
+    @staticmethod
+    def _true_frames(features, attention_mask) -> int:
+        return int(np.asarray(attention_mask).sum()) if attention_mask is not None else features.shape[-1]
 
     def run_test(
         self,
@@ -257,36 +324,80 @@ class CBWhisper:
         mel_fn: Callable[[dict], Tuple[Any, Optional[np.ndarray]]],
         num_bootstraps: int = 1000,
         rng: Optional[np.random.Generator] = None,
+        batch_size: int = 1,
+        packed: bool = False,
         predictions_out: Optional[list] = None,
     ) -> Dict[str, float]:
-        """Entity recall over an eval dataset, one utterance at a time.
-        ``mel_fn(item) -> (features, attention_mask)`` supplies the log-mel
-        input (e.g. :func:`..audio.io.prepare_features` on the item's audio)."""
+        """Entity recall over an eval dataset.  ``mel_fn(item) ->
+        (features, attention_mask)`` supplies the log-mel input (e.g.
+        :func:`..audio.io.prepare_features` on the item's audio); it runs in
+        a prefetch thread, one or two items ahead of the decode.
+
+        ``batch_size > 1`` (oracle='kws' only) decodes groups of utterances
+        in one seek loop (:meth:`forward_batch`); ``packed=True`` streams
+        the dataset through the continuous-batching scheduler
+        (:meth:`forward_packed`, ``slots=batch_size``), at any batch size.
+        ``predictions_out`` gets the transcripts in dataset order."""
         rng = rng or np.random.default_rng(0)
         meter = RTFxMeter()
         preds, refs, mentions, speakers = [], [], [], []
-        for idx in range(len(dataset)):
-            item = dataset[idx]
+
+        def decoded_items():
+            # the mel of the next items is made while the decode runs
+            for idx in range(len(dataset)):
+                item = dataset[idx]
+                yield item, mel_fn(item)
+
+        if packed:
+            audio_seconds = [0.0]
+
+            def stream():
+                for item, (features, attention_mask) in prefetch(decoded_items(), depth=2):
+                    self._collect_refs(item, refs, mentions, speakers)
+                    audio_seconds[0] += self._true_frames(features, attention_mask) / 100.0
+                    yield features, attention_mask
+
             meter.start()
-            features, attention_mask = mel_fn(item)
-            labels = np.asarray(item["hotword_labels"])
-            if self.config.oracle == "gold":
-                oracle = [self.catalog.keywords[i] for i in np.nonzero(labels)[0]]
-            elif self.config.oracle == "random":
-                negatives = [i for i in range(len(self.catalog.keywords)) if not labels[i]]
-                pick = rng.choice(negatives, size=int(labels.sum()), replace=False)
-                oracle = [self.catalog.keywords[i] for i in pick]
-            else:
-                oracle = []
-            preds.append(self.forward(features, attention_mask, oracle))
-            # 100 mel frames per second of audio (hop 160 @ 16 kHz)
-            n_frames = (
-                int(np.asarray(attention_mask).sum())
-                if attention_mask is not None
-                else features.shape[-1]
-            )
-            meter.stop(audio_seconds=n_frames / 100.0)
-            self._collect_refs(item, refs, mentions, speakers)
+            by_order = dict(self.forward_packed(stream(), slots=batch_size))
+            meter.stop(audio_seconds=audio_seconds[0])
+            preds.extend(by_order[i] for i in range(len(by_order)))
+        elif batch_size > 1:
+            pending_feats, pending_masks = [], []
+
+            def flush():
+                if not pending_feats:
+                    return
+                meter.start()
+                outs = self.forward_batch(pending_feats, pending_masks)
+                frames = sum(self._true_frames(f, m) for f, m in zip(pending_feats, pending_masks))
+                meter.stop(audio_seconds=frames / 100.0)
+                preds.extend(outs)
+                pending_feats.clear()
+                pending_masks.clear()
+
+            for item, (features, attention_mask) in prefetch(decoded_items(), depth=2):
+                pending_feats.append(features)
+                pending_masks.append(attention_mask)
+                self._collect_refs(item, refs, mentions, speakers)
+                if len(pending_feats) == batch_size:
+                    flush()
+            flush()
+        else:
+            for item, (features, attention_mask) in prefetch(decoded_items(), depth=2):
+                meter.start()
+                labels = np.asarray(item["hotword_labels"])
+                if self.config.oracle == "gold":
+                    oracle = [self.catalog.keywords[i] for i in np.nonzero(labels)[0]]
+                elif self.config.oracle == "random":
+                    negatives = [i for i in range(len(self.catalog.keywords)) if not labels[i]]
+                    pick = rng.choice(negatives, size=int(labels.sum()), replace=False)
+                    oracle = [self.catalog.keywords[i] for i in pick]
+                else:
+                    oracle = []
+                preds.append(self.forward(features, attention_mask, oracle))
+                # 100 mel frames per second of audio (hop 160 @ 16 kHz)
+                meter.stop(audio_seconds=self._true_frames(features, attention_mask) / 100.0)
+                self._collect_refs(item, refs, mentions, speakers)
         if predictions_out is not None:
             predictions_out.extend(preds)
         return self._finalize_test(preds, refs, mentions, speakers, num_bootstraps, meter)

@@ -203,7 +203,17 @@ def encoder_forward(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns (last_hidden_state [B, T_enc, D], hidden_states
     [n_layers+1, B, T_enc, D] or None).  ``hidden_states[i]`` is the input
-    to layer i; the final entry is the post-LayerNorm output (HF's tuple)."""
+    to layer i; the final entry is the post-LayerNorm output (HF's tuple).
+
+    Each row is encoded on its own: cuBLAS and cuDNN pick their kernels by
+    the batch, so a batched encoder would give a segment other bits beside
+    other segments, and a packed decode's keywords (int8 spotting rounds
+    those bits into other codes) and tokens would depend on its schedule."""
+    if input_features.shape[0] > 1:
+        rows = [encoder_forward(params, input_features[i : i + 1], config, output_hidden_states)
+                for i in range(input_features.shape[0])]
+        last = torch.cat([r[0] for r in rows])
+        return last, torch.cat([r[1] for r in rows], dim=1) if output_hidden_states else None
     p = params["encoder"]
     x = F.gelu(_conv1d(p["conv1"], input_features.to(torch.float32), stride=1))
     x = F.gelu(_conv1d(p["conv2"], x, stride=2))
@@ -264,12 +274,15 @@ def init_cache(config: WhisperConfig, batch: int, max_len: int,
 
 def precompute_cross_kv(params: Dict[str, Any], encoder_out: torch.Tensor,
                         config: WhisperConfig) -> List[Dict[str, torch.Tensor]]:
-    """Cross-attention K/V, once per segment: per layer {"k","v"} [B, T_enc, H, Dh]."""
+    """Cross-attention K/V, once per segment: per layer {"k","v"} [B, T_enc, H, Dh].
+    Each segment is projected on its own, so its bits do not depend on the
+    batch (see :func:`encoder_forward`)."""
     h = config.decoder_attention_heads
     return [
         {
-            "k": _split_heads(_linear(layer["encoder_attn"]["k_proj"], encoder_out), h),
-            "v": _split_heads(_linear(layer["encoder_attn"]["v_proj"], encoder_out), h),
+            name: torch.cat([_split_heads(_linear(layer["encoder_attn"][proj], encoder_out[i : i + 1]), h)
+                             for i in range(encoder_out.shape[0])])
+            for name, proj in (("k", "k_proj"), ("v", "v_proj"))
         }
         for layer in params["decoder"]["layers"]
     ]

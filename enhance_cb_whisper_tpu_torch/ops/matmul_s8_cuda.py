@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple, Optional, Union
 
 import torch
@@ -39,19 +40,37 @@ BN = 128  # output columns per tile
 MAX_SPLIT = 8  # blocks of one cluster
 
 _lib = None
+# the lazy build and load and the launch count are changed under this lock:
+# the scorer may run on a serving worker thread while another thread builds
+_lock = threading.Lock()
+
+
+def _load():
+    from ..build import build_library
+
+    lib = ctypes.CDLL(str(build_library("matmul_s8.cu", extra_flags=("-Xptxas=-v",))))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ecw_matmul_s8_requant.argtypes = [p] * 6 + [i, p] + [i] * 6 + [p]
+    lib.ecw_matmul_s8_requant.restype = ctypes.c_int
+    return lib
 
 
 def _library():
+    """The loaded kernel library, built once whichever thread asks first; a
+    failed build raises in the thread that hit it (and the next caller
+    builds again)."""
     global _lib
     if _lib is None:
-        from ..build import build_library
-
-        lib = ctypes.CDLL(str(build_library("matmul_s8.cu", extra_flags=("-Xptxas=-v",))))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ecw_matmul_s8_requant.argtypes = [p] * 6 + [i, p] + [i] * 6 + [p]
-        lib.ecw_matmul_s8_requant.restype = ctypes.c_int
-        _lib = lib
+        with _lock:
+            if _lib is None:
+                _lib = _load()
     return _lib
+
+
+def _count_launch() -> None:
+    global launches
+    with _lock:
+        launches += 1
 
 
 def build() -> str:
@@ -144,7 +163,6 @@ def matmul_s8_requant(
     The kernel reads w as [N, K] (K contiguous): pass ``w`` as the
     transposed view of a contiguous [N, K] tensor (``w_nk.t()``) and no copy
     is made.  A scalar ``res_scale`` is read by the kernel where it lies."""
-    global launches
     dev = x.device
     if dev.type == "cpu":
         return matmul_s8_requant_plain(
@@ -192,7 +210,9 @@ def matmul_s8_requant(
         out.data_ptr(), m, n, k, int(relu), plan.bm, plan.split,
     )
     # the raw handle of the current stream: torch.cuda.current_stream() would
-    # build a Stream object, which costs more than the rest of this call's checks
+    # build a Stream object, which costs more than the rest of this call's checks.
+    # A thread that sets no stream of its own (a serving worker) gets the
+    # legacy default stream, the one every other op of the scorer runs on
     if idx == torch.cuda.current_device():
         err = _library().ecw_matmul_s8_requant(*args, torch._C._cuda_getCurrentRawStream(idx))
     else:
@@ -200,5 +220,5 @@ def matmul_s8_requant(
             err = _library().ecw_matmul_s8_requant(*args, torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:
         raise RuntimeError(f"matmul_s8 kernel launch failed: CUDA error {err}")
-    launches += 1
+    _count_launch()
     return out

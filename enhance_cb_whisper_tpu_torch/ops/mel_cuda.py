@@ -20,6 +20,7 @@ tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Tuple
 
 import numpy as np
@@ -33,19 +34,38 @@ launches = 0
 
 _lib = None
 _tables: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
+# K1 runs from more than one thread (``run_test``'s prefetch thread computes
+# the mel while the caller's thread decodes): the lazy build and load, the
+# table cache and the launch count are each changed under this lock
+_lock = threading.Lock()
+
+
+def _load():
+    from ..build import build_library
+
+    lib = ctypes.CDLL(str(build_library("mel.cu", extra_flags=("-Xptxas=-v",))))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ecw_log10_mel.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.ecw_log10_mel.restype = ctypes.c_int
+    return lib
 
 
 def _library():
+    """The loaded kernel library, built once whichever thread asks first; a
+    failed build raises in the thread that hit it (and the next caller
+    builds again)."""
     global _lib
     if _lib is None:
-        from ..build import build_library
-
-        lib = ctypes.CDLL(str(build_library("mel.cu", extra_flags=("-Xptxas=-v",))))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ecw_log10_mel.argtypes = [p] * 5 + [i] * 4 + [p]
-        lib.ecw_log10_mel.restype = ctypes.c_int
-        _lib = lib
+        with _lock:
+            if _lib is None:
+                _lib = _load()
     return _lib
+
+
+def _count_launch() -> None:
+    global launches
+    with _lock:
+        launches += 1
 
 
 def build() -> str:
@@ -85,8 +105,8 @@ def _device_tables(device: torch.device, n_mels: int):
     fb_w, fb_meta = sparse_filterbank(n_mels)
     tables = tuple(torch.from_numpy(t).to(device)
                    for t in (dft_tables().astype(np.float32), fb_w, fb_meta))
-    _tables[(device.index, n_mels)] = tables
-    return tables
+    with _lock:
+        return _tables.setdefault((device.index, n_mels), tables)
 
 
 def _diagnose(audio: torch.Tensor) -> None:
@@ -110,7 +130,6 @@ def _diagnose(audio: torch.Tensor) -> None:
 
 def log10_mel(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
     """audio [B, N] f32 → log10 mel [B, n_mels, N // 160] (no epilogue)."""
-    global launches
     dev = audio.device
     if dev.type == "cpu":
         return log10_mel_plain(audio, n_mels)
@@ -126,7 +145,10 @@ def log10_mel(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
     args = (audio.data_ptr(), out.data_ptr(), tw.data_ptr(), fb_w.data_ptr(), fb_meta.data_ptr(),
             batch, n_samples, n_mels, fb_w.numel())
     # the raw handle of the current stream: torch.cuda.current_stream() would
-    # build a Stream object, which costs more than the rest of this call
+    # build a Stream object, which costs more than the rest of this call.  A
+    # thread that sets no stream of its own (the prefetch thread) gets the
+    # legacy default stream, the one the decode runs on, so a mel made there
+    # is ordered before the work that reads it: keep it that way
     if idx == torch.cuda.current_device():
         err = _library().ecw_log10_mel(*args, torch._C._cuda_getCurrentRawStream(idx))
     else:
@@ -134,5 +156,5 @@ def log10_mel(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
             err = _library().ecw_log10_mel(*args, torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:
         raise RuntimeError(f"mel kernel launch failed: CUDA error {err}")
-    launches += 1
+    _count_launch()
     return out

@@ -20,11 +20,16 @@ margins so that some keywords are spotted and others not.
   filled by ``--set`` and one value by a dotted override.
 * ``kws.py test`` and ``validate`` through both CLIs give equal metrics
   (validation loss to rtol 1e-5, the f32 sums running in another order).
+* ``eval_batch_size: 2`` (batched decode) and ``eval_packed`` (packed
+  decode, 2 slots) through both CLIs give identical transcripts, keywords
+  and entity recall.
 * An unfilled placeholder exits both CLIs with the same message; every knob
   the port does not carry raises ``NotImplementedError``; ``kv_staging``
   is accepted; the language table equals ``transformers``' and the
   generation options match the JAX CLI's for ``language: null`` and
   ``max_initial_timestamp_index: 0``.
+* The kernels' lazy loaders and launch counters are safe under threads (the
+  CLI's eval computes its mels in a prefetch thread while it decodes).
 """
 
 import dataclasses
@@ -248,14 +253,24 @@ def _record_keywords(monkeypatch, cls, sink):
     monkeypatch.setattr(cls, "_score_to_keywords", recorded)
 
 
-@pytest.mark.parametrize("mode", ["fp32", "int8"])
+# the int8, batched and packed runs decode greedily: the JAX side compiles
+# once more per batch shape, and a second beam search would only compile
+# the same program again
+CB_MODES = {
+    "fp32": ({}, []),
+    "int8": ({"kws_int8": True, "kws_int8_calibration_batches": 2, "num_beams": 1}, []),
+    "batch2": ({"num_beams": 1}, ["--model.init_args.eval_batch_size", "2"]),
+    "packed2": ({"num_beams": 1}, ["--model.init_args.eval_packed", "true",
+                                   "--model.init_args.eval_batch_size", "2"]),
+}
+
+
+@pytest.mark.parametrize("mode", list(CB_MODES))
 def test_cbwhisper_cli_matches_jax(env, tmp_path, monkeypatch, mode):
-    # the int8 run decodes greedily: int8 changes the spotting, and a second
-    # JAX beam search would only compile the same program again
-    extra = {"kws_int8": True, "kws_int8_calibration_batches": 2, "num_beams": 1} if mode == "int8" else {}
+    extra, overrides = CB_MODES[mode]
     cfg = _cb_config(env, tmp_path / "cb.yaml", **extra)
     argv = ["test", "--config", cfg, "--set", f"ACL_ROOT={env['acl']}",
-            "--set", f"KWS_CKPT={env['kws']['cb']}", "--model.init_args.num_bootstraps", "40"]
+            "--set", f"KWS_CKPT={env['kws']['cb']}", "--model.init_args.num_bootstraps", "40", *overrides]
     if mode == "int8":
         monkeypatch.setenv("ECW_S8_PALLAS", ALL_STAGES)
     jax_preds, jax_kw, port_preds, port_kw = [], [], [], []
@@ -274,7 +289,11 @@ def test_cbwhisper_cli_matches_jax(env, tmp_path, monkeypatch, mode):
 
     assert FakeTokenizer.handed == ["ints"] * 3  # plain lists of Python ints
     assert len(port_preds) == 3 and port_preds == jax_preds
-    assert port_kw == jax_kw[: len(port_kw)] and len(port_kw) == 3
+    assert port_kw == jax_kw[: len(port_kw)]
+    if mode in ("fp32", "int8"):
+        assert len(port_kw) == 3  # one segment per utterance
+    else:  # one list per row of each window of the seek loop, vacant slots too
+        assert len(port_kw) == len(jax_kw) > 3
     spotted = {len(k) for k in port_kw}
     assert max(spotted) > 0 and min(spotted) < 4  # keywords spotted, not all of them
     for key in ("Entity Recall", "Entity Recall LB", "Entity Recall UB"):
@@ -340,8 +359,6 @@ def test_unfilled_placeholder_exits_as_jax(env, tmp_path):
     (["--model.init_args.kv_cache_int8", "true"], "item 4"),
     (["--model.init_args.cross_kv_int8", "true"], "item 4"),
     (["--model.init_args.encoder_int8", "true"], "item 4"),
-    (["--model.init_args.eval_batch_size", "2"], "item 3"),
-    (["--model.init_args.eval_packed", "true"], "item 3"),
     (["--model.class_path", "efficient_kws.model.KWSModel"], "item 6"),
 ])
 def test_unported_knobs_raise(env, tmp_path, override, item):
@@ -388,3 +405,64 @@ def test_language_null_needs_lang_to_id():
     for cli in (jax_cli, port_cli):
         with pytest.raises(AssertionError, match="lang_to_id"):
             cli._build_generation_options(FakeTokenizer(), gc, {"language": None})
+
+
+@pytest.mark.parametrize("module", ["mel_cuda", "matmul_s8_cuda"])
+def test_kernel_loader_and_launch_count_are_thread_safe(monkeypatch, module):
+    """K1's and K2's wrappers, with a stub in place of the nvcc build: many
+    threads asking for the library at once build it once and share it; a
+    build that fails raises in the thread that hit it and the next caller
+    builds again; launch counts from many threads add up exactly."""
+    import importlib
+    import sys
+    import threading
+    import time
+
+    mod = importlib.import_module(f"enhance_cb_whisper_tpu_torch.ops.{module}")
+    builds = []
+
+    def stub_load():
+        builds.append(threading.get_ident())
+        time.sleep(0.05)  # a slow build: the other threads arrive meanwhile
+        if len(builds) == 1:
+            raise RuntimeError("nvcc failed")
+        return object()
+
+    monkeypatch.setattr(mod, "_lib", None)
+    monkeypatch.setattr(mod, "_load", stub_load)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        mod._library()
+    barrier = threading.Barrier(8)
+    libs = []
+
+    def ask():
+        barrier.wait()
+        libs.append(mod._library())
+
+    threads = [threading.Thread(target=ask) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+    assert len(builds) == 2 and len(libs) == 8 and all(lib is libs[0] for lib in libs)
+
+    # CPython switches threads only at calls and loop ends, so an unlocked
+    # count seldom loses one here; the total is held exact all the same
+
+    monkeypatch.setattr(mod, "launches", 0)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)  # switch threads as often as the interpreter can
+    try:
+        def count():
+            barrier.wait()
+            for _ in range(5000):
+                mod._count_launch()
+
+        threads = [threading.Thread(target=count) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert mod.launches == 8 * 5000

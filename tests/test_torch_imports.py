@@ -32,6 +32,7 @@ def _modules():
 def test_port_imports_no_jax():
     modules = _modules()
     assert "enhance_cb_whisper_tpu_torch.models.cb_whisper" in modules
+    assert "enhance_cb_whisper_tpu_torch.runtime.serving" in modules
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
