@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # every phase
     python3 chip_smoke.py --k1     # K1 alone: its build, phase A and its phase C times
     python3 chip_smoke.py --serving  # the kernels' build, phase A2 and phase F alone
+    python3 chip_smoke.py --levers   # the kernels' build, phase A2 and phase G alone
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, started together), then:
@@ -75,6 +76,22 @@ F.  serving: on the tiny model, ``generate_packed`` at ``slots=3`` over
     line's ``packed_launches``, over the int8 service run); walls, RTFx,
     windows and their occupied slots, ms per decode step at slots 1 and 4,
     peak memory;
+G.  the serving levers (bf16 compute, weight-only int8 vocab and decoder,
+    int8 self- and cross-attention K/V, the s8 KWS encoder): G1 holds each
+    on the tiny model CPU = card (identical keywords and transcripts under
+    each int8 lever on fp32 and the s8 KWS encoder on a separate encoder
+    copy; bf16 alone and the serving set bf16 + int8 vocab + int8 decoder
+    with int8 spotting by the CPU tests' bf16 bound on teacher-forced
+    logits); G2 runs phase B's 5.5 s utterance through ``run_test`` at
+    whisper-medium widths under fp32, each lever, the serving set with
+    ``kws_int8`` (K2 exactly 22 x 13 per scored window, K1 once) and a
+    separate KWS encoder in s8 beside its fp32 encode + spot, printing ms
+    per decode step, encode + spot, peak memory, device operations per
+    decoder forward and the token prefix shared with fp32 (the kernel
+    line's ``levers_launches``, over the serving set's run); G3 holds the live
+    ``TranscriptionService(slots=4)`` in the serving set to ``slots=1``
+    (transcripts and keywords) and a ``swap_params`` on it to a fresh
+    generator on the new checkpoint (weights bit for bit, transcript);
 C.  times K1 and K2 and their plain versions on the card, each by the
     median of CUDA-event timings of CUDA-graph replays (device time
     without host gaps) and of eager calls: K1 at [1, 480000], [8, 480000]
@@ -98,6 +115,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -371,11 +389,14 @@ def _unzero_residual_bn(kws, value: float = 0.2) -> None:
                 module.weight.fill_(value)
 
 
-def _tiny_pipeline(device, resnet=None, class1_shift: float = 0.0, whisper_params=None):
+def _tiny_pipeline(device, resnet=None, class1_shift: float = 0.0, whisper_params=None,
+                   separate_encoder: bool = False, **levers):
     """A tiny random CB-Whisper (the CPU tests' dims) on ``device``; a given
     ``resnet`` gets nonzero residual-branch BNs (for the int8 path) and its
     class-1 bias lowered by ``class1_shift``; ``whisper_params`` (numpy, the
-    JAX layout) replace the seed's Whisper weights."""
+    JAX layout) replace the seed's Whisper weights; ``separate_encoder``
+    gives it a copy of them as a separate KWS encoder; ``levers`` are the
+    generator's serving levers."""
     import torch
 
     from enhance_cb_whisper_tpu_torch.catalog.database import KeywordCatalog
@@ -392,8 +413,12 @@ def _tiny_pipeline(device, resnet=None, class1_shift: float = 0.0, whisper_param
         max_source_positions=1500, max_target_positions=40,
     )
     rng = np.random.default_rng(SEED)
-    params = init_whisper_params(rng, cfg)
-    params = from_jax_whisper_params(params if whisper_params is None else whisper_params, device)
+    numpy_params = init_whisper_params(rng, cfg)
+    if whisper_params is not None:
+        numpy_params = whisper_params
+    params = from_jax_whisper_params(numpy_params, device)
+    if separate_encoder:
+        levers = dict(levers, encoder_params=from_jax_whisper_params(numpy_params, device), encoder_config=cfg)
     keywords = [f"kw{i}" for i in range(6)]
     stacks = _stacks(rng, len(keywords), 2, lambda i: int(rng.integers(3, 12)), 64)
     if resnet is None:
@@ -415,7 +440,7 @@ def _tiny_pipeline(device, resnet=None, class1_shift: float = 0.0, whisper_param
         kws_model=kws, catalog=KeywordCatalog.from_arrays(keywords, stacks), generation_options=opts,
         prompt_ids_fn=lambda text: [99] + [10 + (ord(c) % 50) for c in text][:6],
         decode_fn=lambda toks: " ".join(f"w{t}" for t in toks if 4 < t < 99),
-        kws_layer_slice=(1, 3), device=device,
+        kws_layer_slice=(1, 3), device=device, **levers,
     )
 
 
@@ -444,12 +469,6 @@ def phase_b_reference(device) -> None:
     """CUDA path (kernels, cuBLAS/cuDNN fp32) vs the CPU path (plain
     versions) of the same tiny model: identical keywords and transcripts,
     with the fp32 scorer and with the int8 one on a K2-eligible ResNet."""
-    import torch
-
-    from enhance_cb_whisper_tpu_torch.audio.io import prepare_features
-    from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
-    from enhance_cb_whisper_tpu_torch.models.whisper import encoder_kws_stack
-
     rng = np.random.default_rng(SEED + 1)
     waves = [(rng.standard_normal(int(16000 * s)) * 0.1).astype(np.float32) for s in (6.0, 21.0)]
     cpu, gpu, _ = _tiny_runs(device, waves, _tiny_pipeline, int8=False)
@@ -457,10 +476,30 @@ def phase_b_reference(device) -> None:
     if cpu != gpu:
         raise RuntimeError(f"CUDA path disagrees with the CPU path: {gpu} vs {cpu}")
 
-    # int8: stage_1 widths are 128-multiples, so its 1x1 convs take K2.  A
-    # random head decides all keywords alike; shift its class-1 bias into
-    # the widest gap between the fp32 margins (CPU, both waves), so the
-    # decisions differ by keyword and sit far from the threshold
+    k2_tiny, shift, gap_width = _k2_tiny_resnet(waves)
+    cpu, gpu, launches = _tiny_runs(
+        device, waves, lambda dev: _tiny_pipeline(dev, k2_tiny, class1_shift=shift), int8=True)
+    print(f"phase B reference int8: tiny model (K2-eligible ResNet, s8_1x1=stage_1) cpu vs cuda "
+          f"keywords={gpu[0]} transcripts equal={cpu[1] == gpu[1]}; class-1 shift {shift!r} in a "
+          f"margin gap of {gap_width!r}; K2 launches on the card {launches}")
+    if cpu != gpu:
+        raise RuntimeError(f"int8 CUDA path disagrees with the CPU path: {gpu} vs {cpu}")
+    if launches <= 0:
+        raise RuntimeError("the int8 CUDA path never launched K2")
+
+
+def _k2_tiny_resnet(waves):
+    """A tiny ResNet whose stage_1 widths are 128-multiples, so its 1x1
+    convs take K2, and the class-1 shift that puts its threshold in the
+    widest gap between the tiny model's fp32 margins over ``waves`` (on
+    the CPU): a random head decides all keywords alike otherwise.  Returns
+    (config, shift, the gap's width)."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.audio.io import prepare_features
+    from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
+    from enhance_cb_whisper_tpu_torch.models.whisper import encoder_kws_stack
+
     k2_tiny = ResNetConfig(num_channels=2, embedding_size=32, hidden_sizes=(128, 512), depths=(1, 3))
     cb = _tiny_pipeline("cpu", k2_tiny)
     cb._ensure_catalog()
@@ -474,16 +513,7 @@ def phase_b_reference(device) -> None:
     m = np.sort(margins)
     inner = range(len(m) // 4, len(m) - len(m) // 4)
     gap = max(inner, key=lambda i: m[i + 1] - m[i])
-    shift = float(m[gap] + m[gap + 1]) / 2
-    cpu, gpu, launches = _tiny_runs(
-        device, waves, lambda dev: _tiny_pipeline(dev, k2_tiny, class1_shift=shift), int8=True)
-    print(f"phase B reference int8: tiny model (K2-eligible ResNet, s8_1x1=stage_1) cpu vs cuda "
-          f"keywords={gpu[0]} transcripts equal={cpu[1] == gpu[1]}; class-1 shift {shift!r} in a "
-          f"margin gap of {float(m[gap + 1] - m[gap])!r}; K2 launches on the card {launches}")
-    if cpu != gpu:
-        raise RuntimeError(f"int8 CUDA path disagrees with the CPU path: {gpu} vs {cpu}")
-    if launches <= 0:
-        raise RuntimeError("the int8 CUDA path never launched K2")
+    return k2_tiny, float(m[gap] + m[gap + 1]) / 2, float(m[gap + 1] - m[gap])
 
 
 def check_tf32_off(device) -> None:
@@ -1600,33 +1630,18 @@ def _gemm_row_variance(params) -> None:
     print("phase F2: cuBLAS fp32 rows alone vs beside others: " + "; ".join(parts))
 
 
-def phase_f2(device, cb, dataset, shapes) -> dict:
-    """Serving at whisper-medium widths: phase B's model, ResNet-50 scorer,
-    100-keyword catalog, beam-5 fp32 decode with timestamps and
-    condition-on-prev, and phase B's four utterances (the 47.5 s one read
-    from its WAV):
-
-    1. ``run_test(packed=True, batch_size=1)``, then a
-       ``TranscriptionService(slots=4)`` given all four at once: every
-       ticket's transcript equals its ``slots=1`` transcript;
-    2. ``swap_params`` to a second random checkpoint (seed 1) on the live
-       service and one more submission, which decodes under the new
-       weights (equal to a ``slots=1`` run under them); a checkpoint of
-       another architecture then raises through ``result()``;
-    3. 1 again with the int8 scorer (``enable_int8_spotting(1, s8_1x1=
-       stages 1-3)``, calibrated on the first window in both runs).
-
-    K1 launches exactly once per utterance and K2 exactly 22 x 13 per row
-    of every window (vacant slots are scored too), at phase A2's shapes.
-    Returns the launches of the int8 service run."""
+def _serving_kit(device, cb, shapes, phase: str):
+    """Phase F2's serving checks around phase B's model (``cb``), for F2
+    and G3: ``fresh`` builds a CBWhisper over its weights, ``reference``
+    runs ``run_test(packed=True, batch_size=1)``, ``serve`` submits to a
+    live service, ``same`` holds a service's transcripts and keywords to
+    the slots=1 ones; every line is printed under ``phase``."""
     import torch
 
     from enhance_cb_whisper_tpu_torch.audio.io import load_audio_16k, prepare_features
     from enhance_cb_whisper_tpu_torch.models.cb_whisper import CBWhisper
     from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, mel_cuda
-    from enhance_cb_whisper_tpu_torch.runtime.serving import TranscriptionService
 
-    t_start = time.perf_counter()
     config = cb.whisper_config
     per_window = len(shapes) * -(-cb.catalog.num_padded // CHUNK)  # K2 launches per scored row
 
@@ -1636,14 +1651,16 @@ def phase_f2(device, cb, dataset, shapes) -> dict:
         characters, which most keyword sets share)."""
         return [50361] + [100 + int(k[2:]) for k in text.strip("()").split()][:48]
 
-    def fresh(int8=False):
-        """A CBWhisper over phase B's weights and ResNet-50 (its own
-        generator, so a swap stays in it); the fp32 scorer, or int8."""
+    def fresh(int8=False, params=None, **levers):
+        """A CBWhisper over phase B's weights (or ``params``) and ResNet-50
+        (its own generator, so a swap stays in it); the fp32 scorer, or
+        int8; ``levers`` are the generator's serving levers."""
         module = CBWhisper(
-            config=cb.config, whisper_config=config, whisper_params=cb.generator.params,
+            config=cb.config, whisper_config=config,
+            whisper_params=cb.generator.params if params is None else params,
             kws_model=cb.kws_model, catalog=cb.catalog, generation_options=cb.opts,
             prompt_ids_fn=prompt_ids_fn, decode_fn=cb.decode_fn, kws_layer_slice=cb.kws_layer_slice,
-            device=device,
+            device=device, **levers,
         )
         if int8:
             module.enable_int8_spotting(calibration_batches=1, s8_1x1=S8_STAGES)
@@ -1653,16 +1670,11 @@ def phase_f2(device, cb, dataset, shapes) -> dict:
         wav = load_audio_16k(str(item["path"])) if "path" in item else item["audio"]
         return prepare_features(wav, n_mels=config.num_mel_bins, device=device)
 
-    # phase D re-centred the shared head on its own data: centre it on this
-    # run's first utterance again (the JSON line's K2 count does not see this)
-    _centre_class1(cb, cb.generator._pad_segment(mel_fn(dataset[0])[0]))
-    _gemm_row_variance(cb.generator.params)
-
     def report(label, wall, audio_seconds, windows, launches, texts, peak):
         steps = sum(w["steps"] for w in windows)
         decode_s = sum(w["decode_s"] for w in windows)
         occupied = [w["occupied"] for w in windows]
-        print(f"phase F2 {label}: wall {wall!r} s for {audio_seconds!r} s of audio, RTFx "
+        print(f"{phase} {label}: wall {wall!r} s for {audio_seconds!r} s of audio, RTFx "
               f"{audio_seconds / wall!r}; {len(windows)} windows of width {[w['width'] for w in windows]}, "
               f"occupied slots {occupied} (mean {np.mean(occupied)!r}); decode {decode_s!r} s over {steps} "
               f"steps = {decode_s / max(steps, 1) * 1e3!r} ms per step; mel kernel launches "
@@ -1713,7 +1725,7 @@ def phase_f2(device, cb, dataset, shapes) -> dict:
         launches = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches, "k2_shapes": k2_shapes}
         report(label, wall, sum(i["seconds"] for i in items), windows, launches, preds,
                torch.cuda.max_memory_allocated())
-        print(f"phase F2 {label}: run_test RTFx {results['RTFx']!r}, entity recall "
+        print(f"{phase} {label}: run_test RTFx {results['RTFx']!r}, entity recall "
               f"{results['Entity Recall']!r}")
         check_launches(label, launches, windows, len(items), int8)
         if len(preds) != len(items) or not all(preds) or any(w["width"] != 1 for w in windows):
@@ -1748,7 +1760,7 @@ def phase_f2(device, cb, dataset, shapes) -> dict:
         and the keywords spotted differently."""
         (texts, spotted), (solo_texts, solo_spotted) = got, want
         ok = texts == solo_texts and spotted == solo_spotted
-        print(f"phase F2 {label}: every ticket's transcript and keywords per window equal its slots=1 ones: "
+        print(f"{phase} {label}: every ticket's transcript and keywords per window equal its slots=1 ones: "
               f"{ok}; keywords spotted per utterance and window "
               f"{[[len(k) for k in spotted[i]] for i in sorted(spotted)]}")
         if not ok:
@@ -1756,13 +1768,45 @@ def phase_f2(device, cb, dataset, shapes) -> dict:
                 g, w = g.split(), w.split()
                 if g != w:
                     k = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))
-                    print(f"phase F2 {label}: utterance {i} parts at generated token {k}: slots=4 "
+                    print(f"{phase} {label}: utterance {i} parts at generated token {k}: slots=4 "
                           f"{g[max(0, k - 3):k + 3]} vs slots=1 {w[max(0, k - 3):k + 3]}")
                 for n, (a, b) in enumerate(zip(spotted.get(i, []), solo_spotted.get(i, []))):
                     if a != b:
-                        print(f"phase F2 {label}: utterance {i} window {n} keywords only at slots=4 "
+                        print(f"{phase} {label}: utterance {i} window {n} keywords only at slots=4 "
                               f"{sorted(set(a) - set(b))}, only at slots=1 {sorted(set(b) - set(a))}")
             raise RuntimeError(f"{label}: the service's transcripts depend on the schedule")
+
+    return types.SimpleNamespace(fresh=fresh, mel_fn=mel_fn, reference=reference, serve=serve, same=same)
+
+
+def phase_f2(device, cb, dataset, shapes) -> dict:
+    """Serving at whisper-medium widths: phase B's model, ResNet-50 scorer,
+    100-keyword catalog, beam-5 fp32 decode with timestamps and
+    condition-on-prev, and phase B's four utterances (the 47.5 s one read
+    from its WAV):
+
+    1. ``run_test(packed=True, batch_size=1)``, then a
+       ``TranscriptionService(slots=4)`` given all four at once: every
+       ticket's transcript equals its ``slots=1`` transcript;
+    2. ``swap_params`` to a second random checkpoint (seed 1) on the live
+       service and one more submission, which decodes under the new
+       weights (equal to a ``slots=1`` run under them); a checkpoint of
+       another architecture then raises through ``result()``;
+    3. 1 again with the int8 scorer (``enable_int8_spotting(1, s8_1x1=
+       stages 1-3)``, calibrated on the first window in both runs).
+
+    K1 launches exactly once per utterance and K2 exactly 22 x 13 per row
+    of every window (vacant slots are scored too), at phase A2's shapes.
+    Returns the launches of the int8 service run."""
+    from enhance_cb_whisper_tpu_torch.runtime.serving import TranscriptionService
+
+    t_start = time.perf_counter()
+    kit = _serving_kit(device, cb, shapes, "phase F2")
+    fresh, reference, serve, same = kit.fresh, kit.reference, kit.serve, kit.same
+    # phase D re-centred the shared head on its own data: centre it on this
+    # run's first utterance again (the JSON line's K2 count does not see this)
+    _centre_class1(cb, cb.generator._pad_segment(kit.mel_fn(dataset[0])[0]))
+    _gemm_row_variance(cb.generator.params)
 
     solo = reference("fp32 run_test(packed=True, batch_size=1)", fresh(), dataset)
     module = fresh()
@@ -1814,6 +1858,347 @@ def phase_f2(device, cb, dataset, shapes) -> dict:
     same("int8", (texts8, spotted8), solo8)
     print(f"phase F2: {time.perf_counter() - t_start:.1f} s in all")
     return launches8
+
+
+# ------------------------------------------------------ phase G: serving levers
+
+# name -> the CBWhisper keyword arguments of each lever alone (the compute
+# dtype by name: torch is imported inside the phases)
+G_LEVERS = {
+    "bf16": {"dtype": "bfloat16"},
+    "vocab_int8": {"vocab_int8": True},
+    "decoder_int8": {"decoder_int8": True},
+    "kv_cache_int8": {"kv_cache_int8": True},
+    "cross_kv_int8": {"cross_kv_int8": True},
+}
+# the serving set of configs/cb-whisper-acl.yaml's knobs; it runs with int8
+# spotting (kws_int8) on K2
+G_SERVING = {"dtype": "bfloat16", "vocab_int8": True, "decoder_int8": True}
+BF16_SCALE = 0.02  # the CPU tests' bf16 bound (tests/test_torch_levers.py): a share of max |logit|
+
+
+def _levers(spec) -> dict:
+    import torch
+
+    return {k: getattr(torch, v) if k == "dtype" else v for k, v in spec.items()}
+
+
+def _bf16_forced_check(label, make, wave, device) -> None:
+    """bf16 on the card against bf16 on the CPU, by the CPU tests' rule: the
+    CPU's shortform decode of ``wave`` teacher-forced through both, every
+    logit within 0.02 x the logits' scale of the CPU's, and the same argmax
+    wherever the CPU's top-two margin exceeds twice that bound."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.audio.io import prepare_features
+    from enhance_cb_whisper_tpu_torch.models.whisper import decoder_forward
+
+    cbs = {"cpu": make("cpu"), str(device): make(device)}
+    gen = cbs["cpu"].generator
+    segment = gen._pad_segment(prepare_features(wave, n_mels=80, device="cpu")[0][:, :, : gen.n_segment_frames])
+    tokens = gen.generate(segment, cbs["cpu"].opts)
+    ids = tokens[:, : int((tokens != cbs["cpu"].opts.pad_token_id).sum())]
+    logits = {}
+    for dev, cb in cbs.items():
+        g = cb.generator
+        with torch.no_grad():
+            cross_kv = g._cross_kv_fn(g._encode(segment.to(dev)))
+            out, _ = decoder_forward(g.params, torch.as_tensor(ids[:, :-1], device=dev), cross_kv, g.config,
+                                     dtype=g.dtype)
+        logits[dev] = out[0].float().cpu().numpy()
+    want, got = logits["cpu"], logits[str(device)]
+    bound = BF16_SCALE * float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > 2 * bound
+    agree = bool((got.argmax(-1) == want.argmax(-1))[decided].all())
+    print(f"phase G1 {label}: {ids.shape[1] - 1} positions teacher-forced, card vs CPU max |logit diff| "
+          f"{err!r} (bound {bound!r}); argmax equal at all {int(decided.sum())} decided positions: {agree}; "
+          f"argmax equal at all positions: {bool((got.argmax(-1) == want.argmax(-1)).all())}")
+    if err >= bound or not agree:
+        raise RuntimeError(f"{label}: bf16 on the card is out of the CPU tests' bound")
+
+
+def phase_g1(device) -> None:
+    """Each lever on the tiny random CB-Whisper (phase B's), CPU = card.
+    Over phase B's two waves (6 s and 21 s: shortform and the seek loop,
+    beam-5): identical keywords and transcripts under each int8 lever on
+    fp32 (the int8 vocab, the int8 decoder, the int8 self-attention cache,
+    whose beams reorder its scales, the int8 cross K/V) and under the s8
+    KWS encoder on a separate encoder copy.  bf16 alone, and the serving
+    set (bf16 + int8 vocab + int8 decoder, with int8 spotting on phase B's
+    K2-eligible ResNet), by the CPU tests' bf16 rule
+    (:func:`_bf16_forced_check`); their keywords and transcripts are
+    printed."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 1)
+    waves = [(rng.standard_normal(int(16000 * s)) * 0.1).astype(np.float32) for s in (6.0, 21.0)]
+    for name, spec in G_LEVERS.items():
+        if "dtype" in spec:
+            continue
+        cpu, gpu, _ = _tiny_runs(device, waves, lambda dev, spec=spec: _tiny_pipeline(dev, **_levers(spec)),
+                                 int8=False)
+        print(f"phase G1 {name}: tiny model cpu vs cuda keywords={gpu[0]} transcripts equal={cpu[1] == gpu[1]}")
+        if cpu != gpu:
+            raise RuntimeError(f"{name}: the card disagrees with the CPU: {gpu} vs {cpu}")
+
+    built = []
+
+    def s8_encoder(dev):
+        cb = _tiny_pipeline(dev, separate_encoder=True)
+        cb.enable_int8_kws_encoder(calibration_batches=1)
+        built.append(cb)
+        return cb
+
+    cpu, gpu, _ = _tiny_runs(device, waves, s8_encoder, int8=False)
+    quantized = all("act_scales" in cb.encoder_params["encoder"]["layers"][0] for cb in built)
+    print(f"phase G1 s8 KWS encoder (separate encoder copy): cpu vs cuda keywords={gpu[0]} transcripts "
+          f"equal={cpu[1] == gpu[1]}; both encoders quantized after the first segment: {quantized}")
+    if cpu != gpu or not quantized:
+        raise RuntimeError(f"s8 KWS encoder: the card disagrees with the CPU: {gpu} vs {cpu}")
+    del built
+
+    k2_tiny, shift, _ = _k2_tiny_resnet(waves)
+    for label, spec, int8 in (("bf16", G_LEVERS["bf16"], False), ("serving set + kws_int8", G_SERVING, True)):
+        def make(dev, spec=spec, int8=int8):
+            if int8:
+                return _tiny_pipeline(dev, k2_tiny, class1_shift=shift, **_levers(spec))
+            return _tiny_pipeline(dev, **_levers(spec))
+
+        cpu, gpu, launches = _tiny_runs(device, waves, make, int8=int8)
+        print(f"phase G1 {label}: tiny model keywords cpu {cpu[0]} cuda {gpu[0]}; transcripts equal "
+              f"{cpu[1] == gpu[1]}; K2 launches on the card {launches}")
+        if int8 and launches <= 0:
+            raise RuntimeError(f"{label}: the card never launched K2")
+        _bf16_forced_check(label, make, waves[0], device)
+    print(f"phase G1: {time.perf_counter() - t0:.1f} s in all")
+
+
+def _launches_per_step(gen, steps: int = 4):
+    """Device operations (kernels, copies, sets) per beam-5 decoder forward
+    of ``gen``, from a torch.profiler window over ``steps`` steps; None
+    when the trace shows no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    beams = 5
+    with torch.no_grad():
+        cross_kv = gen._cross_kv_fn(gen._encode(torch.zeros(
+            (1, gen.config.num_mel_bins, gen.n_segment_frames), device=gen.device)))
+        prompt = torch.tensor([[50258, 50259, 50359]] * beams, device=gen.device)
+        ctx = gen._make_ctx(cross_kv, np.ones((1, 3), np.int64), gen.config.max_target_positions, beams)
+        cache, _ = gen._prefill(prompt, ctx, gen.config.max_target_positions)
+        gen._decode_step(prompt[:, -1:], cache, ctx)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                gen._decode_step(prompt[:, -1:], cache, ctx)
+            torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n / steps if n else None
+
+
+def _lever_run(module, item, label, mel_fn):
+    """``run_test`` over the one utterance ``item``, with encode + spot (the
+    fused hook or the separate encoder's ``spot_keywords``) and prefill +
+    decode timed between synchronizations, the decode steps counted, the
+    keywords recorded, each kernel's launches counted over exactly the
+    ``run_test`` call, and the peak memory allocated during it."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, mel_cuda
+
+    gen = module.generator
+    rec = {"spot_s": 0.0, "decode_s": 0.0, "steps": 0, "keywords": []}
+    spot_name = "encode_and_spot" if module._encode_spot_hook() is not None else "spot_keywords"
+    spot, decode_prompted, decode_step = getattr(module, spot_name), gen._decode_prompted, gen._decode_step
+    score_to_keywords = module._score_to_keywords
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    def counted_step(*args, **kwargs):
+        rec["steps"] += 1
+        return decode_step(*args, **kwargs)
+
+    def recorded_keywords(stacks, real_rows=None):
+        out = score_to_keywords(stacks, real_rows)
+        rec["keywords"].extend(out)
+        return out
+
+    setattr(module, spot_name, timed(spot, "spot_s"))
+    gen._decode_prompted, gen._decode_step = timed(decode_prompted, "decode_s"), counted_step
+    module._score_to_keywords = recorded_keywords
+    preds = []
+    mel_cuda.launches = matmul_s8_cuda.launches = 0
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with _recorded_k2_shapes() as k2_shapes:
+            module.run_test([item], mel_fn, num_bootstraps=10, predictions_out=preds)
+            torch.cuda.synchronize()
+    finally:
+        delattr(module, spot_name)
+        del gen._decode_prompted, gen._decode_step, module._score_to_keywords
+    rec.update(wall=time.perf_counter() - t0, peak=torch.cuda.max_memory_allocated(), resident=resident,
+               launches={"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches, "k2_shapes": k2_shapes},
+               tokens=preds[0].split() if preds else [], per_step=_launches_per_step(gen))
+    if len(preds) != 1 or not rec["tokens"] or rec["launches"]["mel"] != 1:
+        raise RuntimeError(f"{label}: {len(preds)} transcripts, {len(rec['tokens'])} tokens, "
+                           f"K1 launched {rec['launches']['mel']} times for one utterance")
+    return rec
+
+
+def phase_g2(device, cb, dataset, shapes) -> dict:
+    """The levers at whisper-medium widths (phase B's weights, ResNet-50
+    scorer, 100-keyword catalog, beam-5 with timestamps and
+    condition-on-prev), each through ``CBWhisper.run_test`` over phase B's
+    5.5 s utterance: fp32, each lever alone, the serving set (bf16 + int8
+    vocab + int8 decoder) with int8 spotting on K2, and a separate KWS
+    encoder (a copy of the ASR encoder) as the s8 encoder, beside its own
+    fp32 encode + spot of the window (each int8 mode calibrated on the
+    utterance's window before its timed run).  Prints, per run, ms per
+    decode step against fp32, encode + spot, peak and resident memory, the
+    decode loop's linear count and device operations per step, and the
+    token prefix shared with fp32.  The serving set launches K2 exactly 22
+    x 13 per scored window at phase A2's shapes and K1 once.  Returns the
+    serving set's launches."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.audio.io import prepare_features
+    from enhance_cb_whisper_tpu_torch.models.cb_whisper import CBWhisper
+
+    t_start = time.perf_counter()
+    config = cb.whisper_config
+    item = dataset[0]
+
+    def mel_fn(it):
+        return prepare_features(it["audio"], n_mels=config.num_mel_bins, device=device)
+
+    _centre_class1(cb, cb.generator._pad_segment(mel_fn(item)[0]))
+    linears = config.decoder_layers * 8 + 1  # the decode loop's linears per step, the vocab projection included
+    runs = [("fp32", {}, False, False)] + [(name, spec, False, False) for name, spec in G_LEVERS.items()] + [
+        ("serving set + kws_int8", G_SERVING, True, False),
+        ("separate KWS encoder s8", {}, False, True),
+    ]
+    out = {}
+    for label, spec, kws_int8, separate in runs:
+        module = CBWhisper(
+            config=cb.config, whisper_config=config, whisper_params=cb.generator.params, kws_model=cb.kws_model,
+            catalog=cb.catalog, generation_options=cb.opts, prompt_ids_fn=cb.prompt_ids_fn,
+            decode_fn=cb.decode_fn, kws_layer_slice=cb.kws_layer_slice, device=device,
+            encoder_params=cb.generator.params if separate else None,
+            encoder_config=config if separate else None, **_levers(spec),
+        )
+        # int8 calibrations on the utterance's window before the timed run
+        segment = module.generator._pad_segment(mel_fn(item)[0])
+        if kws_int8:
+            module.enable_int8_spotting(calibration_batches=1, s8_1x1=S8_STAGES)
+            module.encode_and_spot(segment)
+        if label.endswith("s8"):
+            # the same separate encoder in fp32 first: encode + spot of the window
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fp32_keywords = module.spot_keywords(segment)
+                torch.cuda.synchronize()
+                fp32_spot_s = time.perf_counter() - t0
+            module.enable_int8_kws_encoder(calibration_batches=1)
+            module.spot_keywords(segment)
+        out[label] = rec = _lever_run(module, item, label, mel_fn)
+        base = out["fp32"]
+        prefix = next((i for i, (a, b) in enumerate(zip(rec["tokens"], base["tokens"])) if a != b),
+                      min(len(rec["tokens"]), len(base["tokens"])))
+        per_step = rec["per_step"]
+        print(f"phase G2 {label}: {rec['decode_s'] / rec['steps'] * 1e3!r} ms per decode step "
+              f"(fp32 {base['decode_s'] / base['steps'] * 1e3!r}) over {rec['steps']} steps; encode + spot "
+              f"{rec['spot_s']!r} s (fp32 {base['spot_s']!r}); run_test wall {rec['wall']!r} s; peak memory "
+              f"allocated {rec['peak']} B, {rec['resident']} B resident before the run; {linears} decode-loop "
+              f"linears per step, {per_step if per_step is None else round(per_step, 1)} device operations "
+              f"per decoder forward (beam 5); {len(rec['tokens'])} tokens, prefix shared with fp32 {prefix}; "
+              f"K1 launches {rec['launches']['mel']}, K2 launches {rec['launches']['k2']}; keywords per "
+              f"window {[len(k) for k in rec['keywords']]}")
+        if kws_int8:
+            chunks = -(-cb.catalog.num_padded // CHUNK)
+            _check_k2_main_path(f"phase G2 {label}", rec["launches"], shapes, chunks * len(rec["keywords"]),
+                                f"{chunks} chunks x {len(rec['keywords'])} scored windows")
+        elif rec["launches"]["k2"]:
+            raise RuntimeError(f"phase G2 {label}: the fp32 scorer launched K2")
+        if label.endswith("s8"):
+            if "act_scales" not in module.encoder_params["encoder"]["layers"][0]:
+                raise RuntimeError("phase G2: the KWS encoder was not quantized")
+            print(f"phase G2 s8 KWS encoder: encode + spot {rec['spot_s']!r} s in run_test vs the same separate "
+                  f"encoder in fp32 {fp32_spot_s!r} s (spot_keywords on the window, its second call); keywords "
+                  f"s8 {rec['keywords']} beside fp32 {fp32_keywords}")
+        del module
+        torch.cuda.empty_cache()
+    print(f"phase G2: {time.perf_counter() - t_start:.1f} s in all")
+    return out["serving set + kws_int8"]["launches"]
+
+
+def phase_g3(device, cb, dataset, shapes) -> None:
+    """The live ``TranscriptionService(slots=4)`` in the serving set (bf16 +
+    int8 vocab + int8 decoder, int8 spotting on K2) over phase B's 17.25 s
+    and 47.5 s utterances: every ticket's transcript and keywords per
+    window equal its ``run_test(packed=True, batch_size=1)`` ones; then
+    ``swap_params`` to a second random checkpoint (seed 1) on the live
+    service re-quantizes it to exactly a fresh generator's weights on that
+    checkpoint, and the 17.25 s utterance decodes as under that fresh
+    generator (with the service's calibrated scorer), not as under seed 0.  K1 once per
+    utterance, K2 exactly 22 x 13 per scored row-window (phase F2's
+    checks)."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.runtime.serving import TranscriptionService
+
+    t_start = time.perf_counter()
+    kit = _serving_kit(device, cb, shapes, "phase G3")
+    levers = _levers(G_SERVING)
+    items = [dataset[1], dataset[3]]
+    solo = kit.reference("serving set run_test(packed=True, batch_size=1)", kit.fresh(int8=True, **levers),
+                         items, int8=True)
+    module = kit.fresh(int8=True, **levers)
+    with TranscriptionService(module, slots=4) as svc:
+        texts, _, spotted = kit.serve("serving set TranscriptionService(slots=4)", svc, module, items, int8=True)
+        kit.same("serving set", (texts, spotted), solo)
+
+        params2 = _second_checkpoint(cb.generator.params, seed=1)
+        ref = kit.fresh(params=params2, **levers)
+        ref._score_fn, ref._int8_pending = module._score_fn, False  # the service's calibrated int8 scorer
+        item = dataset[1]
+        solo_new, _ = kit.reference("serving set, seed 1, fresh generator", ref, [item], int8=True)
+        t0 = time.perf_counter()
+        svc.swap_params(params2)
+        swapped = kit.serve("serving set, seed 1 after swap_params on the live service", svc, module, [item],
+                            int8=True)[0]
+
+        def leaves(tree, path=""):
+            if isinstance(tree, dict):
+                return [x for k, v in tree.items() for x in leaves(v, f"{path}.{k}")]
+            if isinstance(tree, list):
+                return [x for i, v in enumerate(tree) for x in leaves(v, f"{path}.{i}")]
+            return [(path, tree)]
+
+        mine, theirs = leaves(module.generator.params), leaves(ref.generator.params)
+        same_weights = [p for p, _ in mine] == [p for p, _ in theirs] and all(
+            a.dtype == b.dtype and torch.equal(a, b) for (_, a), (_, b) in zip(mine, theirs))
+        print(f"phase G3: swap_params + one utterance {time.perf_counter() - t0!r} s; the swapped weights "
+              f"(int8 codes, scales, bf16 casts) equal a fresh generator's on seed 1: {same_weights}; its "
+              f"transcript equals the fresh generator's: {swapped == solo_new}; differs from seed 0's: "
+              f"{swapped[0] != solo[0][0]}")
+        if not same_weights or swapped != solo_new or swapped[0] == solo[0][0]:
+            raise RuntimeError("phase G3: the swapped service does not decode as a fresh generator")
+        del ref, params2
+    print(f"phase G3: {time.perf_counter() - t_start:.1f} s in all")
 
 
 def _median_ms(fn, reps: int = 25) -> float:
@@ -2050,7 +2435,7 @@ def _card() -> str:
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--k1"], ["--serving"]):
+    if argv not in ([], ["--k1"], ["--serving"], ["--levers"]):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2086,6 +2471,17 @@ def main(argv) -> int:
         print(f"chip_smoke --serving: passed in {time.perf_counter() - t_start:.1f} s")
         print(_card())
         return 0
+    if argv == ["--levers"]:  # phase A2 and the serving levers' phase G alone
+        phase_a2(device, shapes)
+        phase_g1(device)
+        cb, _, _, kws, _ = _medium_pipeline(device)
+        _unzero_residual_bn(kws)
+        dataset = _slice_dataset()
+        phase_g2(device, cb, dataset, shapes)
+        phase_g3(device, cb, dataset, shapes)
+        print(f"chip_smoke --levers: passed in {time.perf_counter() - t_start:.1f} s")
+        print(_card())
+        return 0
 
     max_abs_err = phase_a(device)
     mismatches, k2_err = phase_a2(device, shapes)
@@ -2097,6 +2493,9 @@ def main(argv) -> int:
     cli_launches = phase_e(cb.whisper_config, cb.generator.params, cb.kws_model, stacks, shapes)
     phase_f1(device)
     packed_launches = phase_f2(device, cb, dataset, shapes)
+    phase_g1(device)
+    levers_launches = phase_g2(device, cb, dataset, shapes)
+    phase_g3(device, cb, dataset, shapes)
     del cb
     times = phase_c(device)
     k2 = phase_c_k2(device, shapes)
@@ -2108,12 +2507,12 @@ def main(argv) -> int:
     print(json.dumps({"kernels": [
         {"name": "log10_mel", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
          "launches": fp32_launches["mel"], "cli_launches": cli_launches["mel"],
-         "packed_launches": packed_launches["mel"],
+         "packed_launches": packed_launches["mel"], "levers_launches": levers_launches["mel"],
          "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": k1["ms"], "bound_by": k1["by"], "library_ms": None},
         {"name": "matmul_s8_requant", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
          "launches": int8_launches["k2"], "cli_launches": cli_launches["k2"],
-         "packed_launches": packed_launches["k2"],
+         "packed_launches": packed_launches["k2"], "levers_launches": levers_launches["k2"],
          "max_abs_err": k2_err, "mismatches": mismatches,
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": "bytes", "library_ms": None},

@@ -9,13 +9,16 @@
 
 Models are built through the port's entry points on ``device`` (the card
 by default; they turn TF32 off there).  What the port does not carry yet
-raises instead of being ignored: ``fit`` and the paper-2 models, and the
-CB-Whisper knobs ``compute_dtype`` other than float32, ``vocab_int8``,
-``decoder_int8``, ``kv_cache_int8``, ``cross_kv_int8`` and ``encoder_int8``
-(ROADMAP.md §1 names the item of each).  ``eval_batch_size`` and
-``eval_packed`` pick batched or packed decode, as in the JAX CLI.
-``kv_staging``, a TPU cache-write layout that changes no result, is
-accepted and does nothing.  ``kws_int8`` runs the fused s8
+raises instead of being ignored: ``fit`` and the paper-2 models (ROADMAP.md
+§1 names the item of each).  The CB-Whisper serving knobs reach the
+constructors as in the JAX CLI: ``compute_dtype``, ``vocab_int8``,
+``decoder_int8``, ``kv_cache_int8``, ``cross_kv_int8``, and ``encoder_int8``
+(with a separate ``encoder_ckpt``).  ``eval_batch_size`` and
+``eval_packed`` pick batched or packed decode.  ``kv_staging``, a TPU
+cache-write layout, is accepted and does nothing with float caches; with
+``kv_cache_int8`` it would change the results (the JAX package attends the
+staged tokens at full precision until they are flushed), so that pair
+raises.  ``kws_int8`` runs the fused s8
 kernel K2 on every bottleneck 1×1 conv whose shapes it takes, as the JAX
 CLI does with ``ECW_S8_PALLAS`` naming every stage; the port reads no
 environment variable.
@@ -42,10 +45,6 @@ CBWHISPER_MODELS = (
     "model.cb_whisper.CBWhisper",
     "enhance_cb_whisper_tpu.models.cb_whisper.CBWhisper",
 )
-
-# CB-Whisper knobs of the JAX CLI that the port does not implement yet
-_UNPORTED_FLAGS = ("vocab_int8", "decoder_int8", "kv_cache_int8", "cross_kv_int8", "encoder_int8")
-
 
 def _seed_everything(config):
     seed = config.get("seed_everything", 123)
@@ -200,15 +199,22 @@ def _build_generation_options(tokenizer, hf_gc, model_args, whisper_config=None)
 
 
 def _check_cbwhisper_knobs(model_args) -> None:
-    """Raise on every knob the JAX CLI honours and the port does not."""
-    dtype = str(model_args.get("compute_dtype", "float32"))
-    if dtype != "float32":
+    """Raise on the knob combination whose JAX results the port cannot give."""
+    if int(model_args.get("kv_staging", 0)) > 0 and model_args.get("kv_cache_int8"):
         raise NotImplementedError(
-            f"compute_dtype: {dtype} is not ported yet (float32 only): ROADMAP.md §1 item 4"
+            "kv_staging with kv_cache_int8 is not ported: the JAX package attends the staged "
+            "tokens at full precision until its flush quantizes them: ROADMAP.md §1 item 4"
         )
-    for flag in _UNPORTED_FLAGS:
-        if model_args.get(flag):
-            raise NotImplementedError(f"{flag} is not ported yet: ROADMAP.md §1 item 4")
+
+
+def _compute_dtype(model_args):
+    import torch
+
+    name = str(model_args.get("compute_dtype", "float32"))
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"compute_dtype: {name} is not a torch dtype")
+    return dtype
 
 
 def _run_cbwhisper(subcommand: str, config: Dict[str, Any], predictions_out=None, device="cuda"):
@@ -280,12 +286,24 @@ def _run_cbwhisper(subcommand: str, config: Dict[str, Any], predictions_out=None
         encoder_config=encoder_config,
         kws_layer_slice=tuple(model_args.get("kws_layer_slice", (10, 22))),
         device=device,
+        # the serving levers (fp32 stays the parity default)
+        dtype=_compute_dtype(model_args),
+        vocab_int8=bool(model_args.get("vocab_int8", False)),
+        decoder_int8=bool(model_args.get("decoder_int8", False)),
+        kv_cache_int8=bool(model_args.get("kv_cache_int8", False)),
+        cross_kv_int8=bool(model_args.get("cross_kv_int8", False)),
     )
     if model_args.get("kws_int8"):
         # int8 spotting, calibrated lazily over the first scored segments
         module.enable_int8_spotting(
             calibration_batches=int(model_args.get("kws_int8_calibration_batches", 4)),
             s8_1x1=s8_stages(resnet_config),
+        )
+    if model_args.get("encoder_int8"):
+        # the s8 KWS encoder (a separate encoder_ckpt only: it feeds the
+        # scorer, never the decoder's cross-attention)
+        module.enable_int8_kws_encoder(
+            calibration_batches=int(model_args.get("kws_int8_calibration_batches", 4)),
         )
 
     def mel_fn(item):

@@ -4,7 +4,11 @@
   HF names, linear kernels ``[in, out]``, conv kernels ``[W, C_in, C_out]``
   for ``NWC`` convs; layers either a list or stacked ``[L, ...]`` arrays for
   ``lax.scan``) → the nested torch dict of :mod:`.models.whisper`
-  (``nn.Linear``/``F.conv1d`` layouts, layers as a list).
+  (``nn.Linear``/``F.conv1d`` layouts, layers as a list).  The JAX
+  package's quantized trees convert too: int8 ``qweight`` codes (a linear's
+  transposed to ``[out, in]``) with their ``scale``, the vocab's
+  ``embed_tokens_q``, and the s8 encoder's ``act_scales`` (one 0-d tensor
+  per site and layer).
 * :func:`from_flax_resnet_variables` — flax ``KWSModel`` variables
   (``params`` + ``batch_stats``; NHWC convs with ``[kh, kw, in, out]``
   kernels) → a ``state_dict`` for :class:`.models.kws.KWSModel` (NCHW,
@@ -60,6 +64,11 @@ def _convert_tree(tree: Any, name: Optional[str], device) -> Any:
                 elif name in _CONVS:
                     arr = arr.transpose(2, 1, 0)  # [W, C_in, C_out] → [C_out, C_in, W]
                 out[key] = torch.tensor(arr, device=device)
+            elif key == "qweight":
+                # int8 codes stay int8; a linear's [in, out] → [out, in]
+                # (the vocab table's [vocab, d_model] is already the port's)
+                arr = np.asarray(value, dtype=np.int8)
+                out[key] = torch.tensor(np.ascontiguousarray(arr.T if name in _LINEARS else arr), device=device)
             elif key == "layers":
                 out[key] = [_convert_tree(layer, None, device) for layer in _unstack(value)]
             else:

@@ -36,10 +36,10 @@ DecodeFn = Callable[[torch.Tensor, Any, Any], Tuple[torch.Tensor, Any]]
 
 def _gather_beams(cache: dict, rows: torch.Tensor, length: int) -> None:
     """Reorder the cache's batch·beam rows by ``rows`` [B·K], in place, over
-    the written prefix ``[:length]`` of every K/V slab."""
+    the written prefix ``[:length]`` of every slab of every layer: the K/V
+    and, for an int8 cache, their per-token scales."""
     for layer in cache["layers"]:
-        for name in ("k", "v"):
-            slab = layer[name]
+        for slab in layer.values():
             slab[:, :length] = slab[:, :length].index_select(0, rows)
 
 

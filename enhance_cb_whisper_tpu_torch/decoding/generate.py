@@ -31,6 +31,11 @@ layout, so an utterance's tokens do not depend on what shares its launch.
 :meth:`WhisperGenerator.swap_params` replaces the weights in place (the
 serving layer's hot swap).
 
+The serving levers (``dtype``, ``vocab_int8``, ``decoder_int8``,
+``kv_cache_int8``, ``cross_kv_int8``; :mod:`..models.whisper`) reach every
+path: shortform, longform and its ladder, packed decode and
+``detect_language``.
+
 Not ported yet: beam-sample (``num_beams > 1`` at a temperature above 0,
 which the ladder never asks for).  Prompt-length bucketing existed only to
 bound JAX compiles and is dropped: the prompt is prefilled at its true
@@ -55,6 +60,9 @@ from ..models.whisper import (
     encoder_forward,
     init_cache,
     precompute_cross_kv,
+    quantize_decoder_layers,
+    quantize_vocab_projection,
+    to_compute_dtype,
 )
 from ..runtime.precision import reference_precision
 from .beam import beam_search, greedy_search
@@ -157,27 +165,52 @@ class WhisperGenerator:
     """Whisper generation around a fixed (config, params).
 
     ``params`` is the torch parameter dict of :mod:`..models.whisper`
-    (:func:`..convert.from_jax_whisper_params`), already on ``device``."""
+    (:func:`..convert.from_jax_whisper_params`), already on ``device``.
 
-    def __init__(self, config: WhisperConfig, params: Dict[str, Any], device="cuda"):
+    The serving levers of the JAX package's generator: ``dtype`` (the
+    compute dtype, e.g. ``torch.bfloat16``); ``vocab_int8`` and
+    ``decoder_int8`` (weight-only int8 vocab projection and decode-loop
+    linears, quantized here from the f32 weights); ``kv_cache_int8`` (int8
+    self-attention cache) and ``cross_kv_int8`` (int8 cross-attention
+    K/V, quantized once per segment).  ``self.params`` holds the weights as
+    the forward uses them: quantized, then cast to ``dtype``."""
+
+    def __init__(self, config: WhisperConfig, params: Dict[str, Any], device="cuda",
+                 dtype: torch.dtype = torch.float32, vocab_int8: bool = False,
+                 decoder_int8: bool = False, kv_cache_int8: bool = False,
+                 cross_kv_int8: bool = False):
         self.config = config
-        self.params = params
         self.device = torch.device(device)
         if self.device.type == "cuda":
             reference_precision()
+        self.dtype = dtype
+        self._vocab_int8 = bool(vocab_int8)
+        self._decoder_int8 = bool(decoder_int8)
+        self._kv_cache_int8 = bool(kv_cache_int8)
+        self._cross_kv_int8 = bool(cross_kv_int8)
+        self.params = self._serving_params(params)
         self.n_segment_frames = INPUT_STRIDE * config.max_source_positions
 
     # ------------------------------------------------------------------ util
 
+    def _serving_params(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """The weights as the forward uses them: int8 vocab and decoder
+        codes from the f32 weights, then the rest cast to the compute dtype
+        (the identity with no lever on)."""
+        if self._vocab_int8:
+            params = quantize_vocab_projection(params)
+        if self._decoder_int8:
+            params = quantize_decoder_layers(params)
+        return to_compute_dtype(params, self.dtype)
+
     def swap_params(self, params: Dict[str, Any]) -> None:
         """Hot checkpoint swap for serving: replace the weights in place.
 
-        ``params`` must have the same keys, shapes and dtypes as the current
-        dict (a checkpoint of the same architecture); it is moved to the
-        generator's device.  Any mismatch raises ``ValueError`` and leaves
-        the weights as they were.  The JAX package also re-quantizes the
-        weights here when its int8 vocab or decoder levers are on; the port
-        has neither lever, so there is nothing to replay.
+        ``params`` (f32, of the same architecture) is moved to the
+        generator's device and given the constructor's serving treatment
+        (int8 quantization, the compute dtype) before its keys, shapes and
+        dtypes are checked against the current weights.  Any mismatch
+        raises ``ValueError`` and leaves the weights as they were.
 
         Not synchronized with an in-flight decode: a swap from another
         thread mid-utterance would mix checkpoints across its windows.
@@ -191,12 +224,6 @@ class WhisperGenerator:
                 return [layout(v) for v in tree]
             return (tuple(tree.shape), str(tree.dtype).replace("torch.", ""))
 
-        if layout(params) != layout(self.params):
-            raise ValueError(
-                "swap_params: checkpoint architecture mismatch (keys, shapes or "
-                "dtypes differ); build a new WhisperGenerator instead"
-            )
-
         def to_device(tree):
             if isinstance(tree, dict):
                 return {k: to_device(v) for k, v in tree.items()}
@@ -204,7 +231,13 @@ class WhisperGenerator:
                 return [to_device(v) for v in tree]
             return torch.as_tensor(tree).to(self.device)
 
-        self.params = to_device(params)
+        params = self._serving_params(to_device(params))
+        if layout(params) != layout(self.params):
+            raise ValueError(
+                "swap_params: checkpoint architecture mismatch (keys, shapes or "
+                "dtypes differ); build a new WhisperGenerator instead"
+            )
+        self.params = params
 
     @torch.no_grad()
     def detect_language(self, input_features, opts: GenerationOptions) -> np.ndarray:
@@ -218,41 +251,62 @@ class WhisperGenerator:
     # ------------------------------------------------------------------ steps
 
     def _encode(self, mel: torch.Tensor) -> torch.Tensor:
-        return encoder_forward(self.params, mel, self.config)[0]
+        return encoder_forward(self.params, mel, self.config, dtype=self.dtype)[0]
 
     def _cross_kv_fn(self, enc: torch.Tensor):
-        return precompute_cross_kv(self.params, enc, self.config)
+        return precompute_cross_kv(self.params, enc, self.config, int8=self._cross_kv_int8)
 
     def _decode_step(self, tokens: torch.Tensor, cache: dict, ctx: dict):
-        logits, cache = decoder_forward(
-            ctx["params"], tokens, ctx["cross_kv"], self.config,
-            cache=cache, attention_mask=ctx["attn_mask"],
-        )
-        return logits[:, -1], cache
+        """One decode step of every row.  Below f32 it runs one segment's
+        rows (its beams) at a time, as the prefill always does: cuBLAS picks
+        its GEMM kernel by the number of rows, and a bf16 output rounds the
+        resulting last-bit difference to 8 bits, so a packed window's
+        tokens would depend on what shares it (a ``slots=4`` service parted
+        from ``slots=1`` on the card).  In f32 the steps stay batched."""
+        if self.dtype == torch.float32:
+            logits, cache = decoder_forward(
+                ctx["params"], tokens, ctx["cross_kv"], self.config,
+                cache=cache, attention_mask=ctx["attn_mask"], dtype=self.dtype,
+            )
+            return logits[:, -1], cache
+        return self._by_segment(tokens, cache, ctx, prefill=False), cache
+
+    def _by_segment(self, ids: torch.Tensor, cache: dict, ctx: dict, prefill: bool) -> torch.Tensor:
+        """``decoder_forward`` of ``ids`` one segment's rows at a time, into
+        views of ``cache``, whose index it advances; the last position's
+        logits of every row."""
+        n_seg = ctx["cross_kv"][0]["k"].shape[0]
+        reps = ids.shape[0] // n_seg
+        index = cache["index"]
+        logits = []
+        for i in range(n_seg):
+            rows = slice(i * reps, (i + 1) * reps)
+            part = {"index": index, "layers": [{name: slab[rows] for name, slab in layer.items()}
+                                               for layer in cache["layers"]]}
+            cross_kv = [{name: t[i : i + 1] for name, t in layer.items()} for layer in ctx["cross_kv"]]
+            out, _ = decoder_forward(ctx["params"], ids[rows], cross_kv, self.config,
+                                     cache=part, attention_mask=ctx["attn_mask"][rows],
+                                     dtype=self.dtype, prefill=prefill)
+            logits.append(out[:, -1])
+        cache["index"] = index + ids.shape[1]
+        return torch.cat(logits)
 
     def _prefill(self, prompt: torch.Tensor, ctx: dict, max_length: int):
         """Run the prompt through a fresh cache, positioned at
         ``prompt_len - 1``: the decode loop's first step re-feeds the final
         prompt token (rewriting its own slot with identical K/V).  Returns
-        (cache, logits at the final prompt position).
+        (cache, logits at the final prompt position).  The prompt takes the
+        multi-token write of an int8 cache at any length, as in the JAX
+        package, whose prompts are padded to a bucket of 8 or more.
 
         One segment's rows (its beams) at a time, into views of the cache:
         cuBLAS picks its GEMM kernel by the number of rows, so a batched
         prefill would give a row other bits beside other segments."""
-        cache = init_cache(self.config, prompt.shape[0], max_length, self.device)
-        n_seg = ctx["cross_kv"][0]["k"].shape[0]
-        reps = prompt.shape[0] // n_seg
-        logits = []
-        for i in range(n_seg):
-            rows = slice(i * reps, (i + 1) * reps)
-            part = {"index": 0, "layers": [{name: slab[rows] for name, slab in layer.items()}
-                                           for layer in cache["layers"]]}
-            cross_kv = [{name: t[i : i + 1] for name, t in layer.items()} for layer in ctx["cross_kv"]]
-            out, _ = decoder_forward(ctx["params"], prompt[rows], cross_kv, self.config,
-                                     cache=part, attention_mask=ctx["attn_mask"][rows])
-            logits.append(out[:, -1])
+        cache = init_cache(self.config, prompt.shape[0], max_length, self.device,
+                           dtype=self.dtype, kv_int8=self._kv_cache_int8)
+        logits = self._by_segment(prompt, cache, ctx, prefill=True)
         cache["index"] = prompt.shape[1] - 1
-        return cache, torch.cat(logits)
+        return cache, logits
 
     def _make_ctx(self, cross_kv, prompt_mask: np.ndarray, max_length: int, reps: int) -> dict:
         """Cross K/V (NOT tiled across beams: the decoder folds beams into
@@ -697,7 +751,7 @@ class WhisperGenerator:
     @staticmethod
     def _take_rows(cross_kv, rows: List[int]):
         """Rows ``rows`` of the batch axis of every layer's cross K/V
-        ([B, T_enc, H, Dh] each)."""
+        ([B, T_enc, H, Dh] each, and [B, T_enc] int8 scales)."""
         idx = torch.as_tensor(rows, dtype=torch.long, device=cross_kv[0]["k"].device)
         return [{name: t.index_select(0, idx) for name, t in layer.items()} for layer in cross_kv]
 
@@ -745,15 +799,25 @@ class WhisperGenerator:
         * the last rung's result is kept even if it still fails;
         * ``should_skip`` is per ORIGINAL row (docs/PARITY.md #14);
         * a ``vacant`` row (packed decode's padding slot) never falls back
-          and is never skipped: its output is dropped.
+          and is never skipped: its output is dropped.  Below f32, where
+          every segment decodes on its own (:meth:`_decode_step`), a vacant
+          row is not decoded at all: its output is the bare prompt.
         Rung ``ti`` of window ``segment_idx`` samples with
         ``noise(ti, segment_idx, ...)``."""
         B, plen = decoder_ids.shape
-        kept_seqs: List[Optional[np.ndarray]] = [None] * B
+        bare = np.full((opts.max_target_positions,), opts.pad_token_id, np.int64)
+        kept_seqs: List[np.ndarray] = [np.concatenate([row, bare[plen:]]) for row in decoder_ids]
         kept_scores = np.zeros((B,), np.float32)
         should_skip = [False] * B
         fallback_map = list(range(B))  # original row of each current row
         cur_cross_kv, cur_ids, cur_attn = cross_kv, decoder_ids, attn
+        if vacant is not None and any(vacant) and self.dtype != torch.float32:
+            fallback_map = [i for i, v in enumerate(vacant) if not v]
+            if not fallback_map:
+                return np.stack(kept_seqs), kept_scores, should_skip
+            cur_ids = cur_ids[fallback_map]
+            cur_attn = cur_attn[fallback_map] if cur_attn is not None else None
+            cur_cross_kv = self._take_rows(cur_cross_kv, fallback_map)
         for ti, temperature in enumerate(opts.temperature):
             do_sample = temperature is not None and float(temperature) > 0.0
             opts_rung = dataclasses.replace(opts, num_beams=1) if do_sample else opts

@@ -14,7 +14,11 @@ continuous-batching scheduler (``run_test(batch_size, packed)``; the
 serving front door is :mod:`..runtime.serving`).
 :meth:`CBWhisper.enable_int8_spotting` swaps the fp32 ResNet scorer for
 the int8 one after a lazy calibration on the first real segments (a packed
-launch's vacant slots never enter it).
+launch's vacant slots never enter it), and
+:meth:`CBWhisper.enable_int8_kws_encoder` does the same for a separate KWS
+encoder (the s8 encoder of :mod:`.whisper`).  The generator's serving
+levers (compute dtype, int8 weights and K/V) pass through the constructor;
+in bf16 the KWS stacks come from the bf16 encoder, as in JAX.
 
 Deviation from the JAX package: spotting has NO broad ``except Exception``
 (JAX cb_whisper.py:333-336, :350-352).  A failing encoder, scorer or kernel
@@ -45,7 +49,13 @@ from ..runtime.precision import reference_precision
 from ..runtime.profiler import RTFxMeter
 from .kws import KWSModel
 from .quant import calibrate_act_scales, make_quantized_kws_apply, quantize_resnet_classifier
-from .whisper import WhisperConfig, encoder_kws_stack
+from .whisper import (
+    WhisperConfig,
+    calibrate_encoder_act_scales,
+    encoder_kws_stack,
+    quantize_encoder_layers,
+    to_compute_dtype,
+)
 
 
 @dataclasses.dataclass
@@ -76,11 +86,18 @@ class CBWhisper:
         encoder_config: Optional[WhisperConfig] = None,
         kws_layer_slice: Tuple[int, int] = (10, 22),
         device="cuda",
+        dtype: torch.dtype = torch.float32,
+        vocab_int8: bool = False,
+        decoder_int8: bool = False,
+        kv_cache_int8: bool = False,
+        cross_kv_int8: bool = False,
     ):
         """``whisper_params``/``encoder_params`` are torch parameter dicts on
         ``device`` (:func:`..convert.from_jax_whisper_params`); ``kws_model``
         is moved to ``device`` and put in eval mode.  The card is the
-        default: a CPU run passes ``device="cpu"``."""
+        default: a CPU run passes ``device="cpu"``.  ``dtype`` and the int8
+        flags are :class:`..decoding.generate.WhisperGenerator`'s serving
+        levers; ``dtype`` is the KWS encoder's compute dtype too."""
         self.config = config
         self.whisper_config = whisper_config
         self.device = torch.device(device)
@@ -94,9 +111,19 @@ class CBWhisper:
         self.kws_layer_slice = kws_layer_slice
         self.oracle_buffer: List[str] = []
 
-        self.generator = WhisperGenerator(whisper_config, whisper_params, device=self.device)
-        self.encoder_params = encoder_params if encoder_params is not None else whisper_params
+        self.generator = WhisperGenerator(
+            whisper_config, whisper_params, device=self.device, dtype=dtype, vocab_int8=vocab_int8,
+            decoder_int8=decoder_int8, kv_cache_int8=kv_cache_int8, cross_kv_int8=cross_kv_int8,
+        )
+        self._compute_dtype = dtype
+        # a separate KWS encoder keeps its f32 weights for a later int8
+        # quantization beside the copy in the compute dtype
+        self._encoder_f32 = encoder_params
+        self.encoder_params = (
+            to_compute_dtype(encoder_params, dtype) if encoder_params is not None else self.generator.params
+        )
         self.encoder_config = encoder_config or whisper_config
+        self._enc_int8_pending = False
         # single-encode fusion: when the KWS encoder IS the ASR encoder, one
         # forward per segment yields both the KWS stack and the encoding
         self.encode_fused = encoder_params is None and (
@@ -133,6 +160,41 @@ class CBWhisper:
         self._int8_calibration_batches = max(1, int(calibration_batches))
         self._int8_calib_stacks: List[np.ndarray] = []
         self._int8_s8_1x1 = tuple(s8_1x1)
+
+    def enable_int8_kws_encoder(self, calibration_batches: int = 4) -> None:
+        """Switch the separate KWS encoder to the s8 encoder
+        (:func:`.whisper.quantize_encoder_layers`).  Calibration is lazy:
+        the mels of the first ``calibration_batches`` real segments that
+        :meth:`spot_keywords` sees are kept, and the segment that fills the
+        set is the first the s8 encoder encodes.  The s8 encoder feeds the
+        catalog scorer only, so with the KWS encoder being the ASR encoder
+        (no separate ``encoder_params``) this raises: quantizing it would
+        change the transcripts."""
+        if self._encoder_f32 is None:
+            raise ValueError(
+                "encoder_int8 requires a separate KWS encoder (encoder_ckpt "
+                "!= whisper_ckpt): quantizing the shared ASR encoder would "
+                "change transcription"
+            )
+        self._enc_int8_pending = True
+        self._enc_int8_batches = max(1, int(calibration_batches))
+        self._enc_int8_mels: List[torch.Tensor] = []
+
+    def _maybe_calibrate_encoder_int8(self, feats: torch.Tensor, real_rows=None) -> None:
+        if not self._enc_int8_pending:
+            return
+        rows = self._calib_rows(feats.shape[0], self._enc_int8_batches - len(self._enc_int8_mels), real_rows)
+        self._enc_int8_mels.extend(feats[i] for i in rows)
+        if len(self._enc_int8_mels) < self._enc_int8_batches:
+            return
+        scales = calibrate_encoder_act_scales(
+            self.encoder_params, torch.stack(self._enc_int8_mels), self.encoder_config, self._compute_dtype,
+        )
+        self.encoder_params = to_compute_dtype(
+            quantize_encoder_layers(self._encoder_f32, scales), self._compute_dtype)
+        self._enc_int8_pending = False
+        self._enc_int8_mels = []
+        self._encoder_f32 = None
 
     @staticmethod
     def _calib_rows(n_seg: int, needed: int, real_rows=None) -> List[int]:
@@ -189,9 +251,11 @@ class CBWhisper:
         ``real_rows`` marks packed decode's vacant slots (False), which
         never feed a pending int8 calibration."""
         self._ensure_catalog()
+        feats = self._features(input_features)
+        self._maybe_calibrate_encoder_int8(feats, real_rows)
         stacks = encoder_kws_stack(
-            self.encoder_params, self._features(input_features), self.encoder_config,
-            layer_slice=self.kws_layer_slice,
+            self.encoder_params, feats, self.encoder_config,
+            layer_slice=self.kws_layer_slice, dtype=self._compute_dtype,
         )
         return self._score_to_keywords(stacks, real_rows)
 
@@ -202,7 +266,7 @@ class CBWhisper:
         self._ensure_catalog()
         stacks, enc = encoder_kws_stack(
             self.generator.params, self._features(input_features), self.whisper_config,
-            layer_slice=self.kws_layer_slice, return_encoding=True,
+            layer_slice=self.kws_layer_slice, return_encoding=True, dtype=self._compute_dtype,
         )
         keywords = self._score_to_keywords(stacks, real_rows)
         return self._format_prompt_tokens(keywords, start_of_prev), enc

@@ -1,5 +1,5 @@
 """Whisper encoder-decoder in functional PyTorch (port of
-enhance_cb_whisper_tpu/models/whisper.py, fp32 path).
+enhance_cb_whisper_tpu/models/whisper.py).
 
 As in the JAX package the model is a set of functions over a nested
 parameter dict with HF names.  The dict holds torch layouts (built from the
@@ -12,8 +12,22 @@ JAX pytrees by :func:`..convert.from_jax_whisper_params`):
 The self-attention KV cache is a dict ``{"index": int, "layers": [{"k",
 "v"}]}`` whose [B, max_len, H, Dh] slabs are written IN PLACE by
 :func:`decoder_forward` (no copy per step).  Beam search reorders it by
-index (``decoding/beam.py``); the JAX ancestry cache, staged writes and the
-int8 levers are TPU mechanisms that this port does not carry.
+index (``decoding/beam.py``); the JAX ancestry cache and staged writes are
+TPU mechanisms that this port does not carry.
+
+The serving levers of the JAX package, with its casts one for one:
+
+* a compute dtype (``dtype=torch.bfloat16``): products in that dtype with
+  f32 accumulation, LayerNorms and softmaxes in f32, attention scores and
+  the vocab logits in f32 (:func:`to_compute_dtype` casts the weights once);
+* weight-only int8 (:func:`quantize_vocab_projection`,
+  :func:`quantize_decoder_layers`): per-output-channel int8 codes, stored
+  as int8 and converted at each call, with an f32 scale epilogue;
+* int8 K/V (``init_cache(kv_int8=True)``,
+  ``precompute_cross_kv(int8=True)``): per-(row, token) scales that factor
+  out of the attention contractions exactly;
+* the s8 encoder (:func:`quantize_encoder`): s8 x s8 -> s32 products
+  (``torch._int_mm``) with calibrated static activation scales.
 """
 
 from __future__ import annotations
@@ -71,12 +85,75 @@ _HF_WHISPER_DEFAULTS = {
 # primitives
 
 
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the operands' dtype, accumulated in f32 and rounded
+    once.  On the CPU bf16 operands are upcast (exact) and the f32 product
+    rounded; on the card cuBLAS accumulates in f32 (``reference_precision``
+    forbids bf16 partial sums)."""
+    if a.dtype != torch.float32 and a.device.type == "cpu":
+        return torch.matmul(a.float(), b.float()).to(a.dtype)
+    return torch.matmul(a, b)
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with an f32 result from operands in one compute dtype (JAX's
+    ``preferred_element_type=jnp.float32``).  torch has no bf16 -> f32
+    product on the CPU, so bf16 operands are upcast there (exact); on the
+    card cuBLAS reads them as they are and writes f32."""
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.device.type == "cpu":
+        return torch.matmul(a.float(), b.float())
+    if b.ndim == 2:
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    lead = a.shape[:-2]
+    out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.expand(*lead, *b.shape[-2:]).reshape(-1, *b.shape[-2:]),
+                    out_dtype=torch.float32)
+    return out.reshape(*lead, a.shape[-2], b.shape[-1])
+
+
 def _layer_norm(p: Dict[str, Any], x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    return F.layer_norm(x, (x.shape[-1],), p["weight"], p["bias"], eps)
+    """In f32, cast back to the activation's dtype."""
+    if x.dtype == torch.float32:
+        return F.layer_norm(x, (x.shape[-1],), p["weight"], p["bias"], eps)
+    return F.layer_norm(x.float(), (x.shape[-1],), p["weight"], p["bias"], eps).to(x.dtype)
 
 
 def _linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, p["weight"], p.get("bias"))
+    if "qweight" in p:
+        # weight-only int8: compute-dtype operands, f32 accumulation, then
+        # the per-output-channel scale and the bias in f32
+        y = _matmul_f32(x, p["qweight"].to(x.dtype).t()) * p["scale"]
+        if "bias" in p:
+            y = y + p["bias"]
+        return y.to(x.dtype)
+    if x.dtype == torch.float32:
+        bias = p.get("bias")
+        return F.linear(x, p["weight"].to(x.dtype), None if bias is None else bias.to(x.dtype))
+    # two roundings, as in JAX: the product to the compute dtype, then the
+    # bias added in it (F.linear would fuse the bias into the GEMM)
+    y = _matmul(x, p["weight"].to(x.dtype).t())
+    if "bias" in p:
+        y = y + p["bias"].to(x.dtype)
+    return y
+
+
+# sqrt(1/2) as a bf16 constant, as jax.nn.gelu casts it to the input's dtype
+_SQRT_HALF_BF16 = float(torch.tensor(0.5**0.5, dtype=torch.bfloat16))
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact GELU.  Below f32 it is ``jax.nn.gelu``'s
+    ``0.5 * x * erfc(-x * sqrt(1/2))`` with its roundings as XLA evaluates
+    it: the constant and erfc's result in the compute dtype, the rest in
+    f32, one rounding at the end (``F.gelu`` rounds erfc's result nowhere,
+    and would differ from JAX in about a fifth of its bf16 outputs)."""
+    if x.dtype == torch.float32:
+        return F.gelu(x)
+    xf = x.float()
+    erfc = torch.special.erfc(xf * -_SQRT_HALF_BF16).to(x.dtype).float()
+    return (0.5 * xf * erfc).to(x.dtype)
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -84,17 +161,64 @@ def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.reshape(b, t, num_heads, d // num_heads)
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """f32 attention scores [B, H, Tq, Tk] of q [B, Tq, H, Dh] and k [B, Tk, H, Dh]."""
+    return _matmul_f32(q.permute(0, 2, 1, 3), k.permute(0, 2, 3, 1))
+
+
+def _weighted(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """probs [B, H, Tq, Tk] (compute dtype) · v [B, Tk, H, Dh] -> [B, Tq, H, Dh]."""
+    return _matmul(probs, v.permute(0, 2, 1, 3)).permute(0, 2, 1, 3)
+
+
 def _attention(
     q: torch.Tensor,  # [B, Tq, H, Dh] (already scaled)
-    k: torch.Tensor,  # [B, Tk, H, Dh]
-    v: torch.Tensor,  # [B, Tk, H, Dh]
+    k: torch.Tensor,  # [B, Tk, H, Dh] (int8 when k_scale is given)
+    v: torch.Tensor,  # [B, Tk, H, Dh] (int8 when v_scale is given)
     mask: Optional[torch.Tensor] = None,  # broadcastable to [B, H, Tq, Tk], True=keep
+    k_scale: Optional[torch.Tensor] = None,  # [B, Tk] per-token int8 dequant
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    """Scores and softmax in f32, the probabilities cast to the value dtype.
+    A per-token scale factors out of the contractions exactly: it scales
+    the scores on the key side and the softmax weights on the value side."""
+    if q.dtype == torch.float32 and k_scale is None and v_scale is None:
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        if mask is not None:
+            scores = scores.masked_fill(~mask, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    scores = _scores(q, k.to(q.dtype))
+    if k_scale is not None:
+        scores = scores * k_scale[:, None, None, :]
     if mask is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    if v_scale is not None:
+        probs = probs * v_scale[:, None, None, :]
+    return _weighted(probs.to(q.dtype), v.to(q.dtype))
+
+
+def _attention_step(
+    q: torch.Tensor,  # [B, 1, H, Dh] (already scaled)
+    k_cache: torch.Tensor,  # [B, T, H, Dh] int8: the positions before this token
+    v_cache: torch.Tensor,
+    k_scale: torch.Tensor,  # [B, T]
+    v_scale: torch.Tensor,
+    k_new: torch.Tensor,  # [B, 1, H, Dh] this token's K/V, compute dtype
+    v_new: torch.Tensor,
+    mask: Optional[torch.Tensor],  # broadcastable to [B, H, 1, T], True=keep
+) -> torch.Tensor:
+    """A decode step over an int8 cache (JAX ``_attention_split``): the
+    dequantized cache strictly before this position, and this token's K/V
+    at full precision as one more score column.  The caller stores the
+    token's quantized codes afterwards."""
+    scores_c = _scores(q, k_cache.to(q.dtype)) * k_scale[:, None, None, :]
+    if mask is not None:
+        scores_c = scores_c.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(torch.cat([scores_c, _scores(q, k_new)], dim=-1), dim=-1)
+    probs_c = probs[..., :-1] * v_scale[:, None, None, :]
+    return _weighted(probs_c.to(q.dtype), v_cache.to(q.dtype)) + _weighted(probs[..., -1:].to(q.dtype), v_new)
 
 
 def _mha(p: Dict[str, Any], x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -109,7 +233,14 @@ def _mha(p: Dict[str, Any], x: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 def _conv1d(p: Dict[str, Any], x: torch.Tensor, stride: int) -> torch.Tensor:
     # x: [B, C_in, T]; weight [C_out, C_in, W]; padding 1 both sides
-    return F.conv1d(x, p["weight"], p["bias"], stride=stride, padding=1)
+    if x.dtype == torch.float32:
+        return F.conv1d(x, p["weight"].to(x.dtype), p["bias"].to(x.dtype), stride=stride, padding=1)
+    w = p["weight"].to(x.dtype)
+    if x.device.type == "cpu":
+        y = F.conv1d(x.float(), w.float(), stride=stride, padding=1).to(x.dtype)
+    else:
+        y = F.conv1d(x, w, stride=stride, padding=1)
+    return y + p["bias"].to(x.dtype)[:, None]
 
 
 def sinusoid_positions(length: int, channels: int) -> np.ndarray:
@@ -184,15 +315,233 @@ def init_whisper_params(rng: np.random.Generator, config: WhisperConfig) -> Dict
 
 
 # ---------------------------------------------------------------------------
+# compute dtype and weight-only int8 (serving levers)
+
+
+def to_compute_dtype(params: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
+    """The weights the forward casts to ``dtype`` at every use, cast once:
+    the linears' and convolutions' weights and biases, the position tables
+    and the token embedding.  LayerNorm affines stay f32 (the LayerNorm runs
+    in f32), and so do int8 linears (their scale and bias enter an f32
+    epilogue) and the encoder's activation scales.  The identity for f32."""
+    if dtype == torch.float32:
+        return params
+
+    def cast(tree, name):
+        if isinstance(tree, list):
+            return [cast(layer, "") for layer in tree]
+        if not isinstance(tree, dict) or "qweight" in tree:
+            return tree
+        if isinstance(tree.get("weight"), torch.Tensor):
+            if name.endswith("layer_norm"):
+                return tree
+            return {k: v.to(dtype) if k in ("weight", "bias") else v for k, v in tree.items()}
+        return {k: cast(v, k) for k, v in tree.items()}
+
+    return cast(params, "")
+
+
+def _quantize_rows(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 of a 2-D f32 weight: (codes, scale [rows]) with the JAX
+    package's arithmetic (max|w| / 127 floored at 1e-12, round half to
+    even), so the codes are bit-equal to its.  The codes are row-major
+    whatever ``w``'s strides: cuBLASLt's s8 product takes the [in, out]
+    operand of ``torch._int_mm`` only column-major."""
+    w = w.to(torch.float32)
+    scale = torch.clamp_min(w.abs().amax(dim=1, keepdim=True) / 127.0, 1e-12)
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return q.contiguous(), scale[:, 0]
+
+
+def quantize_vocab_projection(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Weight-only int8 for the tied vocab projection (JAX
+    ``quantize_vocab_projection``): ``decoder.embed_tokens_q`` holds the
+    per-row codes [vocab, d_model] and scales [vocab]; the f32 table stays
+    for the input-token gather."""
+    q, scale = _quantize_rows(params["decoder"]["embed_tokens"]["weight"])
+    decoder = dict(params["decoder"], embed_tokens_q={"qweight": q, "scale": scale})
+    return dict(params, decoder=decoder)
+
+
+def _quantize_linear_params(p: Dict[str, Any]) -> Dict[str, Any]:
+    """Per-output-channel weight-only int8 for one [out, in] linear."""
+    q, scale = _quantize_rows(p["weight"])
+    out = {"qweight": q, "scale": scale}
+    if "bias" in p:
+        out["bias"] = p["bias"]
+    return out
+
+
+def _quantize_paths(layer: Dict[str, Any], paths) -> Dict[str, Any]:
+    layer = dict(layer)
+    for path in paths:
+        parent = layer
+        for key in path[:-1]:
+            parent[key] = dict(parent[key])
+            parent = parent[key]
+        parent[path[-1]] = _quantize_linear_params(parent[path[-1]])
+    return layer
+
+
+# the linears inside the per-token decode loop; encoder_attn k/v run once
+# per segment (precompute_cross_kv), and the cross-K/V slab has its own
+# lever (precompute_cross_kv(int8=True))
+_DECODE_LOOP_LINEARS = (
+    ("self_attn", "q_proj"), ("self_attn", "k_proj"),
+    ("self_attn", "v_proj"), ("self_attn", "out_proj"),
+    ("encoder_attn", "q_proj"), ("encoder_attn", "out_proj"),
+    ("fc1",), ("fc2",),
+)
+
+
+def quantize_decoder_layers(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Weight-only int8 for every decoder-layer linear of the decode loop
+    (JAX ``quantize_decoder_layers``): each becomes ``{"qweight" int8
+    [out, in], "scale" f32 [out], "bias"}`` and :func:`_linear` takes its
+    int8 branch."""
+    layers = [_quantize_paths(layer, _DECODE_LOOP_LINEARS) for layer in params["decoder"]["layers"]]
+    return dict(params, decoder=dict(params["decoder"], layers=layers))
+
+
+# ---------------------------------------------------------------------------
+# s8 encoder (the KWS encoder's serving mode)
+#
+# Activations are quantized at four sites per layer with static scales
+# calibrated on real segments; the six linears run s8 x s8 -> s32
+# (torch._int_mm: on the card it needs more than 16 rows and K, N multiples
+# of 8, which a 1500-frame segment meets) with an f32 dequant epilogue.
+# Attention, LayerNorms and GELU stay in the compute dtype / f32.
+
+_ENC_ACT_SITES = ("attn_in", "attn_out", "fc1_in", "fc2_in")
+_ENC_LOOP_LINEARS = (
+    ("self_attn", "q_proj"), ("self_attn", "k_proj"),
+    ("self_attn", "v_proj"), ("self_attn", "out_proj"),
+    ("fc1",), ("fc2",),
+)
+
+
+def _quantize_act(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x.to(torch.float32) / s), -127, 127).to(torch.int8)
+
+
+def _qlinear(p: Dict[str, Any], xq: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
+    """s8 activations x per-output-channel s8 weights -> s32, then
+    ``z * (s_x * scale) + bias`` in f32 (JAX's association).  Returns f32."""
+    z = torch._int_mm(xq.reshape(-1, xq.shape[-1]), p["qweight"].t())
+    y = z.to(torch.float32).reshape(*xq.shape[:-1], -1) * (s_x * p["scale"])
+    if "bias" in p:
+        y = y + p["bias"]
+    return y
+
+
+def encoder_layer_int8(p: Dict[str, Any], x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """s8 twin of :func:`encoder_layer` (same topology, quantized linears)."""
+    sc = p["act_scales"]
+    head_dim = x.shape[-1] // num_heads
+    h = _layer_norm(p["self_attn_layer_norm"], x)
+    hq = _quantize_act(h, sc["attn_in"])
+    q = _split_heads(_qlinear(p["self_attn"]["q_proj"], hq, sc["attn_in"]).to(x.dtype), num_heads) * (
+        head_dim**-0.5)
+    k = _split_heads(_qlinear(p["self_attn"]["k_proj"], hq, sc["attn_in"]).to(x.dtype), num_heads)
+    v = _split_heads(_qlinear(p["self_attn"]["v_proj"], hq, sc["attn_in"]).to(x.dtype), num_heads)
+    o = _attention(q, k, v)
+    o = o.reshape(*o.shape[:2], -1)
+    oq = _quantize_act(o, sc["attn_out"])
+    x = x + _qlinear(p["self_attn"]["out_proj"], oq, sc["attn_out"]).to(x.dtype)
+    h = _layer_norm(p["final_layer_norm"], x)
+    hq = _quantize_act(h, sc["fc1_in"])
+    g = _gelu(_qlinear(p["fc1"], hq, sc["fc1_in"]))
+    gq = _quantize_act(g, sc["fc2_in"])
+    return x + _qlinear(p["fc2"], gq, sc["fc2_in"]).to(x.dtype)
+
+
+def _encoder_layer_record_maxes(p: Dict[str, Any], x: torch.Tensor,
+                                num_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`encoder_layer` that also returns max|x| at the four
+    activation-quantization sites (the calibration pass)."""
+    h = _layer_norm(p["self_attn_layer_norm"], x)
+    m_attn_in = h.to(torch.float32).abs().amax()
+    head_dim = x.shape[-1] // num_heads
+    q = _split_heads(_linear(p["self_attn"]["q_proj"], h), num_heads) * (head_dim**-0.5)
+    k = _split_heads(_linear(p["self_attn"]["k_proj"], h), num_heads)
+    v = _split_heads(_linear(p["self_attn"]["v_proj"], h), num_heads)
+    o = _attention(q, k, v).reshape(*x.shape[:2], -1)
+    m_attn_out = o.to(torch.float32).abs().amax()
+    x = x + _linear(p["self_attn"]["out_proj"], o)
+    h = _layer_norm(p["final_layer_norm"], x)
+    m_fc1_in = h.to(torch.float32).abs().amax()
+    g = _gelu(_linear(p["fc1"], h))
+    m_fc2_in = g.to(torch.float32).abs().amax()
+    x = x + _linear(p["fc2"], g)
+    return x, torch.stack([m_attn_in, m_attn_out, m_fc1_in, m_fc2_in])
+
+
+def calibrate_encoder_act_scales(params: Dict[str, Any], input_features: torch.Tensor,
+                                 config: WhisperConfig, dtype: torch.dtype = torch.float32) -> np.ndarray:
+    """Per-layer static activation scales [n_layers, 4] (sites in
+    ``_ENC_ACT_SITES`` order): max|x| over the calibration mels
+    [B, n_mels, 3000] / 127, each mel encoded on its own (see
+    :func:`encoder_forward`)."""
+    p = params["encoder"]
+    maxes = []
+    for i in range(input_features.shape[0]):
+        x = _encoder_input(p, input_features[i : i + 1], dtype)
+        per_layer = []
+        for layer in p["layers"]:
+            x, m = _encoder_layer_record_maxes(layer, x, config.encoder_attention_heads)
+            per_layer.append(m)
+        maxes.append(torch.stack(per_layer))
+    maxes = torch.stack(maxes).amax(dim=0).cpu().numpy()
+    return np.maximum(maxes / 127.0, 1e-12)
+
+
+def quantize_encoder_layers(params: Dict[str, Any], act_scales: np.ndarray) -> Dict[str, Any]:
+    """int8 codes for every encoder-layer linear (per output channel) and
+    the calibrated static activation scales (:func:`calibrate_encoder_act_scales`)
+    in each layer's ``act_scales``; :func:`encoder_layer` dispatches on it.
+    The convolutions, LayerNorms and attention stay in the compute dtype."""
+    layers = params["encoder"]["layers"]
+    act_scales = np.asarray(act_scales, dtype=np.float32)
+    if act_scales.shape != (len(layers), len(_ENC_ACT_SITES)):
+        raise ValueError(
+            f"act_scales must be [{len(layers)}, {len(_ENC_ACT_SITES)}], got {act_scales.shape}"
+        )
+    device = params["encoder"]["conv1"]["weight"].device
+    quantized = []
+    for i, layer in enumerate(layers):
+        layer = _quantize_paths(layer, _ENC_LOOP_LINEARS)
+        layer["act_scales"] = {site: torch.tensor(act_scales[i, j], device=device)
+                               for j, site in enumerate(_ENC_ACT_SITES)}
+        quantized.append(layer)
+    return dict(params, encoder=dict(params["encoder"], layers=quantized))
+
+
+def quantize_encoder(params: Dict[str, Any], calibration_features: torch.Tensor,
+                     config: WhisperConfig, dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """Calibrate and quantize in one call."""
+    scales = calibrate_encoder_act_scales(to_compute_dtype(params, dtype), calibration_features, config, dtype)
+    return quantize_encoder_layers(params, scales)
+
+
+# ---------------------------------------------------------------------------
 # encoder
 
 
 def encoder_layer(p: Dict[str, Any], x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    if "act_scales" in p:
+        return encoder_layer_int8(p, x, num_heads)
     h = _layer_norm(p["self_attn_layer_norm"], x)
     x = x + _mha(p["self_attn"], h, num_heads)
     h = _layer_norm(p["final_layer_norm"], x)
-    h = F.gelu(_linear(p["fc1"], h))
+    h = _gelu(_linear(p["fc1"], h))
     return x + _linear(p["fc2"], h)
+
+
+def _encoder_input(p: Dict[str, Any], input_features: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The convolutional front end and position embedding: [B, T_enc, D]."""
+    x = _gelu(_conv1d(p["conv1"], input_features.to(dtype), stride=1))
+    x = _gelu(_conv1d(p["conv2"], x, stride=2))
+    return x.transpose(1, 2) + p["embed_positions"]["weight"].to(dtype)
 
 
 def encoder_forward(
@@ -200,24 +549,24 @@ def encoder_forward(
     input_features: torch.Tensor,  # [B, n_mels, 2 * max_source_positions]
     config: WhisperConfig,
     output_hidden_states: bool = False,
+    dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns (last_hidden_state [B, T_enc, D], hidden_states
-    [n_layers+1, B, T_enc, D] or None).  ``hidden_states[i]`` is the input
-    to layer i; the final entry is the post-LayerNorm output (HF's tuple).
+    [n_layers+1, B, T_enc, D] or None), in ``dtype``.  ``hidden_states[i]``
+    is the input to layer i; the final entry is the post-LayerNorm output
+    (HF's tuple).
 
     Each row is encoded on its own: cuBLAS and cuDNN pick their kernels by
     the batch, so a batched encoder would give a segment other bits beside
     other segments, and a packed decode's keywords (int8 spotting rounds
     those bits into other codes) and tokens would depend on its schedule."""
     if input_features.shape[0] > 1:
-        rows = [encoder_forward(params, input_features[i : i + 1], config, output_hidden_states)
+        rows = [encoder_forward(params, input_features[i : i + 1], config, output_hidden_states, dtype)
                 for i in range(input_features.shape[0])]
         last = torch.cat([r[0] for r in rows])
         return last, torch.cat([r[1] for r in rows], dim=1) if output_hidden_states else None
     p = params["encoder"]
-    x = F.gelu(_conv1d(p["conv1"], input_features.to(torch.float32), stride=1))
-    x = F.gelu(_conv1d(p["conv2"], x, stride=2))
-    x = x.transpose(1, 2) + p["embed_positions"]["weight"]  # [B, T_enc, D]
+    x = _encoder_input(p, input_features, dtype)
 
     states = [x] if output_hidden_states else None
     for layer in p["layers"]:
@@ -237,9 +586,10 @@ def encoder_kws_stack(
     config: WhisperConfig,
     layer_slice: Tuple[int, int] = (10, 22),
     return_encoding: bool = False,
+    dtype: torch.dtype = torch.float32,
 ):
-    """hidden_states[lo:hi], L2-normalized over the embedding dim →
-    [B, n_slabs, T_enc, D] (and the last hidden state with
+    """hidden_states[lo:hi] in f32, L2-normalized over the embedding dim →
+    [B, n_slabs, T_enc, D] (and the last hidden state, in ``dtype``, with
     ``return_encoding=True``: one encoder forward feeds both keyword
     spotting and the decoder's cross-attention)."""
     lo, hi = layer_slice
@@ -248,8 +598,8 @@ def encoder_kws_stack(
             f"layer_slice {layer_slice} out of range for a "
             f"{config.encoder_layers}-layer encoder"
         )
-    last, states = encoder_forward(params, input_features, config, output_hidden_states=True)
-    stack = l2_normalize(states[lo:hi].transpose(0, 1))
+    last, states = encoder_forward(params, input_features, config, output_hidden_states=True, dtype=dtype)
+    stack = l2_normalize(states[lo:hi].transpose(0, 1).to(torch.float32))
     if return_encoding:
         return stack, last
     return stack
@@ -259,33 +609,81 @@ def encoder_kws_stack(
 # decoder
 
 
-def init_cache(config: WhisperConfig, batch: int, max_len: int,
-               device: torch.device) -> Dict[str, Any]:
+def init_cache(config: WhisperConfig, batch: int, max_len: int, device: torch.device,
+               dtype: torch.dtype = torch.float32, kv_int8: bool = False) -> Dict[str, Any]:
+    """Per layer ``{"k", "v"}`` [batch, max_len, H, Dh] slabs in ``dtype``;
+    with ``kv_int8`` int8 slabs and f32 ``k_scale``/``v_scale`` [batch,
+    max_len] (per-token scales, :func:`_quantize_kv`)."""
     head_dim = config.d_model // config.decoder_attention_heads
     shape = (batch, max_len, config.decoder_attention_heads, head_dim)
-    return {
-        "index": 0,
-        "layers": [
-            {"k": torch.zeros(shape, device=device), "v": torch.zeros(shape, device=device)}
-            for _ in range(config.decoder_layers)
-        ],
-    }
+
+    def layer():
+        if kv_int8:
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "k_scale": torch.zeros((batch, max_len), device=device),
+                    "v_scale": torch.zeros((batch, max_len), device=device)}
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    return {"index": 0, "layers": [layer() for _ in range(config.decoder_layers)]}
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token int8: x [..., t, H, Dh] → (int8 codes, f32 scale [..., t]).
+    The scale spans all heads and dims of a (row, token), so it factors out
+    of the attention contractions exactly."""
+    x32 = x.to(torch.float32)
+    scale = torch.clamp_min(x32.abs().amax(dim=(-2, -1)), 1e-8) / 127.0
+    q = torch.clamp(torch.round(x32 / scale[..., None, None]), -127, 127).to(torch.int8)
+    return q, scale
 
 
 def precompute_cross_kv(params: Dict[str, Any], encoder_out: torch.Tensor,
-                        config: WhisperConfig) -> List[Dict[str, torch.Tensor]]:
-    """Cross-attention K/V, once per segment: per layer {"k","v"} [B, T_enc, H, Dh].
-    Each segment is projected on its own, so its bits do not depend on the
-    batch (see :func:`encoder_forward`)."""
+                        config: WhisperConfig, int8: bool = False) -> List[Dict[str, torch.Tensor]]:
+    """Cross-attention K/V, once per segment: per layer {"k","v"} [B, T_enc, H, Dh]
+    in the encoding's dtype; with ``int8`` the codes and per-(row, token)
+    f32 ``k_scale``/``v_scale`` [B, T_enc].  Each segment is projected on
+    its own, so its bits do not depend on the batch (see
+    :func:`encoder_forward`)."""
     h = config.decoder_attention_heads
-    return [
-        {
+    out = []
+    for layer in params["decoder"]["layers"]:
+        kv = {
             name: torch.cat([_split_heads(_linear(layer["encoder_attn"][proj], encoder_out[i : i + 1]), h)
                              for i in range(encoder_out.shape[0])])
             for name, proj in (("k", "k_proj"), ("v", "v_proj"))
         }
-        for layer in params["decoder"]["layers"]
-    ]
+        if int8:
+            (kq, ks), (vq, vs) = _quantize_kv(kv["k"]), _quantize_kv(kv["v"])
+            kv = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        out.append(kv)
+    return out
+
+
+def _self_attention_int8(q, k, v, cache_layer, offset: int, mask, step: bool) -> torch.Tensor:
+    """Self-attention over an int8 cache, with the JAX package's two write
+    semantics.  A decode ``step`` attends over the dequantized cache before
+    ``offset`` and over this token's K/V at full precision, then stores the
+    token's codes.  A multi-token write (the prefill) stores the codes
+    first and attends over the dequantized tokens, the new ones included."""
+    t = k.shape[1]
+    (k_q, k_s), (v_q, v_s) = _quantize_kv(k), _quantize_kv(v)
+    if step:
+        attn = _attention_step(
+            q, cache_layer["k"][:, :offset], cache_layer["v"][:, :offset],
+            cache_layer["k_scale"][:, :offset], cache_layer["v_scale"][:, :offset],
+            k.to(q.dtype), v.to(q.dtype), mask[..., :offset],
+        )
+    cache_layer["k"][:, offset : offset + t] = k_q
+    cache_layer["v"][:, offset : offset + t] = v_q
+    cache_layer["k_scale"][:, offset : offset + t] = k_s
+    cache_layer["v_scale"][:, offset : offset + t] = v_s
+    if step:
+        return attn
+    k = cache_layer["k"][:, : offset + t].to(q.dtype) * cache_layer["k_scale"][:, : offset + t, None, None].to(q.dtype)
+    v = cache_layer["v"][:, : offset + t].to(q.dtype) * cache_layer["v_scale"][:, : offset + t, None, None].to(q.dtype)
+    return _attention(q, k, v, mask)
 
 
 def _decoder_layer(
@@ -296,6 +694,7 @@ def _decoder_layer(
     self_mask: torch.Tensor,
     cache_layer: Optional[Dict[str, torch.Tensor]],
     offset: int,
+    step: bool = False,
 ) -> torch.Tensor:
     head_dim = x.shape[-1] // num_heads
     t = x.shape[1]
@@ -304,14 +703,18 @@ def _decoder_layer(
     q = _split_heads(_linear(p["self_attn"]["q_proj"], h), num_heads) * (head_dim**-0.5)
     k = _split_heads(_linear(p["self_attn"]["k_proj"], h), num_heads)
     v = _split_heads(_linear(p["self_attn"]["v_proj"], h), num_heads)
-    if cache_layer is not None:
-        # in-place cache write; attend over the written prefix only (slots
-        # past it are masked by the causal rule in the reference anyway)
-        cache_layer["k"][:, offset : offset + t] = k
-        cache_layer["v"][:, offset : offset + t] = v
-        k = cache_layer["k"][:, : offset + t]
-        v = cache_layer["v"][:, : offset + t]
-    attn = _attention(q, k, v, self_mask)
+    if cache_layer is not None and "k_scale" in cache_layer:
+        attn = _self_attention_int8(q, k, v, cache_layer, offset, self_mask, step)
+    else:
+        if cache_layer is not None:
+            # in-place cache write; attend over the written prefix only
+            # (slots past it are masked by the causal rule in the reference
+            # anyway)
+            cache_layer["k"][:, offset : offset + t] = k
+            cache_layer["v"][:, offset : offset + t] = v
+            k = cache_layer["k"][:, : offset + t]
+            v = cache_layer["v"][:, : offset + t]
+        attn = _attention(q, k, v, self_mask)
     x = x + _linear(p["self_attn"]["out_proj"], attn.reshape(*attn.shape[:2], -1))
 
     # cross attention: beams of one batch item share the encoder output, so
@@ -320,16 +723,19 @@ def _decoder_layer(
     h = _layer_norm(p["encoder_attn_layer_norm"], x)
     q = _split_heads(_linear(p["encoder_attn"]["q_proj"], h), num_heads) * (head_dim**-0.5)
     k_c, v_c = cross_kv["k"], cross_kv["v"]
+    scales = {"k_scale": cross_kv.get("k_scale"), "v_scale": cross_kv.get("v_scale")}
+    if scales["k_scale"] is None:
+        k_c, v_c = k_c.to(q.dtype), v_c.to(q.dtype)
     if q.shape[0] != k_c.shape[0]:
         reps = q.shape[0] // k_c.shape[0]
         q_folded = q.reshape(k_c.shape[0], reps * q.shape[1], *q.shape[2:])
-        attn = _attention(q_folded, k_c, v_c).reshape(q.shape)
+        attn = _attention(q_folded, k_c, v_c, **scales).reshape(q.shape)
     else:
-        attn = _attention(q, k_c, v_c)
+        attn = _attention(q, k_c, v_c, **scales)
     x = x + _linear(p["encoder_attn"]["out_proj"], attn.reshape(*attn.shape[:2], -1))
 
     h = _layer_norm(p["final_layer_norm"], x)
-    h = F.gelu(_linear(p["fc1"], h))
+    h = _gelu(_linear(p["fc1"], h))
     return x + _linear(p["fc2"], h)
 
 
@@ -340,19 +746,28 @@ def decoder_forward(
     config: WhisperConfig,
     cache: Optional[Dict[str, Any]] = None,
     attention_mask: Optional[torch.Tensor] = None,  # [B, >= index + T] 1=attend
+    dtype: torch.dtype = torch.float32,
+    prefill: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Teacher forcing (``cache=None``) or incremental decoding: positions
     start at ``cache["index"]``, the cache is updated in place and its
     index advanced.  ``attention_mask`` masks prompt padding (the
-    reference's ``decoder_attention_mask`` from pad ids).
+    reference's ``decoder_attention_mask`` from pad ids).  Activations are
+    in ``dtype``; the logits are f32.
+
+    A single-token call is a decode step, which matters for an int8 cache
+    (:func:`_self_attention_int8`); ``prefill=True`` gives any call the
+    multi-token write (the JAX package prefills a prompt padded to a bucket
+    of at least 8 tokens, so its prefill always takes that path).
 
     Returns (logits [B, T, vocab], cache)."""
     p = params["decoder"]
     t = input_ids.shape[1]
     offset = int(cache["index"]) if cache is not None else 0
     device = input_ids.device
+    step = cache is not None and t == 1 and not prefill
 
-    x = p["embed_tokens"]["weight"][input_ids] + p["embed_positions"]["weight"][offset : offset + t]
+    x = p["embed_tokens"]["weight"][input_ids].to(dtype) + p["embed_positions"]["weight"][offset : offset + t].to(dtype)
 
     key_pos = torch.arange(offset + t, device=device)
     query_pos = offset + torch.arange(t, device=device)
@@ -363,10 +778,17 @@ def decoder_forward(
     for i, layer in enumerate(p["layers"]):
         x = _decoder_layer(
             layer, x, cross_kv[i], config.decoder_attention_heads, mask,
-            cache["layers"][i] if cache is not None else None, offset,
+            cache["layers"][i] if cache is not None else None, offset, step,
         )
     x = _layer_norm(p["layer_norm"], x)
-    logits = F.linear(x, p["embed_tokens"]["weight"])
+    if "embed_tokens_q" in p:
+        # weight-only int8 vocab projection: f32 logits, f32 row scales
+        q = p["embed_tokens_q"]
+        logits = _matmul_f32(x, q["qweight"].to(x.dtype).t()) * q["scale"]
+    elif x.dtype == torch.float32:
+        logits = F.linear(x, p["embed_tokens"]["weight"].to(x.dtype))
+    else:
+        logits = _matmul_f32(x, p["embed_tokens"]["weight"].to(x.dtype).t())
     if cache is not None:
         cache["index"] = offset + t
     return logits, cache

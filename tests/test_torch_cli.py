@@ -23,9 +23,15 @@ margins so that some keywords are spotted and others not.
 * ``eval_batch_size: 2`` (batched decode) and ``eval_packed`` (packed
   decode, 2 slots) through both CLIs give identical transcripts, keywords
   and entity recall.
-* An unfilled placeholder exits both CLIs with the same message; every knob
-  the port does not carry raises ``NotImplementedError``; ``kv_staging``
-  is accepted; the language table equals ``transformers``' and the
+* The serving knobs, each alone with greedy decode, through both CLIs give
+  identical transcripts, keywords and entity recall: ``compute_dtype:
+  bfloat16``, ``vocab_int8``, ``decoder_int8``, ``kv_cache_int8``,
+  ``cross_kv_int8``, and ``encoder_int8`` with a separate encoder
+  checkpoint (the same weights under another path).
+* An unfilled placeholder exits both CLIs with the same message; what the
+  port does not carry raises ``NotImplementedError`` (the paper-2 models,
+  and ``kv_staging`` with ``kv_cache_int8``, whose JAX results the port
+  cannot give); ``kv_staging`` alone is accepted; the language table equals ``transformers``' and the
   generation options match the JAX CLI's for ``language: null`` and
   ``max_initial_timestamp_index: 0``.
 * The kernels' lazy loaders and launch counters are safe under threads (the
@@ -34,6 +40,7 @@ margins so that some keywords are spotted and others not.
 
 import dataclasses
 import os
+import shutil
 import types
 
 import numpy as np
@@ -158,6 +165,9 @@ def env(tmp_path_factory):
         init_whisper_params(np.random.default_rng(0), WhisperConfig.from_hf(hf_config.to_dict())),
         device="cpu")
     save_file(hf_whisper_state(params), os.path.join(whisper_ckpt, "model.safetensors"))
+    # the same weights under another path: a separate KWS encoder
+    encoder_ckpt = str(root / "encoder")
+    shutil.copytree(whisper_ckpt, encoder_ckpt)
     acl = str(root / "acl")
     make_acl(acl, kw_layers=KW_LAYERS, whisper_dim=32, n_keywords=6, n_utts=3, ghost=(2,))
     make_acl(acl, kw_layers=KW_LAYERS, whisper_dim=32, n_keywords=6, n_utts=3, split="dev", seed=5)
@@ -212,7 +222,7 @@ def env(tmp_path_factory):
                 margins.extend(logits[:, 1] - logits[:, 0])
         _centre(model, margins)
         ckpts[name] = _save_kws(model, str(root / f"kws_{name}"))
-    yield {"root": root, "whisper": whisper_ckpt, "acl": acl, "kws": ckpts}
+    yield {"root": root, "whisper": whisper_ckpt, "encoder": encoder_ckpt, "acl": acl, "kws": ckpts}
     mp.undo()
     torch.set_num_threads(threads)
 
@@ -262,6 +272,15 @@ CB_MODES = {
     "batch2": ({"num_beams": 1}, ["--model.init_args.eval_batch_size", "2"]),
     "packed2": ({"num_beams": 1}, ["--model.init_args.eval_packed", "true",
                                    "--model.init_args.eval_batch_size", "2"]),
+    # the serving levers (ROADMAP §1 item 4), each alone
+    "bf16": ({"num_beams": 1}, ["--model.init_args.compute_dtype", "bfloat16"]),
+    "vocab_int8": ({"num_beams": 1}, ["--model.init_args.vocab_int8", "true"]),
+    "decoder_int8": ({"num_beams": 1}, ["--model.init_args.decoder_int8", "true"]),
+    "kv_cache_int8": ({"num_beams": 1}, ["--model.init_args.kv_cache_int8", "true"]),
+    "cross_kv_int8": ({"num_beams": 1}, ["--model.init_args.cross_kv_int8", "true"]),
+    # the s8 KWS encoder needs a separate encoder checkpoint
+    "encoder_int8": ({"num_beams": 1, "kws_int8_calibration_batches": 2, "encoder_ckpt": "[ENCODER]"},
+                     ["--model.init_args.encoder_int8", "true"]),
 }
 
 
@@ -269,7 +288,7 @@ CB_MODES = {
 def test_cbwhisper_cli_matches_jax(env, tmp_path, monkeypatch, mode):
     extra, overrides = CB_MODES[mode]
     cfg = _cb_config(env, tmp_path / "cb.yaml", **extra)
-    argv = ["test", "--config", cfg, "--set", f"ACL_ROOT={env['acl']}",
+    argv = ["test", "--config", cfg, "--set", f"ACL_ROOT={env['acl']}", "--set", f"ENCODER={env['encoder']}",
             "--set", f"KWS_CKPT={env['kws']['cb']}", "--model.init_args.num_bootstraps", "40", *overrides]
     if mode == "int8":
         monkeypatch.setenv("ECW_S8_PALLAS", ALL_STAGES)
@@ -290,7 +309,7 @@ def test_cbwhisper_cli_matches_jax(env, tmp_path, monkeypatch, mode):
     assert FakeTokenizer.handed == ["ints"] * 3  # plain lists of Python ints
     assert len(port_preds) == 3 and port_preds == jax_preds
     assert port_kw == jax_kw[: len(port_kw)]
-    if mode in ("fp32", "int8"):
+    if mode not in ("batch2", "packed2"):
         assert len(port_kw) == 3  # one segment per utterance
     else:  # one list per row of each window of the seek loop, vacant slots too
         assert len(port_kw) == len(jax_kw) > 3
@@ -353,12 +372,9 @@ def test_unfilled_placeholder_exits_as_jax(env, tmp_path):
 
 
 @pytest.mark.parametrize("override, item", [
-    (["--model.init_args.compute_dtype", "bfloat16"], "item 4"),
-    (["--model.init_args.vocab_int8", "true"], "item 4"),
-    (["--model.init_args.decoder_int8", "true"], "item 4"),
-    (["--model.init_args.kv_cache_int8", "true"], "item 4"),
-    (["--model.init_args.cross_kv_int8", "true"], "item 4"),
-    (["--model.init_args.encoder_int8", "true"], "item 4"),
+    # the JAX package attends staged tokens at full precision until a flush
+    # quantizes them; the port carries no staging
+    (["--model.init_args.kv_staging", "8", "--model.init_args.kv_cache_int8", "true"], "item 4"),
     (["--model.class_path", "efficient_kws.model.KWSModel"], "item 6"),
 ])
 def test_unported_knobs_raise(env, tmp_path, override, item):

@@ -3,7 +3,8 @@ package, on the CPU at tiny dims (d_model 32, 2 + 2 layers, vocab 128, 8
 mels, 48-frame windows; random weights from one numpy seed, converted).
 
 ``WhisperGenerator.generate_packed`` takes the cases of
-``tests/test_packed_decode.py`` that need no int8 decoder: every case holds
+``tests/test_packed_decode.py``, the two with the weight-only int8 decoder
+included: every case holds
 the port's ``(order, tokens, segments)`` to the JAX package's, exactly, and
 the port's ``slots=N`` to its own ``slots=1``.  The JAX outputs are made
 once, in a module fixture.  Then ``CBWhisper.run_test(batch_size=2)``
@@ -51,6 +52,7 @@ OPTS = dict(
     max_initial_timestamp_index=10, return_timestamps=True, max_target_positions=40,
 )
 TS_BEGIN = OPTS["no_timestamps_token_id"] + 1
+INT8_DECODE = dict(vocab_int8=True, decoder_int8=True)  # the weight-only int8 serving decode
 LANGS = tuple(range(4, 99, 3))  # "language" tokens of the tiny vocab
 
 
@@ -176,6 +178,15 @@ def jax_run():
     out["swapped"] = jgen.generate(mel, opts, return_segments=True)
     jgen.swap_params(params)
     out["swapped_back"] = jgen.generate(mel, opts, return_segments=True)
+    # the packed cases of the weight-only int8 decode (JAX's
+    # test_packed_composes_with_int8_decoder, test_swap_params_int8_requantizes)
+    int8 = JaxGenerator(JaxWhisperConfig(**CFG), params, prompt_buckets=(CFG["max_target_positions"],),
+                        **INT8_DECODE)
+    out["int8_packed"] = _packed(int8, _stream([130, 60], 12), _options(
+        JaxOptions, dict(condition_on_prev_tokens=True)), 2)
+    int8.swap_params(whisper_params(1))
+    [mel] = mels([60], 14)
+    out["int8_swapped"] = int8.generate(mel, _options(JaxOptions, {}), return_segments=True)
     return out
 
 
@@ -319,6 +330,40 @@ def test_swap_params(jax_run):
     with pytest.raises(ValueError, match="architecture mismatch"):
         gen.swap_params(wrong_dtype)
     assert gen.params is params
+
+
+def test_packed_composes_with_int8_decoder(jax_run):
+    """Packed scheduling under the weight-only int8 decode: slots=2 equals
+    slots=1 per utterance, and both equal the JAX package's."""
+    gen = WhisperGenerator(WhisperConfig(**CFG), from_jax_whisper_params(whisper_params(), device="cpu"),
+                           device="cpu", **INT8_DECODE)
+    opts = _options(GenerationOptions, dict(condition_on_prev_tokens=True))
+    ms = mels([130, 60], 12)
+    packed = _packed(gen, ((m, None) for m in ms), opts, 2)
+    solo = {i: _packed(gen, iter([(m, None)]), opts, 1)[0] for i, m in enumerate(ms)}
+    assert packed == solo == jax_run["int8_packed"]
+    assert all(len(tokens) > 4 for tokens, _ in packed.values())
+
+
+def test_swap_params_int8_requantizes(jax_run):
+    """``swap_params`` replays the constructor's int8 quantization: an int8
+    generator swapped to a new checkpoint decodes as a fresh int8 generator
+    on it, and as the JAX package's swapped one."""
+    ported = {seed: from_jax_whisper_params(whisper_params(seed), device="cpu") for seed in (0, 1)}
+    gen = WhisperGenerator(WhisperConfig(**CFG), ported[0], device="cpu", **INT8_DECODE)
+    fresh = WhisperGenerator(WhisperConfig(**CFG), ported[1], device="cpu", **INT8_DECODE)
+    [mel] = mels([60], 14)
+    opts = _options(GenerationOptions, {})
+
+    def tokens(g):
+        result = g.generate(torch.from_numpy(mel), opts, return_segments=True)
+        return [[list(map(int, s["tokens"])) for s in row] for row in result["segments"]]
+
+    before = tokens(gen)
+    gen.swap_params(ported[1])
+    assert "qweight" in gen.params["decoder"]["layers"][0]["fc1"] and "embed_tokens_q" in gen.params["decoder"]
+    want = [[list(map(int, s["tokens"])) for s in row] for row in jax_run["int8_swapped"]["segments"]]
+    assert tokens(gen) == tokens(fresh) == want != before
 
 
 def test_rows_get_their_own_bits():

@@ -45,3 +45,16 @@ def test_cpu_entry_points_leave_the_flags(tf32_on):
     WhisperGenerator(cfg, params, device="cpu")
     KWSEngine(device="cpu")
     assert _flags() == (True, True)
+
+
+def test_reference_precision_forbids_bf16_partial_sums():
+    """cuBLAS may reduce split-K partial sums of a bf16 GEMM in bf16 unless
+    told not to; the JAX package accumulates in f32."""
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        reference_precision()
+        assert matmul.allow_bf16_reduced_precision_reduction is False
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = saved
