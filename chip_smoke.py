@@ -5,6 +5,7 @@
     python3 chip_smoke.py --k1     # K1 alone: its build, phase A and its phase C times
     python3 chip_smoke.py --serving  # the kernels' build, phase A2 and phase F alone
     python3 chip_smoke.py --levers   # the kernels' build, phase A2 and phase G alone
+    python3 chip_smoke.py --train    # phase H (paper-1 training) alone
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, started together), then:
@@ -92,6 +93,24 @@ G.  the serving levers (bf16 compute, weight-only int8 vocab and decoder,
     ``TranscriptionService(slots=4)`` in the serving set to ``slots=1``
     (transcripts and keywords) and a ``swap_params`` on it to a fresh
     generator on the new checkpoint (weights bit for bit, transcript);
+H.  paper-1 training, which launches neither kernel (the count of each is
+    read over the phase: the kernel line's ``train_launches``): H1 holds
+    the train step on the tiny ResNet CPU = card in each mode of
+    tests/test_torch_train_step.py (plain with the unweighted entropy; the
+    adversarial step with two accumulated minibatches, the large heads'
+    dropout, the kw_type='all' coin and DANNCE; device_features; remat;
+    bf16), with the same CPU-seeded draws: gradients, running statistics,
+    metric sums and the updated weights; H2 runs ``run_cli(["fit", ...])``
+    on configs/train.yaml (the 12-channel ResNet-50 at 150x750, batch 20,
+    large heads) from a synthetic AISHELL layout at whisper-large-v2 widths
+    (12 x 1280, 100 keywords, utterances of 250-1500 frames) written under
+    build/chip_smoke/phase_h/ and deleted at the end: the host collator,
+    device_features, adversarial training at 8 x 20 examples a step,
+    one DANNCE step, a resume from the written checkpoint and ``test`` on
+    it; each run prints ms per step, examples/s, peak memory, and a
+    torch.profiler split of one step's device time (convolutions forward
+    and backward, BatchNorm, the optimizer, the rest) with its idle share;
+    the losses must be finite and the weights must move;
 C.  times K1 and K2 and their plain versions on the card, each by the
     median of CUDA-event timings of CUDA-graph replays (device time
     without host gaps) and of eager calls: K1 at [1, 480000], [8, 480000]
@@ -114,6 +133,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -134,6 +154,7 @@ N_KW = 100
 LONGFORM_SECONDS = 47.5  # two windows: 30 s + 17.5 s
 # published peaks of one H100 SXM (dense): HBM bytes/s, FP32 FLOP/s, int8 OP/s
 HBM_RATE, FP32_RATE, INT8_RATE = 3.35e12, 67e12, 1979e12
+BF16_RATE = 989e12  # dense bf16 tensor-core FLOP/s
 
 
 def _audio(batch: int, n_samples: int, rng: np.random.Generator) -> np.ndarray:
@@ -2201,6 +2222,426 @@ def phase_g3(device, cb, dataset, shapes) -> None:
     print(f"phase G3: {time.perf_counter() - t_start:.1f} s in all")
 
 
+# ------------------------------------------------------- phase H: training
+
+PHASE_H_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "phase_h"
+TINY_RESNET = dict(num_channels=3, embedding_size=8, hidden_sizes=(8, 16, 24, 32),
+                   depths=(1, 1, 1, 1), num_labels=2)
+H1_ADV = dict(adversarial_training=True, entropy=True, num_domains=4, accumulate_grad_batches=2)
+# the modes of tests/test_torch_train_step.py: (config, batch size, raw batch)
+H1_MODES = {
+    "plain_unsuppressed_entropy": (dict(num_domains=4, entropy=True,
+                                        early_adversary_supression=False), 4, False),
+    "adversarial_large_heads_all_dannce": (dict(
+        H1_ADV, large_heads=True, kw_type="all", dannce=True, adversarial_train_steps=2,
+        adversarial_examples_lr=0.01), 16, False),
+    "device_features": (dict(num_domains=4, device_features=(32, 40)), 8, True),
+    "remat": (dict(H1_ADV, remat=True), 4, False),
+    "bfloat16": (dict(num_domains=4, entropy=True, early_adversary_supression=False,
+                      compute_dtype="bfloat16"), 4, False),
+}
+H_LAYERS, H_DIM, H_KEYWORDS = 12, 1280, 100  # whisper-large-v2's layer slice and width
+
+
+def _h1_batch(n, raw, seed):
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 2, n).astype(np.int64)
+    domain = rng.integers(0, 4, n).astype(np.int64)
+    if not raw:
+        return {"features": rng.standard_normal((n, 3, 48, 48), dtype=np.float32),
+                "labels": labels, "domain": domain}
+    from enhance_cb_whisper_tpu_torch.data.collators import RawKWSDataCollator
+
+    items = [{"label": int(labels[i]), "mask": 1, "domain": int(domain[i]),
+              "kwd_hs": rng.standard_normal((3, int(rng.integers(2, 12)), 8)).astype(np.float32),
+              "utt_hs": rng.standard_normal((3, int(rng.integers(20, 60)), 8)).astype(np.float32)}
+             for i in range(n)]
+    return RawKWSDataCollator(bucket_kwd=4, bucket_utt=16)(items)
+
+
+def _h1_step(kwargs, n, raw, device, template):
+    """One step of the tiny model on ``device`` from ``template``'s weights:
+    (gradients, statistics, updated parameters, metric sums) as numpy."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
+    from enhance_cb_whisper_tpu_torch.train import kws_train as kt
+
+    config = kt.KWSTrainConfig(**dict(kwargs, learning_rate=1e-3, features_lr=1e-3,
+                                      classifier_lr=1e-3, discriminator_lr=1e-3))
+    state = kt.init_train_state(config, ResNetConfig(**TINY_RESNET), seed=0, device=device)
+    if template is not None:
+        state.kws.load_state_dict(template[0])
+        if state.disc is not None:
+            state.disc.load_state_dict(template[1])
+    start = ({k: v.detach().cpu().clone() for k, v in state.kws.state_dict().items()},
+             {k: v.detach().cpu().clone() for k, v in state.disc.state_dict().items()}
+             if state.disc is not None else None)
+    modules = {"kws": state.kws, **({"disc": state.disc} if state.disc is not None else {})}
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    for p in params:
+        p.grad = None
+    batch = {k: torch.from_numpy(v).to(device) for k, v in _h1_batch(n, raw, SEED + 40).items()}
+    # the same draws on both devices: CPU-seeded, then moved
+    noise = kt.StepNoise(kt.step_seed(SEED, 0), device)
+    sums, _ = kt.make_grad_fn(config, state.kws, state.disc)(batch, noise, 0.1, 0.5)
+    grads = {f"{m}.{k}": p.grad.detach().cpu().numpy().copy()
+             for m, mod in modules.items() for k, p in mod.named_parameters()}
+    stats = {k: v.detach().cpu().numpy().copy() for k, v in state.kws.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    state.optimizer.step()
+    updated = {f"{m}.{k}": p.detach().cpu().numpy().copy()
+               for m, mod in modules.items() for k, p in mod.named_parameters()}
+    return start, grads, stats, updated, {k: float(v) for k, v in sums.items()}
+
+
+def _rel_l2(got: dict, want: dict) -> float:
+    a = np.concatenate([got[k].ravel() for k in want])
+    b = np.concatenate([want[k].ravel() for k in want])
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def phase_h1(device) -> None:
+    """Each train-step mode of the CPU tests on the tiny model: one step on
+    the CPU and one on the card from the same weights with the same draws.
+    fp32 (remat included): every gradient within rtol 1e-4 + 2e-4 x the
+    leaf's largest magnitude, every running statistic within rtol 1e-4,
+    atol 1e-5, the metric sums within 1e-5 relative, and the updated
+    weights within 2.5e-3 (one Adam step of rate 1e-3 moves a weight by
+    about the rate whatever its gradient's size, so a gradient at rounding
+    level can step the other way) with at least 95 % of them within 1e-5.
+    bf16: the card's gradient no further from the CPU's in relative L2 than
+    twice the CPU's own bf16-vs-fp32 distance, the statistics within 0.05."""
+    cpu_f32 = None
+    for name, (kwargs, n, raw) in H1_MODES.items():
+        t0 = time.perf_counter()
+        start, g_cpu, s_cpu, u_cpu, m_cpu = _h1_step(kwargs, n, raw, "cpu", None)
+        _, g_dev, s_dev, u_dev, m_dev = _h1_step(kwargs, n, raw, device, start)
+        if name == "plain_unsuppressed_entropy":
+            cpu_f32 = g_cpu
+        if kwargs.get("compute_dtype") == "bfloat16":
+            bound = 2 * _rel_l2(g_cpu, cpu_f32)
+            gap, s_gap = _rel_l2(g_dev, g_cpu), _rel_l2(s_dev, s_cpu)
+            ok = gap <= bound and s_gap <= 0.05
+            print(f"phase H1 {name}: grad rel L2 card vs CPU {gap!r} (bound {bound!r}), "
+                  f"statistics {s_gap!r} (bound 0.05), metrics card {m_dev} CPU {m_cpu}")
+            if not ok:
+                raise RuntimeError(f"phase H1 {name}: the card's bf16 step is off the CPU's")
+            continue
+        worst_grad = max(float(np.abs(g_dev[k] - g_cpu[k]).max() / (np.abs(g_cpu[k]).max() or 1.0))
+                         for k in g_cpu)
+        for k in g_cpu:
+            np.testing.assert_allclose(g_dev[k], g_cpu[k], rtol=1e-4,
+                                       atol=2e-4 * (float(np.abs(g_cpu[k]).max()) or 1.0),
+                                       err_msg=f"phase H1 {name} grad {k}")
+        for k in s_cpu:
+            np.testing.assert_allclose(s_dev[k], s_cpu[k], rtol=1e-4, atol=1e-5,
+                                       err_msg=f"phase H1 {name} statistic {k}")
+        for k in m_cpu:
+            if abs(m_dev[k] - m_cpu[k]) > 1e-5 * max(abs(m_cpu[k]), 1e-6) + 1e-6:
+                raise RuntimeError(f"phase H1 {name}: metric {k} card {m_dev[k]!r} CPU {m_cpu[k]!r}")
+        diffs = np.concatenate([np.abs(u_dev[k] - u_cpu[k]).ravel() for k in u_cpu])
+        if diffs.max() > 2.5e-3 or (diffs <= 1e-5).mean() < 0.95:
+            raise RuntimeError(f"phase H1 {name}: updated weights max diff {diffs.max()!r}, "
+                               f"{(diffs <= 1e-5).mean()!r} within 1e-5")
+        print(f"phase H1 {name}: card = CPU (worst grad diff / leaf scale {worst_grad!r}, "
+              f"updated weights max diff {diffs.max()!r}, {(diffs <= 1e-5).mean()!r} within 1e-5; "
+              f"metrics {m_dev}) in {time.perf_counter() - t0:.1f} s")
+
+
+def _h_stack(gen, frames, device):
+    """An L2-normalized [12, frames, 1280] f32 stack drawn on the card."""
+    import torch
+
+    x = torch.randn(H_LAYERS, frames, H_DIM, generator=gen, device=device)
+    return (x / x.norm(dim=-1, keepdim=True)).cpu().numpy()
+
+
+def _write_h_data(root: Path, device, utt_frames, n_codes: int, seed: int) -> None:
+    """A synthetic AISHELL layout at whisper-large-v2 widths: ``kws/`` (100
+    keywords of 20-60 frames, tts and natural; ``n_codes`` utterances with
+    two positives each, stacks of ``utt_frames`` frames, linked to one file
+    per distinct stack) and ``hotword/{dev,test}/`` (the 100 keywords as
+    hotwords, 4 utterances each)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    kws = root / "kws"
+    (kws / "hs").mkdir(parents=True, exist_ok=True)
+    keywords = [f"kw{i:02d}" for i in range(H_KEYWORDS)]
+    (kws / "keywords.txt").write_text("\n".join(keywords) + "\n")
+    kw_frames = rng.integers(20, 61, H_KEYWORDS)
+    for kw_type in ("tts", "natural"):
+        d = kws / "keywords-hs" / kw_type
+        d.mkdir(parents=True, exist_ok=True)
+        for i in range(H_KEYWORDS):
+            np.save(d / f"{i:02d}.npy", _h_stack(gen, int(kw_frames[i]), device))
+    distinct = root / "stacks"
+    distinct.mkdir(exist_ok=True)
+    for j, frames in enumerate(utt_frames):
+        np.save(distinct / f"{j}.npy", _h_stack(gen, int(frames), device))
+    rev = sorted(keywords, key=lambda x: x[::-1])
+    lines = []
+    for u in range(n_codes):
+        code = f"UTT{u:04d}"
+        (kws / "hs" / f"{code}.npy").symlink_to(distinct / f"{u % len(utt_frames)}.npy")
+        parts = [code]
+        for p in sorted(rng.choice(H_KEYWORDS, size=2, replace=False).tolist()):
+            parts += [keywords[p], str(p), str(rev.index(keywords[p]))]
+        lines.append("\t".join(parts))
+    (kws / "positives.tsv").write_text("\n".join(lines) + "\n")
+    for split in ("dev", "test"):
+        sd = root / "hotword" / split
+        (sd / "hs").mkdir(parents=True, exist_ok=True)
+        (sd / "hotword.txt").write_text("\n".join(keywords) + "\n")
+        for kw_type in ("tts", "natural"):
+            (sd / "keywords-hs").mkdir(exist_ok=True)
+            (sd / "keywords-hs" / kw_type).symlink_to(kws / "keywords-hs" / kw_type)
+        text = []
+        for u in range(4):
+            code = f"BAC009S{u + 1:04d}W{u + 1:04d}"
+            (sd / "hs" / f"{code}.npy").symlink_to(distinct / f"{(2 * u + 1) % len(utt_frames)}.npy")
+            text.append(f"{code} 前缀{keywords[(7 * u) % H_KEYWORDS]}后缀{keywords[(7 * u + 3) % H_KEYWORDS]}")
+        (sd / "text").write_text("\n".join(text) + "\n")
+
+
+@contextlib.contextmanager
+def _recorded_steps():
+    """Time each train step the engine makes (synchronised) and keep the
+    last one's step function and batch for the profiler."""
+    import torch
+
+    import enhance_cb_whisper_tpu_torch.runtime.kws_engine as ke
+
+    real = ke.make_train_step
+    rec = {"ms": [], "examples": [], "starts": [], "ends": [], "losses": [], "last": None}
+
+    def make(config, state):
+        step = real(config, state)
+        rec["initial"] = [p.detach().clone() for p in state.kws.parameters()]
+
+        def timed(batch, noise, beta, suppression):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(batch, noise, beta, suppression)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rec["ms"].append((t1 - t0) * 1e3)
+            rec["starts"].append(t0)
+            rec["ends"].append(t1)
+            rec["examples"].append(int(batch["labels"].shape[0]))
+            rec["losses"].append(float(out["class_loss"]))
+            rec["last"] = (step, batch, noise, beta, suppression)
+            return out
+
+        return timed
+
+    ke.make_train_step = make
+    try:
+        yield rec
+    finally:
+        ke.make_train_step = real
+
+
+def _step_breakdown(label, rec, peak_rate=FP32_RATE) -> None:
+    """Device time of one train step on the last batch of a run, by what
+    launched it (torch.profiler, the second of two profiled steps): the
+    convolutions forward and backward, BatchNorm, the optimizer, the rest;
+    the idle share against the median of three unprofiled steps; and the
+    step's bound, its convolution and matmul operations (counted by
+    ``FlopCounterMode`` over one step) at ``peak_rate`` (the bytes, a few
+    hundred MB of weights, optimizer state and activations read once, are
+    a smaller bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    step, batch, noise, beta, suppression = rec["last"]
+    with FlopCounterMode(display=False) as counter:
+        step(batch, noise, beta, suppression)
+    flops = counter.get_total_flops()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch, noise, beta, suppression)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(batch, noise, beta, suppression)
+            torch.cuda.synchronize()
+    parts = {"conv forward": 0.0, "conv backward": 0.0, "batchnorm": 0.0, "optimizer": 0.0}
+    kernels = 0.0
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0)
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += us
+            continue
+        name = evt.key
+        if name in ("aten::cudnn_convolution", "aten::convolution_overrideable"):
+            parts["conv forward"] += us
+        elif name.startswith("aten::convolution_backward") or "cudnn_convolution_backward" in name:
+            parts["conv backward"] += us
+        elif "batch_norm" in name:
+            parts["batchnorm"] += us
+        elif "_foreach" in name or name.startswith("Optimizer.step"):
+            parts["optimizer"] += us
+    parts["other"] = kernels - sum(parts.values())
+    text = ", ".join(f"{k} {v / 1e3!r} ms" for k, v in parts.items())
+    bound_ms = flops / peak_rate * 1e3
+    print(f"{label}: one step of {int(batch['labels'].shape[0])} examples: wall {wall!r} ms "
+          f"unprofiled (median of 3: {walls!r}); device {kernels / 1e3!r} ms (idle share "
+          f"{1 - kernels / 1e3 / wall!r}): {text}; {flops / 1e12!r} TFLOP of convolutions and "
+          f"matmuls, bound {bound_ms!r} ms at {peak_rate / 1e12:g} TFLOP/s, the step "
+          f"{wall / bound_ms!r}x it")
+
+
+def _report_run(label, rec, seconds) -> None:
+    import torch
+
+    if not rec["ms"]:
+        raise RuntimeError(f"{label}: no train step ran")
+    losses = np.asarray(rec["losses"])
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"{label}: a non-finite loss {losses}")
+    examples = sum(rec["examples"])
+    span = rec["ends"][-1] - rec["starts"][0]
+    later = rec["ms"][1:] or rec["ms"]
+    print(f"{label}: {len(rec['ms'])} steps of {rec['examples'][0]} examples in {seconds!r} s "
+          f"(CLI call); step {statistics.median(later)!r} ms median after the first "
+          f"(first {rec['ms'][0]!r} ms), {examples / span!r} examples/s from the first step's "
+          f"start to the last one's end, {rec['examples'][0] / statistics.median(later) * 1e3!r} "
+          f"examples/s within a step; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB; class loss {losses.tolist()}")
+
+
+def _h_argv(root: Path, run: str, *overrides):
+    return ["fit", "--config", str(CONFIGS / "train.yaml"),
+            "--set", "MAX_EPOCHS=2", "--set", "EVERY_N_EPOCHS=1",
+            "--set", f"DEFAULT_ROOT_DIR={PHASE_H_DIR / run}", "--set", f"RUN_NAME={run}",
+            "--set", "MODALITY=tts", "--set", "TRAIN_DATASET_NAME=aishell",
+            "--set", f"TRAIN_DATASET_ROOT={root}", "--set", f"AISHELL_ROOT={root}",
+            "--set", f"ACL_ROOT={root}",
+            "--data.init_args.val_info", f"[{{name: aishell, root: '{root}', kw_type: tts}}]",
+            *overrides]
+
+
+def _h_fit(label, device, argv):
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.cli import run_cli
+
+    torch.cuda.reset_peak_memory_stats()
+    with _recorded_steps() as rec:
+        t0 = time.perf_counter()
+        state = run_cli(argv, device=device)
+        seconds = time.perf_counter() - t0
+    # a loader cut by limit_train_batches leaves its thread finishing one
+    # more batch: let it end before the next run is timed
+    for thread in threading.enumerate():
+        if thread is not threading.current_thread() and thread.daemon:
+            thread.join(timeout=120)
+    _report_run(label, rec, seconds)
+    return state, rec
+
+
+def _moved(label, state, rec, ckpt_dir: Path) -> None:
+    """The run's weights against those it started from."""
+    import torch
+
+    moved = max(float((p.detach() - q).abs().max())
+                for p, q in zip(state.kws.parameters(), rec["initial"]))
+    if not moved > 0:
+        raise RuntimeError(f"{label}: the parameters did not move")
+    if not all(bool(torch.isfinite(p).all()) for p in state.kws.parameters()):
+        raise RuntimeError(f"{label}: non-finite parameters")
+    print(f"{label}: largest weight change from the run's first weights {moved!r}; "
+          f"checkpoints {sorted(p.name for p in ckpt_dir.iterdir())}")
+
+
+def phase_h2(device) -> None:
+    """paper-1 training at full width from files through ``run_cli(["fit",
+    ...])`` on configs/train.yaml (the 12-channel ResNet-50 at 150x750,
+    batch 20, large heads): the host collator (one epoch of two batches),
+    device_features (two epochs of ten batches), adversarial training with
+    8 x 20 accumulated examples a step (two steps) and one DANNCE step,
+    then a resume from the written checkpoint and ``test`` on it."""
+    import shutil
+
+    from enhance_cb_whisper_tpu_torch.cli import run_cli
+
+    shutil.rmtree(PHASE_H_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        main_root, short_root = PHASE_H_DIR / "aishell", PHASE_H_DIR / "aishell_short"
+        _write_h_data(main_root, device, np.linspace(250, 1500, 8).astype(int), 50, SEED + 50)
+        # the adversarial steps take 160 examples a batch: at up to 1500
+        # frames the raw batch would be 15 GB on the host, and the
+        # prefetch queue keeps up to four alive, so they read 250-500
+        _write_h_data(short_root, device, np.linspace(250, 500, 8).astype(int), 80, SEED + 51)
+        print(f"phase H2: data written in {time.perf_counter() - t0:.1f} s (100 keywords of "
+              f"20-60 frames, 50 utterances of 250-1500 frames and 80 of 250-500, "
+              f"{H_LAYERS} x {H_DIM})")
+
+        state, rec = _h_fit("phase H2 host collator", device,
+                            _h_argv(main_root, "host", "--trainer.limit_train_batches", "2",
+                                    "--trainer.max_epochs", "1"))
+        _step_breakdown("phase H2 host collator", rec)
+        _moved("phase H2 host collator", state, rec, PHASE_H_DIR / "host" / "checkpoints")
+        state, rec = _h_fit("phase H2 device_features", device,
+                            _h_argv(main_root, "device", "--data.init_args.device_features", "true"))
+        _step_breakdown("phase H2 device_features", rec)
+        _moved("phase H2 device_features", state, rec, PHASE_H_DIR / "device" / "checkpoints")
+        # the bf16 lever (bf16 activations and convolutions, f32 weights)
+        state, rec = _h_fit("phase H2 device_features bf16", device,
+                            _h_argv(main_root, "bf16", "--data.init_args.device_features", "true",
+                                    "--model.init_args.compute_dtype", "bfloat16",
+                                    "--trainer.max_epochs", "1", "--trainer.limit_train_batches", "4"))
+        _step_breakdown("phase H2 device_features bf16", rec, peak_rate=BF16_RATE)
+        adv = ("--model.init_args.adversarial_training", "true", "--data.init_args.device_features",
+               "true", "--trainer.max_epochs", "1")
+        state, rec = _h_fit("phase H2 adversarial", device,
+                            _h_argv(short_root, "adversarial", *adv,
+                                    "--trainer.limit_train_batches", "2"))
+        _step_breakdown("phase H2 adversarial", rec)
+        _moved("phase H2 adversarial", state, rec, PHASE_H_DIR / "adversarial" / "checkpoints")
+        state, rec = _h_fit("phase H2 DANNCE", device,
+                            _h_argv(short_root, "dannce", *adv, "--model.init_args.dannce", "true",
+                                    "--trainer.limit_train_batches", "1"))
+        _moved("phase H2 DANNCE", state, rec, PHASE_H_DIR / "dannce" / "checkpoints")
+        final = PHASE_H_DIR / "device" / "checkpoints" / "final"
+        state, rec = _h_fit("phase H2 resume", device,
+                            _h_argv(main_root, "device", "--data.init_args.device_features", "true",
+                                    "--trainer.max_epochs", "3", "--trainer.limit_train_batches", "2",
+                                    "--ckpt_path", str(final)))
+        if state.epoch != 2:
+            raise RuntimeError(f"phase H2 resume: trained epoch {state.epoch}, expected 2")
+        t0 = time.perf_counter()
+        test_argv = ["test", *_h_argv(main_root, "device", "--ckpt_path", str(final))[1:]]
+        results = run_cli(test_argv, device=device)
+        if not all(np.isfinite(v) for v in results.values()):
+            raise RuntimeError(f"phase H2 test: {results}")
+        print(f"phase H2 test on the written checkpoint in {time.perf_counter() - t0:.1f} s: {results}")
+    finally:
+        shutil.rmtree(PHASE_H_DIR, ignore_errors=True)
+
+
+def phase_h(device) -> dict:
+    """Phase H: K1's and K2's launches over the training path (none)."""
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, mel_cuda
+
+    mel_cuda.launches = matmul_s8_cuda.launches = 0
+    t0 = time.perf_counter()
+    phase_h1(device)
+    phase_h2(device)
+    launches = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches}
+    print(f"phase H: {time.perf_counter() - t0:.1f} s; kernel launches on the training path {launches}")
+    return launches
+
+
 def _median_ms(fn, reps: int = 25) -> float:
     import torch
 
@@ -2435,7 +2876,7 @@ def _card() -> str:
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--k1"], ["--serving"], ["--levers"]):
+    if argv not in ([], ["--k1"], ["--serving"], ["--levers"], ["--train"]):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2449,6 +2890,11 @@ def main(argv) -> int:
     device = torch.device("cuda", 0)
 
     t_start = time.perf_counter()
+    if argv == ["--train"]:  # the training phase alone
+        phase_h(device)
+        print(f"chip_smoke --train: passed in {time.perf_counter() - t_start:.1f} s")
+        print(_card())
+        return 0
     if argv == ["--k1"]:  # K1 alone: build, phase A, K1's timings
         from enhance_cb_whisper_tpu_torch.ops import mel_cuda
 
@@ -2497,6 +2943,7 @@ def main(argv) -> int:
     levers_launches = phase_g2(device, cb, dataset, shapes)
     phase_g3(device, cb, dataset, shapes)
     del cb
+    train_launches = phase_h(device)
     times = phase_c(device)
     k2 = phase_c_k2(device, shapes)
     k1 = print_k1_bound()
@@ -2508,12 +2955,12 @@ def main(argv) -> int:
         {"name": "log10_mel", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
          "launches": fp32_launches["mel"], "cli_launches": cli_launches["mel"],
          "packed_launches": packed_launches["mel"], "levers_launches": levers_launches["mel"],
-         "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+         "train_launches": train_launches["mel"], "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": k1["ms"], "bound_by": k1["by"], "library_ms": None},
         {"name": "matmul_s8_requant", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
          "launches": int8_launches["k2"], "cli_launches": cli_launches["k2"],
          "packed_launches": packed_launches["k2"], "levers_launches": levers_launches["k2"],
-         "max_abs_err": k2_err, "mismatches": mismatches,
+         "train_launches": train_launches["k2"], "max_abs_err": k2_err, "mismatches": mismatches,
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
     ]}))

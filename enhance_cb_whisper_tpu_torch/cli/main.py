@@ -1,16 +1,22 @@
-"""CLI dispatcher (port of enhance_cb_whisper_tpu/cli/main.py, evaluation).
+"""CLI dispatcher (port of enhance_cb_whisper_tpu/cli/main.py).
 
-``run_cli(argv)`` implements ``{test,validate} --config cfg.yaml
+``run_cli(argv)`` implements ``{fit,test,validate} --config cfg.yaml
 [--set NAME=value ...] [--dotted.key value ...]`` and routes on
 ``model.class_path``:
 
-* ``model.model.KWSModel``       → the paper-1 KWS eval (``kws.py test|validate``);
+* ``model.model.KWSModel``       → paper-1 KWS training (``run_CLI.py fit``)
+  and eval (``kws.py test|validate``);
 * ``model.cb_whisper.CBWhisper``  → CB-Whisper entity recall (``cb-whisper.py test``).
 
 Models are built through the port's entry points on ``device`` (the card
-by default; they turn TF32 off there).  What the port does not carry yet
-raises instead of being ignored: ``fit`` and the paper-2 models (ROADMAP.md
-§1 names the item of each).  The CB-Whisper serving knobs reach the
+by default; they turn TF32 off there).  ``fit`` applies the reference
+CLI's argument links (``sampling``, ``resample_every_epoch``, ``kw_type``
+and ``batch_size`` from the model block to the data block; under
+adversarial training the batch size × ``accumulate_grad_batches``),
+hands ``device_features`` to the train step, writes its checkpoints under
+``trainer.default_root_dir``/checkpoints, and resumes from ``ckpt_path``.
+What the port does not carry yet raises instead of being ignored: the
+paper-2 models (ROADMAP.md §1 item 6).  The CB-Whisper serving knobs reach the
 constructors as in the JAX CLI: ``compute_dtype``, ``vocab_int8``,
 ``decoder_int8``, ``kv_cache_int8``, ``cross_kv_int8``, and ``encoder_int8``
 (with a separate ``encoder_ckpt``).  ``eval_batch_size`` and
@@ -50,6 +56,45 @@ def _seed_everything(config):
     seed = config.get("seed_everything", 123)
     np.random.seed(seed if seed is not True else 123)
     return seed if seed is not True else 123
+
+
+def _early_stopping(config):
+    from ..runtime.checkpoint import EarlyStopping
+
+    block = config.get("early_stopping")
+    if not block:
+        return None
+    return EarlyStopping(
+        monitor=block.get("monitor", "metrics/f1"),
+        patience=block.get("patience", 10),
+        mode=block.get("mode", "max"),
+        min_delta=block.get("min_delta", 0.0) or 0.0,
+    )
+
+
+def _monitors(config) -> Dict[str, str]:
+    monitors = {}
+    for name in ("f1_checkpoint", "f1_generalization_checkpoint", "f1_l4_checkpoint"):
+        block = config.get(name)
+        if block and block.get("monitor"):
+            monitors[name] = f"{block['monitor']}:{block.get('mode', 'max')}"
+    return monitors or {"f1_checkpoint": "metrics/f1:max"}
+
+
+def _logger_from_config(config, log_dir):
+    """A MetricsLogger from the reference's MLFlowLogger block: local files
+    always, a real MLflow client only with a tracking_uri and the package."""
+    from ..runtime.logging import MetricsLogger
+
+    largs = get(config, "trainer.logger.init_args", {}) or {}
+    return MetricsLogger(
+        log_dir,
+        run_name=largs.get("run_name", "run"),
+        experiment_name=largs.get("experiment_name", "default"),
+        tags=largs.get("tags"),
+        tracking_uri=largs.get("tracking_uri"),
+        log_model=bool(largs.get("log_model", False)),
+    )
 
 
 def _load_kws_variables(ckpt_path: str, resnet_config):
@@ -96,23 +141,49 @@ def _run_paper1(subcommand: str, config: Dict[str, Any], device):
     from ..data.datamodule import KWSDataMod
     from ..models.quant import s8_stages
     from ..runtime.kws_engine import KWSEngine
+    from ..train.kws_train import KWSTrainConfig
 
-    if subcommand == "fit":
-        raise NotImplementedError("KWS training (fit) is not ported yet: ROADMAP.md §1 item 5")
     model_args = get(config, "model.init_args", {}) or {}
     data_args = dict(get(config, "data.init_args", {}) or {})
     # the reference CLI's argument links
     for key in ("sampling", "resample_every_epoch", "kw_type", "batch_size"):
         if key in model_args:
             data_args[key] = model_args[key]
+    features_size = tuple(data_args.get("features_size") or (150, 750))
+    train_config = KWSTrainConfig(**filter_kwargs(model_args, KWSTrainConfig))
+    if subcommand == "fit":
+        if not data_args.get("train_info"):
+            raise ValueError("fit needs a training dataset: data.init_args.train_info is empty")
+        if model_args.get("adversarial_training"):
+            # one optimizer step per training step: the loader hands over
+            # every accumulated minibatch at once
+            data_args["batch_size"] = model_args.get("batch_size", 1) * model_args.get(
+                "accumulate_grad_batches", 1)
+        if data_args.get("device_features"):
+            # the step computes the features at the collator's target size
+            train_config = dataclasses.replace(train_config, device_features=features_size)
 
     datamodule = KWSDataMod(**filter_kwargs(data_args, KWSDataMod))
     resnet_config = _paper1_kws_resnet(model_args)
-    engine = KWSEngine(
-        resnet_config,
-        features_size=tuple(data_args.get("features_size") or (150, 750)),
-        device=device,
-    )
+    if subcommand == "fit":
+        log_dir = get(config, "trainer.default_root_dir") or "runs/kws"
+        engine = KWSEngine(
+            resnet_config, features_size=features_size, device=device, config=train_config,
+            ckpt_dir=os.path.join(log_dir, "checkpoints"), logger=_logger_from_config(config, log_dir),
+        )
+        # configs/train.yaml quotes its trainer placeholders, so `--set
+        # MAX_EPOCHS=2` fills them as strings
+        limit = get(config, "trainer.limit_train_batches")
+        return engine.fit(
+            datamodule,
+            max_epochs=int(get(config, "trainer.max_epochs") or 100),
+            check_val_every_n_epoch=int(get(config, "trainer.check_val_every_n_epoch") or 1),
+            early_stopping=_early_stopping(config),
+            monitors=_monitors(config),
+            limit_train_batches=None if limit is None else int(limit),
+            resume_from=config.get("ckpt_path"),
+        )
+    engine = KWSEngine(resnet_config, features_size=features_size, device=device)
     ckpt_path = config.get("ckpt_path")
     assert ckpt_path, "test/validate requires ckpt_path"
     variables = _load_kws_model(ckpt_path, resnet_config, engine.device)

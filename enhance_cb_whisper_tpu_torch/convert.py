@@ -12,7 +12,12 @@
 * :func:`from_flax_resnet_variables` — flax ``KWSModel`` variables
   (``params`` + ``batch_stats``; NHWC convs with ``[kh, kw, in, out]``
   kernels) → a ``state_dict`` for :class:`.models.kws.KWSModel` (NCHW,
-  ``[out, in, kh, kw]``).
+  ``[out, in, kh, kw]``); the same for a flax ``Discriminator``'s params
+  (``head.linear`` or ``head.dense_0..2``) and
+  :class:`.models.kws.Discriminator`;
+* :func:`to_flax_variables` — the inverse: a ``state_dict`` of either
+  module → flax-layout ``params`` + ``batch_stats`` trees of numpy arrays,
+  which the checkpoints hold, so the JAX package reads them.
 * :func:`from_jax_quantized_params` — the JAX int8 ResNet pytree
   (``models/quant.py``: per conv ``wq`` int8 ``[kh, kw, in, out]``, ``s_w``
   and ``b`` f32 ``[out]``; the head's ``kernel``/``bias``; optional
@@ -94,11 +99,13 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def from_flax_resnet_variables(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax ``KWSModel`` variables → ``KWSModel.state_dict()`` entries.
+    """flax ``KWSModel`` variables → ``KWSModel.state_dict()`` entries (or a
+    flax ``Discriminator``'s ``{"params": ...}`` → ``Discriminator``'s).
 
     Module names match one to one (``model.feature_extractor.embedder.
     convolution``, ``...stage_0_block_0.layer_1.normalization``,
-    ``model.classifier``); only the leaf names and layouts change."""
+    ``model.classifier``, ``head.dense_0``); only the leaf names and
+    layouts change."""
     state: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(variables["params"]).items():
         module, leaf = path.rsplit(".", 1)
@@ -119,6 +126,34 @@ def from_flax_resnet_variables(variables: Dict[str, Any]) -> Dict[str, torch.Ten
             raise ValueError(f"unexpected flax batch statistic {path}")
         state[f"{module}.{names[leaf]}"] = torch.tensor(arr)
     return state
+
+
+def to_flax_variables(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, Any]]:
+    """``KWSModel.state_dict()`` or ``Discriminator.state_dict()`` → flax
+    ``{"params": ..., "batch_stats": ...}`` nested dicts of f32 numpy arrays
+    (the inverse of :func:`from_flax_resnet_variables`)."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for key, t in state.items():
+        *path, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        a = t.detach().to(torch.float32).cpu().numpy()
+        if leaf in ("running_mean", "running_var"):
+            tree, path = stats, path + [leaf[len("running_"):]]
+        elif leaf == "bias":
+            tree, path = params, path + ["bias"]
+        elif a.ndim == 4:
+            tree, path, a = params, path + ["kernel"], a.transpose(2, 3, 1, 0)
+        elif a.ndim == 2:
+            tree, path, a = params, path + ["kernel"], a.T
+        else:
+            tree, path = params, path + ["scale"]
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    return {"params": params, "batch_stats": stats}
 
 
 def from_jax_quantized_params(qparams: Mapping, device="cuda") -> Dict[str, Any]:

@@ -1,14 +1,20 @@
-"""The eval half of the KWS data module (port of
+"""The KWS data module and loader (port of
 enhance_cb_whisper_tpu/data/datamodule.py).
 
 :class:`KWSDataMod` keeps the reference constructor's checks —
 ``train_info`` / ``val_info`` / ``test_info`` dataset descriptors,
 ``features_size``, ``hotwords_per_group``, the utterance-examples batch-size
-/4 rewrite — and builds the validation and test datasets in
-``setup("validate" | "test")``.  The training datasets, sampler and
-collators, and the constructor options that only they read, wait for the
-training slice (the CLI's ``filter_kwargs`` drops such options from a
-config): ``setup("fit")`` raises.
+/4 rewrite — and builds the training pairs, their sampler and collator in
+``setup("fit")`` (with the validation datasets), the validation datasets
+in ``setup("validate")`` and the test dataset in ``setup("test")``.
+``device_features`` makes the training batches raw hidden-state stacks
+(:class:`.collators.RawKWSDataCollator`) whose features the train step
+computes on the device.  The options the JAX module accepts and never
+reads (``num_workers``, ``whisper_ckpt``, ``max_duration``) are not taken:
+the CLI's ``filter_kwargs`` drops them from a config.
+
+:class:`DataLoader` is the JAX package's single-process loader: sampler
+(or a shuffle by the global numpy RNG, which the CLI seeds) + collate.
 """
 
 from __future__ import annotations
@@ -17,7 +23,19 @@ import dataclasses
 import os
 from typing import Optional, Sequence, Tuple
 
-from .datasets import ACL6060KeywordDataset, AishellHotwordDataset
+import numpy as np
+
+from .collators import HotwordDataCollator, KWSDataCollator, RawKWSDataCollator
+from .datasets import (
+    ACL6060KeywordDataset,
+    AishellHotwordDataset,
+    AishellKWSDataset,
+    ConcatDataset,
+    MLSKWSDataset,
+)
+from .samplers import KWSSampler
+
+MLS_LANGUAGES = ["English", "German", "French", "Spanish", "Polish", "Portuguese"]
 
 
 @dataclasses.dataclass
@@ -25,6 +43,39 @@ class DatasetInfo:
     name: str
     root: str
     kw_type: str
+
+
+class DataLoader:
+    """Minimal map-style loader: iterate the sampler (or range), batch,
+    collate."""
+
+    def __init__(self, dataset, batch_size=1, collate_fn=None, sampler=None, shuffle=False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.collate_fn = collate_fn or (lambda x: x)
+        self.sampler = sampler
+        self.shuffle = shuffle
+
+    def __iter__(self):
+        if self.sampler is not None:
+            indices = iter(self.sampler)
+        elif self.shuffle:
+            # the global numpy RNG, so the CLI's seed governs the order
+            indices = iter(np.random.permutation(len(self.dataset)).tolist())
+        else:
+            indices = iter(range(len(self.dataset)))
+        batch = []
+        for idx in indices:
+            batch.append(self.dataset[idx])
+            if len(batch) == self.batch_size:
+                yield self.collate_fn(batch)
+                batch = []
+        if batch:
+            yield self.collate_fn(batch)
+
+    def __len__(self):
+        n = len(self.sampler) if self.sampler is not None else len(self.dataset)
+        return (n + self.batch_size - 1) // self.batch_size
 
 
 def _as_info(info) -> DatasetInfo:
@@ -46,6 +97,8 @@ class KWSDataMod:
         hotwords_per_group: int = 100,
         features_size: Optional[Tuple[int, int]] = None,
         test_split: str = "test",
+        resample_every_epoch: bool = True,
+        device_features: bool = False,
     ):
         self.features_size = features_size
         self.batch_size = batch_size
@@ -75,6 +128,11 @@ class KWSDataMod:
         if self.test_info is not None:
             assert self.test_info.name in ("aishell", "acl")
 
+        self.resample_every_epoch = resample_every_epoch
+        self.device_features = device_features
+        self.collate_fn1 = RawKWSDataCollator() if device_features else KWSDataCollator(size=features_size)
+        self.collate_fn2 = HotwordDataCollator()
+
     def _make_val_dataset(self, ds: DatasetInfo):
         if ds.name == "aishell":
             return AishellHotwordDataset(
@@ -94,16 +152,34 @@ class KWSDataMod:
         )
 
     def setup(self, stage=None):
-        if stage in ("fit", None):
-            raise NotImplementedError(
-                "KWS training data (setup('fit')) is not ported yet: ROADMAP.md §1 item 5"
-            )
-        if stage == "validate":
+        if stage in ("fit", "validate", None):
             self.val_dataset = {
                 f"{ds.name}/{ds.kw_type}": self._make_val_dataset(ds) for ds in self.val_info
             }
+        if stage in ("fit", None) and self.train_info:
+            info = self.train_info[0]
+            dataset_cls = AishellKWSDataset if info.name == "aishell" else MLSKWSDataset
+
+            def make(kw_type):
+                raw = {"raw_features": True} if self.device_features else {}
+                if info.name == "aishell":
+                    return dataset_cls(root=info.root, kw_type=kw_type, **raw)
+                return dataset_cls(root=info.root, languages=MLS_LANGUAGES, kw_type=kw_type, **raw)
+
+            if info.kw_type != "all":
+                self.fit_dataset = make(info.kw_type)
+                sampler_source = self.fit_dataset
+            else:
+                self.fit_dataset = ConcatDataset([make("tts"), make("natural")])
+                sampler_source = self.fit_dataset.datasets[0]
+            self.sampler = KWSSampler(
+                data_source=sampler_source,
+                sampling=self.sampling,
+                negative_examples={"random": 1, "lexicographic": 2},
+                resample_every_epoch=self.resample_every_epoch,
+            )
         if (
-            stage == "test"
+            stage in ("test", None)
             and self.test_info is not None
             and getattr(self, "test_dataset", None) is None
         ):
@@ -131,3 +207,14 @@ class KWSDataMod:
                     kw_type=info.kw_type,
                     load_audio=True,
                 )
+
+    def train_dataloader(self):
+        return DataLoader(self.fit_dataset, batch_size=self.batch_size,
+                          collate_fn=self.collate_fn1, sampler=self.sampler)
+
+    def val_dataloader(self):
+        return [DataLoader(dataset, batch_size=1, collate_fn=self.collate_fn2)
+                for dataset in self.val_dataset.values()]
+
+    def test_dataloader(self):
+        return DataLoader(self.test_dataset, batch_size=1, collate_fn=self.collate_fn2)

@@ -1,6 +1,12 @@
-"""Paper-1 KWS engine, evaluation half (port of
-enhance_cb_whisper_tpu/runtime/kws_engine.py: everything but training).
+"""Paper-1 KWS engine: fit / validate / test (port of
+enhance_cb_whisper_tpu/runtime/kws_engine.py).
 
+* ``fit`` — the epoch loop over the sampler-driven train loader, one train
+  step per batch (:mod:`..train.kws_train`), StepLR at epoch boundaries,
+  the suppression/beta schedule prints, validation every N epochs, the
+  best checkpoint per monitor + ``final``, early stopping, resume from a
+  checkpoint (optimizer state, global step and best values included), a
+  batch prefetch thread;
 * ``validate`` — per validation dataset: score every utterance against the
   whole keyword catalog, then P/R/F1 at threshold 0.5 from the PR curve,
   per dataloader + averaged + zh/en aggregates;
@@ -16,12 +22,17 @@ alongside, which makes the padding invisible (weights of pad columns are
 0).  The JAX engine's ``vmap`` over an utterance batch is a loop here, so
 the eval scores one utterance at a time, in dataset order, with no bucket
 batching or queue of in-flight calls (those only kept JAX's compiled
-shapes few).  ``fit`` and the training state wait for the training slice.
+shapes few).
+
+The training state (:class:`..train.kws_train.KWSTrainState`) holds the
+models in train mode; :meth:`KWSEngine.variables` hands its classifier to
+the eval methods, which put it in eval mode, and ``fit`` puts it back.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +42,18 @@ from ..metrics import evaluate_with_conf_int, prf_at_threshold
 from ..models.quant import calibrate_act_scales, make_quantized_kws_apply, quantize_resnet_classifier
 from ..models.resnet import ResNetConfig
 from ..ops.resize import resize_matrix
+from ..train.kws_train import (
+    KWSTrainConfig,
+    StepNoise,
+    checkpoint_tree,
+    init_train_state,
+    make_train_step,
+    restore_train_state,
+    step_seed,
+    update_epoch_lr,
+)
+from .checkpoint import CheckpointManager, EarlyStopping, load_checkpoint
+from .logging import MetricsLogger
 from .precision import reference_precision
 
 
@@ -44,12 +67,21 @@ class KWSEngine:
         resnet_config: ResNetConfig = None,
         features_size: Tuple[int, int] = (150, 750),
         device="cuda",
+        config: Optional[KWSTrainConfig] = None,
+        seed: int = 123,
+        ckpt_dir: str = "checkpoints/kws",
+        logger: Optional[MetricsLogger] = None,
     ):
-        """Scoring runs on ``device``, the card by default; a CPU run passes
-        ``device="cpu"``."""
+        """Scoring and training run on ``device``, the card by default; a
+        CPU run passes ``device="cpu"``.  ``config``, ``seed``, ``ckpt_dir``
+        and ``logger`` are the training's."""
         self.resnet_config = resnet_config or ResNetConfig(num_channels=12, num_labels=2)
         self.features_size = tuple(features_size)
         self.device = torch.device(device)
+        self.config = config or KWSTrainConfig()
+        self.seed = seed
+        self.ckpt_dir = ckpt_dir
+        self.logger = logger or MetricsLogger()
         if self.device.type == "cuda":
             reference_precision()
         self._catalog_cache: Dict[int, Any] = {}
@@ -94,6 +126,24 @@ class KWSEngine:
             return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
         return score, batched
+
+    # ------------------------------------------------------------------ state
+
+    def init_state(self):
+        """A fresh training state on the engine's device, drawn from
+        ``seed``."""
+        return init_train_state(self.config, self.resnet_config, seed=self.seed, device=self.device)
+
+    def variables(self, state):
+        """The classifier of ``state`` for the eval methods: its own module
+        in f32, or an f32 copy when it computes in another dtype (the JAX
+        engine validates a bf16-trained state with its f32 model)."""
+        if state.kws.model.feature_extractor.dtype == torch.float32:
+            return state.kws
+        from ..models.kws import KWSModel
+
+        copy = KWSModel(self.resnet_config).to(self.device)
+        return copy.load_converted(state.kws.state_dict())
 
     # ------------------------------------------------------------------- eval
 
@@ -233,3 +283,81 @@ class KWSEngine:
             results[f"{name}_UB"] = ub
         print(results)
         return results
+
+    # -------------------------------------------------------------------- fit
+
+    def fit(
+        self,
+        datamodule,
+        max_epochs: int = 100,
+        check_val_every_n_epoch: int = 1,
+        early_stopping: Optional[EarlyStopping] = None,
+        monitors: Optional[Dict[str, str]] = None,
+        limit_train_batches: Optional[int] = None,
+        resume_from: Optional[str] = None,
+    ):
+        """Train; returns the final training state."""
+        from ..audio.prefetch import prefetch
+
+        datamodule.setup("fit")
+        state = self.init_state()
+        manager = CheckpointManager(
+            self.ckpt_dir,
+            monitors or {"f1_checkpoint": "metrics/f1:max"},
+            hparams=dataclasses.asdict(self.config),
+        )
+        start_epoch, global_step = 0, 0
+        if resume_from is not None:
+            tree, meta = load_checkpoint(resume_from)
+            if not restore_train_state(state, tree):
+                print(f"{resume_from} holds no optimizer state in the port's layout: Adam restarts")
+            start_epoch = int(tree.get("epoch", meta.get("epoch", -1))) + 1
+            # the step counter (per-step noise and logged steps continue the
+            # series) and the best values (or the first validation after the
+            # resume would overwrite a better checkpoint)
+            global_step = int(tree.get("global_step", 0))
+            print(f"resumed from {resume_from} at epoch {start_epoch}")
+            restored_best = manager.restore_best()
+            if restored_best:
+                print(f"restored checkpoint bests: {restored_best}")
+        step_fn = make_train_step(self.config, state)
+
+        for epoch in range(start_epoch, max_epochs):
+            state.epoch = epoch
+            update_epoch_lr(self.config, state)
+            if self.config.adversarial_training or self.config.entropy:
+                print(f"supression={self.config.suppression(epoch):.2f}")
+            if self.config.adversarial_training:
+                print(f"beta={self.config.beta(epoch):.2f}")
+
+            metrics = None
+            # the loader's thread builds batch N+1 (disk reads, the
+            # collator's numpy resize) while the device trains on batch N
+            loader = prefetch(datamodule.train_dataloader(), depth=2)
+            for b_idx, batch in enumerate(loader):
+                if limit_train_batches is not None and b_idx >= limit_train_batches:
+                    loader.close()
+                    break
+                tensors = {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in batch.items()}
+                noise = StepNoise(step_seed(self.seed + 1, global_step), self.device)
+                metrics = step_fn(tensors, noise, self.config.beta(epoch),
+                                  self.config.suppression(epoch))
+                global_step += 1
+            if metrics is not None:  # an epoch can train zero batches
+                self.logger.log_metrics({"train/class_loss": float(metrics["class_loss"])},
+                                        step=global_step, epoch=epoch)
+
+            val_metrics = {}
+            if (epoch + 1) % check_val_every_n_epoch == 0 and datamodule.val_dataset:
+                self._catalog_cache.clear()
+                val_metrics = self.validate(self.variables(state), datamodule)
+                state.kws.train()  # the eval put the classifier in eval mode
+                self.logger.log_metrics(val_metrics, step=global_step, epoch=epoch)
+            saved = manager.step(epoch, val_metrics, checkpoint_tree(state, global_step))
+            if self.logger.log_model:
+                for path in saved:
+                    self.logger.log_artifact(path)
+            if val_metrics and early_stopping is not None and early_stopping.step(val_metrics):
+                print(f"early stopping at epoch {epoch}")
+                break
+        return state

@@ -31,7 +31,7 @@ margins so that some keywords are spotted and others not.
 * An unfilled placeholder exits both CLIs with the same message; what the
   port does not carry raises ``NotImplementedError`` (the paper-2 models,
   and ``kv_staging`` with ``kv_cache_int8``, whose JAX results the port
-  cannot give); ``kv_staging`` alone is accepted; the language table equals ``transformers``' and the
+  cannot give); ``fit`` without ``train_info`` raises; ``kv_staging`` alone is accepted; the language table equals ``transformers``' and the
   generation options match the JAX CLI's for ``language: null`` and
   ``max_initial_timestamp_index: 0``.
 * The kernels' lazy loaders and launch counters are safe under threads (the
@@ -385,7 +385,9 @@ def test_unported_knobs_raise(env, tmp_path, override, item):
 
 
 def test_kws_fit_raises(env, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 5"):
+    """``fit`` runs (``tests/test_torch_fit.py``), but not without a
+    training dataset."""
+    with pytest.raises(ValueError, match="train_info"):
         port_cli.run_cli(["fit", "--config", _kws_config(env, tmp_path / "kws.yaml")], device="cpu")
 
 

@@ -8,7 +8,8 @@ Catalogs must be equal (keywords, ``hs``, ``frames``, ``mask``,
 labels, speaker, mentions, ``utt_hs`` and ``hotword_mask``.  The data
 module's ``setup("validate")`` and ``setup("test")`` build the same
 datasets (the test one once), its constructor checks the same, and
-``setup("fit")`` raises until training is ported."""
+``setup("fit")`` builds the validation datasets too (the training datasets
+are held in ``tests/test_torch_train_data.py``)."""
 
 import os
 import shutil
@@ -117,8 +118,11 @@ def test_datamodule_matches_jax(roots):
     first = port.test_dataset
     port.setup("test")
     assert port.test_dataset is first  # built once
-    with pytest.raises(NotImplementedError, match="item 5"):
-        port.setup("fit")
+    for dm in (port, jax_dm):
+        dm.setup("fit")
+    assert list(port.val_dataset) == list(jax_dm.val_dataset)
+    for name in jax_dm.val_dataset:
+        _assert_datasets_equal(port.val_dataset[name], jax_dm.val_dataset[name])
 
 
 @pytest.mark.parametrize("kwargs, error", [

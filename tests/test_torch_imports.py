@@ -33,6 +33,9 @@ def test_port_imports_no_jax():
     modules = _modules()
     assert "enhance_cb_whisper_tpu_torch.models.cb_whisper" in modules
     assert "enhance_cb_whisper_tpu_torch.runtime.serving" in modules
+    for name in ("train.kws_train", "train.optim", "data.samplers", "data.collators",
+                 "runtime.logging"):
+        assert f"enhance_cb_whisper_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -96,6 +99,7 @@ def test_entry_points_default_to_the_card():
         load_whisper_from_safetensors,
     )
     from enhance_cb_whisper_tpu_torch.runtime.kws_engine import KWSEngine
+    from enhance_cb_whisper_tpu_torch.train.kws_train import StepNoise, init_train_state
 
     cfg = WhisperConfig(vocab_size=16, d_model=8, encoder_layers=1, decoder_layers=1,
                         encoder_attention_heads=2, decoder_attention_heads=2,
@@ -117,7 +121,8 @@ def test_entry_points_default_to_the_card():
     assert WhisperGenerator(cfg, {}).device.type == "cuda"
     assert KWSEngine().device.type == "cuda"
     # the CLI and the checkpoint loaders hand their device down to these
-    for fn in (run_cli, load_whisper_from_pretrained, load_whisper_from_safetensors, load_hf_whisper):
+    for fn in (run_cli, load_whisper_from_pretrained, load_whisper_from_safetensors, load_hf_whisper,
+               init_train_state, StepNoise):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
     for name, call in calls.items():
         if torch.cuda.is_available():
