@@ -32,6 +32,7 @@ the eval methods, which put it in eval mode, and ``fit`` puts it back.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -334,15 +335,19 @@ class KWSEngine:
             # the loader's thread builds batch N+1 (disk reads, the
             # collator's numpy resize) while the device trains on batch N
             loader = prefetch(datamodule.train_dataloader(), depth=2)
-            for b_idx, batch in enumerate(loader):
-                if limit_train_batches is not None and b_idx >= limit_train_batches:
-                    loader.close()
-                    break
-                tensors = {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in batch.items()}
-                noise = StepNoise(step_seed(self.seed + 1, global_step), self.device)
-                metrics = step_fn(tensors, noise, self.config.beta(epoch),
-                                  self.config.suppression(epoch))
-                global_step += 1
+            # stop at the limit without waiting for a batch that is not trained
+            batches = loader if limit_train_batches is None else itertools.islice(
+                loader, limit_train_batches)
+            try:
+                for batch in batches:
+                    tensors = {k: torch.from_numpy(np.asarray(v)).to(self.device)
+                               for k, v in batch.items()}
+                    noise = StepNoise(step_seed(self.seed + 1, global_step), self.device)
+                    metrics = step_fn(tensors, noise, self.config.beta(epoch),
+                                      self.config.suppression(epoch))
+                    global_step += 1
+            finally:
+                loader.close()
             if metrics is not None:  # an epoch can train zero batches
                 self.logger.log_metrics({"train/class_loss": float(metrics["class_loss"])},
                                         step=global_step, epoch=epoch)
