@@ -6,6 +6,7 @@
     python3 chip_smoke.py --serving  # the kernels' build, phase A2 and phase F alone
     python3 chip_smoke.py --levers   # the kernels' build, phase A2 and phase G alone
     python3 chip_smoke.py --train    # phase H (paper-1 training) alone
+    python3 chip_smoke.py --paper2   # the kernels' build, phase A2 at paper 2's shapes and phase I alone
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, started together), then:
@@ -24,7 +25,9 @@ A2. holds the fused s8 matmul + requant kernel K2 (csrc/matmul_s8.cu)
     without a residual and with one scaled by an [N] or a 0-d res_scale:
     zero differing int8 codes allowed, and two launches of a split-K plan
     give identical bytes; the int8 runs of B and D record the shapes they
-    launch and must launch exactly these;
+    launch and must launch exactly these; then the same at paper 2's
+    shapes (the int8 ResNet-50 on 3 x 150 x 1500 and LEF's 3 x 75 x 750
+    maps, chunks of 50: 22 launches each);
 B.  checks that building ``CBWhisper`` on the card turns TF32 off; checks
     the CUDA path against the CPU path on a tiny random CB-Whisper, in fp32
     and with int8 spotting on a K2-eligible ResNet (identical keywords and
@@ -37,7 +40,8 @@ B.  checks that building ``CBWhisper`` on the card turns TF32 off; checks
     back through the port's resampler — at whisper-medium widths (random
     weights from a numpy seed) with the 12-channel ResNet-50 KWS scorer at
     150x750, layer slice (10, 22), a 100-keyword catalog and beam-5 fp32
-    decoding with condition-on-prev and timestamps: once with the fp32
+    decoding with condition-on-prev and timestamps, each window capped at
+    ``MEDIUM_DECODE`` positions (the random decoder never ends a window): once with the fp32
     scorer, once with the int8 scorer (``enable_int8_spotting``, calibrated
     on a warm-up utterance, stages 1-3 on K2), counting each kernel's
     launches over exactly each ``run_test`` (K1 once per utterance, K2 22
@@ -111,6 +115,20 @@ H.  paper-1 training, which launches neither kernel (the count of each is
     torch.profiler split of one step's device time (convolutions forward
     and backward, BatchNorm, the optimizer, the rest) with its idle share;
     the losses must be finite and the weights must move;
+I.  paper 2 (the L/LE/LEF eval, ``efficient_kws/``), which launches no K1
+    and K2 only under ``kws_int8`` (the kernel line's ``paper2_launches``,
+    over I2 and I3): I1 holds a tiny model's probabilities CPU = card for L,
+    LE and LEF and, with ``kws_int8`` on a ResNet whose 1x1s take K2, its
+    decisions; I2 runs ``run_cli(["test", ...])`` on
+    configs/efficient_kws/eval-{L,LE,LEF}-comp-acl.yaml at full width
+    (ResNet-50, 3 x 1024 stacks, 150 x 1500) from reference .ckpt files
+    over a 100-keyword, 4-utterance ACL-6060 layout written under
+    build/chip_smoke/phase_i/ (deleted at the end), and LEF again with
+    ``kws_int8``, whose K2 launches must be exactly 22 per chunk of 50 at
+    A2's LEF shapes; I3 times bench_catalog100k.py's workload: the
+    projected scorer in fp32 (1,024 keywords through ``project_catalog``)
+    and bf16 (4,096), and the cascade at 100,352 keywords with a 2,048
+    shortlist, each beside its FLOP bound;
 C.  times K1 and K2 and their plain versions on the card, each by the
     median of CUDA-event timings of CUDA-graph replays (device time
     without host gaps) and of eager calls: K1 at [1, 480000], [8, 480000]
@@ -118,7 +136,7 @@ C.  times K1 and K2 and their plain versions on the card, each by the
     per call and, for scale, torch.stft's cuFFT sequence, which the port
     never calls; K2 at each shape of a chunk with its launch plan, bound,
     multiple of the bound and GB/s, beside torch._int_mm (cuBLASLt's int8
-    product alone) for scale.
+    product alone) for scale; the same for a chunk of 50 paper-2 LEF maps.
 
 Any failure raises and exits non-zero.  The line before the last is the
 kernel summary as JSON, the last line the device as JSON.  Needs one card;
@@ -155,6 +173,10 @@ LONGFORM_SECONDS = 47.5  # two windows: 30 s + 17.5 s
 # published peaks of one H100 SXM (dense): HBM bytes/s, FP32 FLOP/s, int8 OP/s
 HBM_RATE, FP32_RATE, INT8_RATE = 3.35e12, 67e12, 1979e12
 BF16_RATE = 989e12  # dense bf16 tensor-core FLOP/s
+# decode cap of the random whisper-medium's runs (phases B, F2, G2, G3): its
+# decoder never emits eos, so each window decoded to 448 positions (439
+# beam steps) before; the cap cuts that depth to make room for phase I
+MEDIUM_DECODE = 128
 
 
 def _audio(batch: int, n_samples: int, rng: np.random.Generator) -> np.ndarray:
@@ -299,13 +321,14 @@ def _k2_inputs(rng, m, k, n, residual, device):
     def put(a):
         return torch.from_numpy(a).to(device)
 
-    x = put(rng.integers(-127, 128, (m, k)).astype(np.int8))
-    w_nk = put(rng.integers(-127, 128, (n, k)).astype(np.int8))
+    # drawn as int8 directly: paper 2's shapes reach 182 MB an operand
+    x = put(rng.integers(-127, 128, (m, k), dtype=np.int8))
+    w_nk = put(rng.integers(-127, 128, (n, k), dtype=np.int8))
     scale = put((rng.uniform(0.5, 2.0, n) * 1e-4).astype(np.float32))
     bias = put(rng.normal(0, 0.5, n).astype(np.float32))
     res = {}
     if residual:
-        res = dict(residual=put(rng.integers(-127, 128, (m, n)).astype(np.int8)),
+        res = dict(residual=put(rng.integers(-127, 128, (m, n), dtype=np.int8)),
                    res_scale=put((rng.uniform(0.5, 2.0, n) * 1e-3).astype(np.float32)))
         if residual == "scalar":
             res["res_scale"] = res["res_scale"][0].clone()
@@ -323,8 +346,9 @@ def _plan_text(m, k, n) -> str:
     return f"tile {p.bm}x128, split {p.split}, {p.ctas} CTAs"
 
 
-def phase_a2(device, shapes):
-    """K2 against its plain version; returns (differing codes, max |code diff|)."""
+def phase_a2(device, shapes, what=f"chunk of {CHUNK} maps at {KWS_SIZE}", ragged=K2_RAGGED):
+    """K2 against its plain version at ``shapes`` (the launches of one
+    ``what``) and the ``ragged`` M; returns (differing codes, max |code diff|)."""
     import torch
 
     from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda
@@ -332,9 +356,9 @@ def phase_a2(device, shapes):
     from enhance_cb_whisper_tpu_torch.ops.matmul_s8_cuda import launch_plan
 
     rng = np.random.default_rng(SEED + 4)
-    distinct = sorted({(m, k, n) for m, k, n, _ in shapes}) + K2_RAGGED
-    print(f"phase A2: {len(shapes)} K2 launches per chunk of {CHUNK} maps at {KWS_SIZE}, "
-          f"{len(distinct) - len(K2_RAGGED)} distinct shapes, plus {len(K2_RAGGED)} ragged M")
+    distinct = sorted({(m, k, n) for m, k, n, _ in shapes}) + list(ragged)
+    print(f"phase A2: {len(shapes)} K2 launches per {what}, "
+          f"{len(distinct) - len(ragged)} distinct shapes, plus {len(ragged)} ragged M")
     total, worst = 0, 0
     for m, k, n in distinct:
         counts = []
@@ -647,6 +671,7 @@ def _medium_pipeline(device):
     opts = GenerationOptions(
         num_beams=5, return_timestamps=True, condition_on_prev_tokens=True,
         language_token_id=50259, task_token_id=50359, begin_suppress_tokens=(220, 50257),
+        max_target_positions=MEDIUM_DECODE,
     )
     cb = CBWhisper(
         config=CBWhisperConfig(), whisper_config=config, whisper_params=params, kws_model=kws,
@@ -884,12 +909,13 @@ def phase_b_slice(device, shapes):
     return fp32_launches, int8_launches, cb, dataset, stacks
 
 
-def _device_breakdown(label, fn) -> None:
+def _device_breakdown(label, fn):
     """Device time of ``fn()`` by kernel family (torch.profiler) beside its
     wall time: cuDNN convolutions, K2, GEMMs, the rest.  The second of two
     profiled calls is read (the first pays the tracer's start-up).  The
     tracer slows the host, so the idle share is taken against the median
-    wall of three unprofiled calls made just before."""
+    wall of three unprofiled calls made just before.  Returns (that wall,
+    the device time), in ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -928,6 +954,7 @@ def _device_breakdown(label, fn) -> None:
     print(f"{label}: wall {plain_wall_ms!r} ms unprofiled (median of 3: {walls!r}), "
           f"{wall_ms!r} ms under the profiler; device {device_ms!r} ms (idle share "
           f"{1 - device_ms / plain_wall_ms!r} of the unprofiled wall): {parts}")
+    return plain_wall_ms, device_ms
 
 
 class _EvalSet:
@@ -2642,6 +2669,368 @@ def phase_h(device) -> dict:
     return launches
 
 
+# ------------------------------------------------------- phase I: paper 2
+
+PHASE_I_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "phase_i"
+P2_SIZE = (150, 1500)  # features_size of configs/efficient_kws/eval-*.yaml
+P2_LEF_MAPS = (75, 750)  # LEF's maps: both frame axes halved
+P2_CHUNK = 50  # keyword-DB rows per classifier launch (EfficientKWSEngine's chunk)
+P2_N_KW = 100
+P2_VARIANTS = {"L": {}, "LE": {"learn_features": True, "proj_mlp": True},
+               "LEF": {"learn_features": True, "proj_mlp": True, "frames_conv": True}}
+
+
+def p2_k2_shapes() -> dict:
+    """K2's launches per chunk of the paper-2 int8 ResNet-50 (3 channels):
+    L and LE at 150 x 1500 maps, LEF at 75 x 750."""
+    from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
+
+    cfg = ResNetConfig.from_version("resnet-50", num_channels=3)
+    return {"L/LE": k2_launch_shapes(cfg, size=P2_SIZE, batch=P2_CHUNK),
+            "LEF": k2_launch_shapes(cfg, size=P2_LEF_MAPS, batch=P2_CHUNK)}
+
+
+def resnet_conv_flops(cfg, size) -> int:
+    """FLOPs (2 per multiply-add) of every convolution of one ResNet forward
+    over one map of ``size``: stem, block convolutions and shortcuts."""
+    def conv(n, k, s):
+        return (n + 2 * (k // 2) - k) // s + 1
+
+    h, w = conv(size[0], 7, 2), conv(size[1], 7, 2)
+    flops = 2 * 49 * cfg.num_channels * cfg.embedding_size * h * w
+    h, w, in_ch = conv(h, 3, 2), conv(w, 3, 2), cfg.embedding_size
+    for stage, (width, depth) in enumerate(zip(cfg.hidden_sizes, cfg.depths)):
+        for block in range(depth):
+            stride = (2 if stage > 0 or cfg.downsample_in_first_stage else 1) if block == 0 else 1
+            ho, wo = conv(h, 3, stride), conv(w, 3, stride)
+            if cfg.layer_type == "bottleneck":
+                red = width // 4
+                flops += 2 * (in_ch * red * h * w + 9 * red * red * ho * wo + red * width * ho * wo)
+            else:
+                flops += 2 * 9 * (in_ch * width + width * width) * ho * wo
+            if in_ch != width or stride != 1:
+                flops += 2 * in_ch * width * ho * wo
+            h, w, in_ch = ho, wo, width
+    return flops
+
+
+def _init_p2_model(model, seed: int):
+    """Random weights for a paper-2 model, drawn on the CPU from ``seed``:
+    He-normal convolutions, LeCun-normal linears with zero biases, identity
+    BatchNorm statistics, and the last BatchNorm of each residual branch at
+    0.2 (nonzero, so K2's fused tails compute something)."""
+    import torch
+    from torch import nn
+
+    from enhance_cb_whisper_tpu_torch.models.resnet import BatchNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    last = "layer_2.normalization" if model.config.resnet_config().layer_type == "bottleneck" \
+        else "layer_1.normalization"
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+                gain = 1.0 if isinstance(m, nn.Linear) else 2.0
+                m.weight.normal_(0.0, float(np.sqrt(gain / m.weight[0].numel())), generator=gen)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, BatchNorm):
+                m.weight.fill_(0.2 if name.endswith(last) else 1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+    return model.eval()
+
+
+def _p2_centre(engine, model, dataset, n_items: int) -> float:
+    """Move the class-1 bias into the widest gap of the first items' real
+    margins (:func:`_gap_shift`): both decisions occur, far from 0.5."""
+    import torch
+
+    margins = []
+    for i in range(n_items):
+        item = dataset[i]
+        _, logits = engine.score_item(model, dataset, item)
+        margins.extend((logits[:, 1] - logits[:, 0])[item["hotword_mask"] > 0].tolist())
+    shift = _gap_shift(margins)
+    with torch.no_grad():
+        model.classifier.bias[1] -= shift
+    return shift
+
+
+def _p2_datamodule(root: Path, size, n_layers: int, group: int):
+    from enhance_cb_whisper_tpu_torch.efficient_kws.data import EfficientKWSDataMod
+
+    dm = EfficientKWSDataMod(batch_size=1, features_size=size, n_layers=n_layers, keywords_per_group=group,
+                             test_info={"name": "acl", "root": str(root), "kw_type": "tts"})
+    dm.setup("test")
+    return dm
+
+
+def phase_i1(device) -> None:
+    """CPU = card on a tiny paper-2 model (2 layers, D 16, U 8, ResNet-18 at
+    32 x 64) over a 10-keyword ACL-6060 layout: every keyword's probability
+    within rtol 1e-4 / atol 1e-5 for L, LE and LEF and ``test``'s metrics
+    equal; then LE with ``kws_int8`` on a ResNet whose stage_1 1x1s take K2:
+    probabilities within 1e-3, the same decisions and metrics, K2 launched
+    on the card."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.efficient_kws.engine import EfficientKWSEngine
+    from enhance_cb_whisper_tpu_torch.efficient_kws.model import EfficientKWSConfig, EfficientKWSModel
+    from enhance_cb_whisper_tpu_torch.models.quant import s8_stages
+    from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda
+
+    rng = np.random.default_rng(SEED + 8)
+    keywords = [f"term{i}" for i in range(10)]
+    stacks = _stacks(rng, len(keywords), 3, lambda i: int(rng.integers(4, 20)), 16)
+    _write_acl(PHASE_I_DIR / "tiny", keywords, stacks,
+               _utterances(rng, [(1.0, 16000), (1.5, 16000), (0.8, 16000)], keywords, 3, 16))
+    dm = _p2_datamodule(PHASE_I_DIR / "tiny", (32, 64), 2, 4)
+    ds = dm.test_dataset
+    tiny_k2 = ResNetConfig(num_channels=2, embedding_size=32, hidden_sizes=(128, 512), depths=(1, 3))
+
+    @dataclasses.dataclass(frozen=True)
+    class K2Tiny(EfficientKWSConfig):
+        def resnet_config(self):
+            return tiny_k2
+
+    runs = [(v, EfficientKWSConfig(n_layers=2, embedding_dim=16, proj_mlp_units=8, resnet_version="resnet-18",
+                                   **P2_VARIANTS[v]), False) for v in P2_VARIANTS]
+    runs.append(("LE kws_int8", K2Tiny(n_layers=2, embedding_dim=16, proj_mlp_units=8, **P2_VARIANTS["LE"]), True))
+    for label, cfg, int8 in runs:
+        cpu_model = _init_p2_model(EfficientKWSModel(cfg), SEED)
+        engines = {dev: EfficientKWSEngine(cfg, device=dev, chunk=4) for dev in ("cpu", device)}
+        _p2_centre(engines["cpu"], cpu_model, ds, len(ds))
+        models = {"cpu": cpu_model, device: copy.deepcopy(cpu_model).to(device)}
+        probs, results = {}, {}
+        for dev, engine in engines.items():
+            if int8:
+                engine.enable_int8_scoring(models[dev], items=[ds[0], ds[1]], s8_1x1=s8_stages(tiny_k2))
+            matmul_s8_cuda.launches = 0
+            probs[dev] = np.concatenate([engine.score_item(models[dev], ds, ds[i])[0] for i in range(len(ds))])
+            launches = matmul_s8_cuda.launches
+            results[dev] = engine.test(models[dev], dm, num_bootstraps=100)
+        got, want = torch.from_numpy(probs[device]), torch.from_numpy(probs["cpu"])
+        max_abs, _, ok = _close(got, want)
+        if int8:  # bf16 intermediates can round a code the other way: the engine tests' 1e-3
+            ok = max_abs <= 1e-3
+        same = bool(((got > 0.5) == (want > 0.5)).all())
+        print(f"phase I1 {label}: tiny model cpu vs cuda, {len(ds)} utterances x {len(keywords)} keywords: "
+              f"max |p diff| {max_abs!r} ({'atol 1e-3' if int8 else f'rtol {RTOL}, atol {ATOL}'}) "
+              f"{'ok' if ok else 'over'}; decisions equal {same}; test() equal "
+              f"{results['cpu'] == results[device]}; K2 launches on the card {launches}")
+        if not (same and ok and results["cpu"] == results[device]):
+            raise RuntimeError(f"phase I1 {label}: the card disagrees with the CPU: {results}")
+        if int8 and launches <= 0:
+            raise RuntimeError("phase I1: the int8 paper-2 scorer never launched K2")
+
+
+def phase_i2(device, shapes) -> dict:
+    """The CLI at full width on the card: an ACL-6060 test layout of 100
+    keywords (12-layer 1024-wide stacks of 4-39 frames) and 4 utterances of
+    500-1500 frames, a reference Lightning .ckpt per variant (random
+    weights, the class-1 bias in a gap of the margins), then
+    ``run_cli(["test", "--config", configs/efficient_kws/eval-{L,LE,LEF}-
+    comp-acl.yaml, ...])`` and LEF once more with ``kws_int8``: wall, device
+    ms per pair and idle share (one 30 s utterance, torch.profiler), peak
+    memory, P/R/F1, and under int8 K2's launches against ``shapes``."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.cli import run_cli
+    from enhance_cb_whisper_tpu_torch.efficient_kws.engine import EfficientKWSEngine
+    from enhance_cb_whisper_tpu_torch.efficient_kws.model import EfficientKWSConfig, EfficientKWSModel
+    from enhance_cb_whisper_tpu_torch.efficient_kws.torch_compat import lightning_efficient_kws
+    from enhance_cb_whisper_tpu_torch.models.quant import s8_stages
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, mel_cuda
+
+    rng = np.random.default_rng(SEED + 9)
+    root = PHASE_I_DIR / "acl"
+    keywords = [f"term{i}" for i in range(P2_N_KW)]
+    t0 = time.perf_counter()
+    stacks = _stacks(rng, P2_N_KW, 12, lambda i: int(rng.integers(4, 40)), 1024)
+    utterances = _utterances(rng, [(30.0, 16000), (30.0, 16000), (20.0, 16000), (10.0, 16000)], keywords, 12, 1024)
+    _write_acl(root, keywords, stacks, utterances)
+    dm = _p2_datamodule(root, P2_SIZE, 3, P2_CHUNK)
+    ds = dm.test_dataset
+    print(f"phase I2: ACL-6060 layout of {P2_N_KW} keywords and {len(utterances)} utterances of "
+          f"{[u['hs'].shape[1] for u in utterances]} frames (12 x 1024 stacks) written and read in "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches = {"mel": 0, "k2": 0}
+    runs = [(v, False) for v in P2_VARIANTS] + [("LEF", True)]
+    for i, (variant, int8) in enumerate(runs):
+        label = f"phase I2 {variant}" + (" kws_int8" if int8 else "")
+        cfg = EfficientKWSConfig(**P2_VARIANTS[variant])  # n_layers 3, D 1024, U 64, ResNet-50
+        model = _init_p2_model(EfficientKWSModel(cfg), SEED + i).to(device)
+        engine = EfficientKWSEngine(cfg, device=device)
+        shift = _p2_centre(engine, model, ds, 2)
+        ckpt = PHASE_I_DIR / f"{variant}.ckpt"
+        torch.save({"state_dict": lightning_efficient_kws(model.state_dict(), cfg)}, str(ckpt))
+        if int8:
+            engine.enable_int8_scoring(model, items=[ds[j] for j in range(4)], s8_1x1=s8_stages(cfg.resnet_config()))
+        _, device_ms = _device_breakdown(f"{label}: one 30 s utterance x {P2_N_KW} keywords",
+                                         lambda: engine.score_item(model, ds, ds[0]))
+        argv = ["test", "--config", str(CONFIGS / "efficient_kws" / f"eval-{variant}-comp-acl.yaml"),
+                "--set", f"CKPT={ckpt}", "--set", "THRESHOLD=0.5", "--set", f"ACL_ROOT={root}"]
+        if int8:
+            argv += ["--model.init_args.kws_int8", "true"]
+        del model, engine
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mel_cuda.launches = matmul_s8_cuda.launches = 0
+        t0 = time.perf_counter()
+        with _recorded_k2_shapes() as k2_shapes:
+            results = run_cli(argv)  # the default device: the card
+        wall = time.perf_counter() - t0
+        run = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches, "k2_shapes": k2_shapes}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        pairs = len(ds) * P2_N_KW
+        print(f"{label}: run_cli {wall!r} s for {len(ds)} utterances x {P2_N_KW} keywords "
+              f"({wall / pairs * 1e3!r} ms per pair, checkpoint read and int8 calibration included); device "
+              f"{device_ms / P2_N_KW!r} ms per pair (above); peak {peak!r} GiB; class-1 shift {shift!r}; "
+              f"P {results['Precision']!r} [{results['Precision_LB']!r}, {results['Precision_UB']!r}] "
+              f"R {results['Recall']!r} F1 {results['F1']!r}; K1 launches {run['mel']}, K2 launches {run['k2']}")
+        if not all(np.isfinite(v) and 0 <= v <= 1 for v in results.values()):
+            raise RuntimeError(f"{label}: invalid metrics {results}")
+        if int8:
+            chunks = -(-P2_N_KW // P2_CHUNK)
+            _check_k2_main_path(label, run, shapes, chunks * len(ds), f"{chunks} chunks x {len(ds)} utterances")
+        elif run["k2"]:
+            raise RuntimeError(f"{label}: the fp32 scorer launched K2")
+        launches = {k: launches[k] + run[k] for k in launches}
+    return launches
+
+
+def _event_ms(fn, reps: int = 3) -> float:
+    """Median device time of ``fn()`` by CUDA events, after one warm-up."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_i3(device) -> dict:
+    """Catalog scoring at the paper's scale (bench_catalog100k.py's
+    workload: LEF, ResNet-50, U 64, a 1500-frame utterance, chunks of 128,
+    random weights): ``project_catalog`` of 1,024 raw keywords [3, 150,
+    1024] and ``make_projected_score_fn`` over them in fp32; the bench's
+    bf16 projected catalog [N, 3, 75, 64] at N = 4,096; and
+    ``make_cascade_score_fn`` at N = 100,352 with a shortlist of 2,048 (bf16
+    proxy).  Keywords/s, device ms (CUDA events), peak memory and each run's
+    bound: the ResNet's convolution FLOPs per pair (plus the proxy's
+    similarity FLOPs for the cascade) at the FP32 or bf16 peak, or the
+    catalog's bytes at the HBM rate, whichever is larger."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.efficient_kws.catalog import (
+        make_cascade_score_fn,
+        make_projected_score_fn,
+        project_catalog,
+    )
+    from enhance_cb_whisper_tpu_torch.efficient_kws.model import EfficientKWSConfig, EfficientKWSModel
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, mel_cuda
+
+    mel_cuda.launches = matmul_s8_cuda.launches = 0
+    chunk, layers, units = 128, 3, 64
+    cfg = EfficientKWSConfig(**P2_VARIANTS["LEF"])
+    model = _init_p2_model(EfficientKWSModel(cfg), SEED + 20).to(device)
+    bf16 = EfficientKWSModel(cfg, dtype=torch.bfloat16).to(device).eval()
+    bf16.load_state_dict(model.state_dict())
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    utt = torch.randn((1, layers, P2_SIZE[1], 1024), generator=gen, device=device)
+    utt_mask = torch.ones((1, layers, P2_SIZE[1]), device=device)
+    flops = resnet_conv_flops(cfg.resnet_config(), P2_LEF_MAPS)
+
+    def random_catalog(n):
+        """The bench's pre-projected LEF catalog, made on the card in bf16."""
+        return {"kwd": torch.randn((n, layers, P2_LEF_MAPS[0], units), generator=gen, device=device,
+                                   dtype=torch.bfloat16),
+                "kwd_mask": torch.ones((n, layers, P2_LEF_MAPS[0]), device=device, dtype=torch.bfloat16),
+                "mask": torch.ones((n,), device=device), "num_keywords": n, "chunk": chunk}
+
+    def report(label, n, score, catalog, rate, extra_flops=0, exact=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = _event_ms(lambda: score(catalog, utt, utt_mask))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        probs = score(catalog, utt, utt_mask)
+        scored = n if exact is None else exact
+        ops = scored * flops + extra_flops
+        cat_bytes = catalog["kwd"].numel() * catalog["kwd"].element_size()
+        bound = max(ops / rate, cat_bytes / HBM_RATE) * 1e3
+        print(f"phase I3 {label}: {n} keywords in {ms!r} ms (device, CUDA events, median of 3) = "
+              f"{n / ms * 1e3!r} keywords/s ({scored / ms * 1e3!r} exactly scored/s); bound {bound!r} ms "
+              f"({ops:.4g} FLOP at {rate / 1e12:.0f} TFLOP/s, {cat_bytes} B of catalog), {ms / bound!r}x it; "
+              f"peak {peak!r} GiB")
+        if not (bool(torch.isfinite(probs).all()) and probs.shape == (n,)):
+            raise RuntimeError(f"phase I3 {label}: invalid scores")
+        return probs
+
+    # fp32: 1,024 raw keyword stacks on the card, projected in groups of 128
+    groups = [{"kwd": torch.randn((chunk, layers, P2_SIZE[0], 1024), generator=gen, device=device),
+               "kwd_mask": torch.ones((chunk, layers, P2_SIZE[0]), device=device),
+               "mask": torch.ones((chunk,), device=device)} for _ in range(8)]
+    t0 = time.perf_counter()
+    catalog = project_catalog(model, groups, chunk=chunk)
+    torch.cuda.synchronize()
+    print(f"phase I3: project_catalog of 1024 keywords [3, {P2_SIZE[0]}, 1024] -> {tuple(catalog['kwd'].shape)} in "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    del groups
+    fp32 = report("projected fp32", 1024, make_projected_score_fn(model, chunk=chunk), catalog, FP32_RATE)
+    cat16 = {**catalog, "kwd": catalog["kwd"].to(torch.bfloat16), "kwd_mask": catalog["kwd_mask"].to(torch.bfloat16)}
+    probs16 = make_projected_score_fn(bf16, chunk=chunk)(cat16, utt, utt_mask)
+    print(f"phase I3: bf16 against fp32 on the same 1024 keywords: max |p diff| "
+          f"{(probs16 - fp32).abs().max().item()!r}, spread of fp32 p {(fp32.max() - fp32.min()).item()!r}")
+    del catalog, cat16
+    report("projected bf16", 4096, make_projected_score_fn(bf16, chunk=chunk), random_catalog(4096), BF16_RATE)
+    n, shortlist = 100352, 2048
+    big = random_catalog(n)
+    proxy_flops = n * layers * P2_LEF_MAPS[0] * P2_SIZE[1] // 2 * units * 2
+    casc = report(f"cascade bf16 proxy, shortlist {shortlist}", n,
+                  make_cascade_score_fn(bf16, chunk=chunk, shortlist=shortlist), big, BF16_RATE,
+                  extra_flops=proxy_flops, exact=shortlist)
+    rows = torch.nonzero(casc).ravel()
+    again = make_projected_score_fn(bf16, chunk=chunk)(
+        {**big, "kwd": big["kwd"][rows], "kwd_mask": big["kwd_mask"][rows], "mask": big["mask"][rows]},
+        utt, utt_mask)
+    gap = (again - casc[rows]).abs().max().item()
+    print(f"phase I3: cascade rows scored {len(rows)} (at most {shortlist}); the full scorer on those rows "
+          f"gives them within {gap!r}")
+    if len(rows) > shortlist or gap > 1e-3:
+        raise RuntimeError("phase I3: the cascade's shortlist disagrees with the full scorer")
+    return {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches}
+
+
+def phase_i(device, shapes) -> dict:
+    """Paper 2 on the card: I1, I2, I3.  Returns the kernels' launches over
+    I2 and I3 (the kernel line's ``paper2_launches``); the phase's files
+    are deleted at the end, pass or fail."""
+    import shutil
+
+    t0 = time.perf_counter()
+    try:
+        phase_i1(device)
+        launches = phase_i2(device, shapes)
+        more = phase_i3(device)
+    finally:
+        shutil.rmtree(PHASE_I_DIR, ignore_errors=True)
+    launches = {k: launches[k] + more[k] for k in launches}
+    print(f"phase I: {time.perf_counter() - t0:.1f} s; kernel launches over I2 and I3 {launches}")
+    return launches
+
+
 def _median_ms(fn, reps: int = 25) -> float:
     import torch
 
@@ -2816,8 +3205,8 @@ def _int_mm_ms(x, w):
         return None
 
 
-def phase_c_k2(device, shapes):
-    """K2 and its plain version at each shape of a chunk: device time (CUDA
+def phase_c_k2(device, shapes, what=f"chunk of {CHUNK} maps"):
+    """K2 and its plain version at each shape of a ``what``: device time (CUDA
     graph) and eager wrapper time, summed over the chunk's 22 launches;
     the byte and operation bound of the same work; the launch plan; and,
     for scale, cuBLASLt's int8 product alone.  No single PyTorch call
@@ -2844,7 +3233,7 @@ def phase_c_k2(device, shapes):
         ops = 2 * m * n * k
         bytes_ = m * k + k * n + m * n + 2 * 4 * n + ((m * n + 4) if residual else 0)
         bound = max(ops / INT8_RATE, bytes_ / HBM_RATE) * 1e3
-        print(f"phase C: K2 (M, K, N)={(m, k, n)} residual={residual} x{count} per chunk "
+        print(f"phase C: K2 (M, K, N)={(m, k, n)} residual={residual} x{count} per {what} "
               f"[{_plan_text(m, k, n)}]: device {ms!r} ms ({k1!r}, {k2!r}) [CUDA-graph replays], "
               f"bound {bound!r} ms ({bytes_} B, {ops} int8 ops), {ms / bound!r}x the bound, "
               f"{bytes_ / ms / 1e6!r} GB/s; eager wrapper {eager!r} ms per launch; plain {plain_ms!r} ms "
@@ -2858,7 +3247,7 @@ def phase_c_k2(device, shapes):
         totals["bound_ms"] += bound * count
         totals["ops"] += ops * count
         totals["bytes"] += bytes_ * count
-    print(f"phase C: K2 per chunk of {CHUNK} maps ({len(shapes)} launches): device {totals['ms']!r} ms "
+    print(f"phase C: K2 per {what} ({len(shapes)} launches): device {totals['ms']!r} ms "
           f"({totals['ms'] / totals['bound_ms']!r}x the bound), plain {totals['plain_ms']!r} ms; eager "
           f"{totals['eager_ms']!r} ms ({totals['eager_ms'] / len(shapes)!r} ms per launch), plain eager "
           f"{totals['plain_eager_ms']!r} ms; bound {totals['bound_ms']!r} ms "
@@ -2876,7 +3265,7 @@ def _card() -> str:
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--k1"], ["--serving"], ["--levers"], ["--train"]):
+    if argv not in ([], ["--k1"], ["--serving"], ["--levers"], ["--train"], ["--paper2"]):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2908,6 +3297,15 @@ def main(argv) -> int:
         return 0
     build_kernels()
     shapes = k2_launch_shapes(ResNetConfig.from_version("resnet-50", num_channels=12))
+    p2_shapes = p2_k2_shapes()
+    if argv == ["--paper2"]:  # phase A2 at paper 2's shapes and phase I alone
+        for name, group in p2_shapes.items():
+            phase_a2(device, group, f"chunk of {P2_CHUNK} paper-2 {name} maps", ragged=())
+        phase_i(device, p2_shapes["LEF"])
+        phase_c_k2(device, p2_shapes["LEF"], f"chunk of {P2_CHUNK} paper-2 LEF maps")
+        print(f"chip_smoke --paper2: passed in {time.perf_counter() - t_start:.1f} s")
+        print(_card())
+        return 0
     if argv == ["--serving"]:  # phase A2 and the serving phase F alone
         phase_a2(device, shapes)
         phase_f1(device)
@@ -2931,6 +3329,9 @@ def main(argv) -> int:
 
     max_abs_err = phase_a(device)
     mismatches, k2_err = phase_a2(device, shapes)
+    for name, group in p2_shapes.items():
+        more, err = phase_a2(device, group, f"chunk of {P2_CHUNK} paper-2 {name} maps", ragged=())
+        mismatches, k2_err = mismatches + more, max(k2_err, err)
     check_tf32_off(device)
     phase_b_reference(device)
     phase_b_longform_reference(device)
@@ -2944,8 +3345,10 @@ def main(argv) -> int:
     phase_g3(device, cb, dataset, shapes)
     del cb
     train_launches = phase_h(device)
+    paper2_launches = phase_i(device, p2_shapes["LEF"])
     times = phase_c(device)
     k2 = phase_c_k2(device, shapes)
+    phase_c_k2(device, p2_shapes["LEF"], f"chunk of {P2_CHUNK} paper-2 LEF maps")
     k1 = print_k1_bound()
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
@@ -2955,12 +3358,14 @@ def main(argv) -> int:
         {"name": "log10_mel", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
          "launches": fp32_launches["mel"], "cli_launches": cli_launches["mel"],
          "packed_launches": packed_launches["mel"], "levers_launches": levers_launches["mel"],
-         "train_launches": train_launches["mel"], "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+         "train_launches": train_launches["mel"], "paper2_launches": paper2_launches["mel"],
+         "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": k1["ms"], "bound_by": k1["by"], "library_ms": None},
         {"name": "matmul_s8_requant", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
          "launches": int8_launches["k2"], "cli_launches": cli_launches["k2"],
          "packed_launches": packed_launches["k2"], "levers_launches": levers_launches["k2"],
-         "train_launches": train_launches["k2"], "max_abs_err": k2_err, "mismatches": mismatches,
+         "train_launches": train_launches["k2"], "paper2_launches": paper2_launches["k2"],
+         "max_abs_err": k2_err, "mismatches": mismatches,
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
     ]}))

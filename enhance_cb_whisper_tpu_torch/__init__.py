@@ -16,7 +16,10 @@ and the resampling audio front end (``audio/io.py``).  The command line
 (``cli/``: ``cb-whisper.py test`` and ``kws.py test|validate`` from config
 files) reads the eval datasets (``data/``), HF Whisper checkpoint
 directories (``models/whisper_loader.py``) and KWS checkpoints
-(``models/torch_compat.py``, ``runtime/checkpoint.py``).  Entry points run on
+(``models/torch_compat.py``, ``runtime/checkpoint.py``).  Paper 2's
+open-vocabulary spotter (``efficient_kws/``: the L/LE/LEF models, projected
+and cascade catalog scoring, its eval) runs from the same command line.
+Entry points run on
 the card unless the caller passes ``device="cpu"``, and turn TF32 off
 there (``runtime/precision.py``).  The
 package imports torch and numpy, never jax, flax or the JAX package: the

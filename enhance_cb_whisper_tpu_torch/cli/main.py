@@ -6,6 +6,9 @@
 
 * ``model.model.KWSModel``       → paper-1 KWS training (``run_CLI.py fit``)
   and eval (``kws.py test|validate``);
+* ``efficient_kws.model.KWSModel`` → the paper-2 L/LE/LEF eval
+  (``run_efficient_kws.py test|validate``) from a checkpoint directory or a
+  reference ``.ckpt``, with the reference CLI's argument links;
 * ``model.cb_whisper.CBWhisper``  → CB-Whisper entity recall (``cb-whisper.py test``).
 
 Models are built through the port's entry points on ``device`` (the card
@@ -15,8 +18,8 @@ and ``batch_size`` from the model block to the data block; under
 adversarial training the batch size × ``accumulate_grad_batches``),
 hands ``device_features`` to the train step, writes its checkpoints under
 ``trainer.default_root_dir``/checkpoints, and resumes from ``ckpt_path``.
-What the port does not carry yet raises instead of being ignored: the
-paper-2 models (ROADMAP.md §1 item 6).  The CB-Whisper serving knobs reach the
+What the port does not carry yet raises instead of being ignored:
+paper-2 training and its audio mode (ROADMAP.md §1 item 6b).  The CB-Whisper serving knobs reach the
 constructors as in the JAX CLI: ``compute_dtype``, ``vocab_int8``,
 ``decoder_int8``, ``kv_cache_int8``, ``cross_kv_int8``, and ``encoder_int8``
 (with a separate ``encoder_ckpt``).  ``eval_batch_size`` and
@@ -24,7 +27,7 @@ constructors as in the JAX CLI: ``compute_dtype``, ``vocab_int8``,
 cache-write layout, is accepted and does nothing with float caches; with
 ``kv_cache_int8`` it would change the results (the JAX package attends the
 staged tokens at full precision until they are flushed), so that pair
-raises.  ``kws_int8`` runs the fused s8
+raises.  ``kws_int8`` (paper 1, paper 2 and CB-Whisper) runs the fused s8
 kernel K2 on every bottleneck 1×1 conv whose shapes it takes, as the JAX
 CLI does with ``ECW_S8_PALLAS`` naming every stage; the port reads no
 environment variable.
@@ -202,6 +205,78 @@ def _run_paper1(subcommand: str, config: Dict[str, Any], device):
             s8_1x1=s8_stages(resnet_config),
         )
     return engine.test(variables, datamodule)
+
+
+# --------------------------------------------------------------------- paper 2
+
+
+def _run_paper2(subcommand: str, config: Dict[str, Any], device):
+    from ..efficient_kws.data import EfficientKWSDataMod
+    from ..efficient_kws.engine import EfficientKWSEngine, EfficientTrainConfig
+    from ..efficient_kws.model import EfficientKWSConfig
+    from ..models.quant import s8_stages
+
+    if subcommand == "fit":
+        raise NotImplementedError("paper-2 training is not ported yet: ROADMAP.md §1 item 6b")
+    model_args = dict(get(config, "model.init_args", {}) or {})
+    if "threshold" in model_args:
+        # the eval configs quote their [THRESHOLD] placeholder, so `--set
+        # THRESHOLD=0.5` fills it as a string
+        model_args["threshold"] = float(model_args["threshold"])
+    data_args = dict(get(config, "data.init_args", {}) or {})
+    # the reference CLI's argument links
+    for key in (
+        "n_layers", "sampling", "resample_every_epoch", "batch_size",
+        "features_size", "pad_long_before_resize",
+        "learn_features", "load_embeddings", "kws_whisper_ckpt",
+    ):
+        if key in model_args:
+            data_args[key] = model_args[key]
+    # a link falls back to the model's default when the config omits it
+    data_args.setdefault("batch_size", 1)
+    if not data_args.get("load_embeddings", True):
+        raise NotImplementedError(
+            "load_embeddings: false (the Whisper encoder inside the step) is not ported yet: "
+            "ROADMAP.md §1 item 6b")
+
+    model_config = EfficientKWSConfig(**filter_kwargs(model_args, EfficientKWSConfig))
+    train_config = EfficientTrainConfig(**filter_kwargs(model_args, EfficientTrainConfig))
+    datamodule = EfficientKWSDataMod(**filter_kwargs(data_args, EfficientKWSDataMod))
+    # the eval logs nothing: no run directory (the JAX CLI opens one)
+    engine = EfficientKWSEngine(model_config, train_config, device=device)
+
+    ckpt_path = config.get("ckpt_path")
+    assert ckpt_path, "test/validate requires ckpt_path"
+    if os.path.isdir(ckpt_path):
+        from ..runtime.checkpoint import load_checkpoint
+
+        state, _ = load_checkpoint(ckpt_path)
+        variables = engine.build_model({"params": state["params"],
+                                        "batch_stats": state.get("batch_stats", {})})
+    else:
+        import torch
+
+        from ..efficient_kws.torch_compat import load_torch_efficient_kws
+
+        # a Lightning checkpoint pickles its hyperparameters beside the weights
+        ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=False)
+        variables = engine.build_model(load_torch_efficient_kws(ckpt.get("state_dict", ckpt), model_config))
+    if model_args.get("kws_int8") and subcommand == "test":
+        # int8 group scoring calibrated over the first
+        # `kws_int8_calibration_batches` test items
+        datamodule.setup("test")
+        n_calib = int(model_args.get("kws_int8_calibration_batches", 4))
+        ds = datamodule.test_dataset
+        engine.enable_int8_scoring(variables, items=[ds[i] for i in range(min(n_calib, len(ds)))],
+                                   s8_1x1=s8_stages(model_config.resnet_config()))
+    # the JSON dumps land next to the checkpoint: a .ckpt file's directory
+    dump_dir = ckpt_path if os.path.isdir(ckpt_path) else (os.path.dirname(ckpt_path) or ".")
+    if subcommand == "validate":
+        datamodule.setup("validate")
+        metrics = engine.validate(variables, datamodule, dump_dir=dump_dir)
+        print(metrics)
+        return metrics
+    return engine.test(variables, datamodule, dump_dir=dump_dir)
 
 
 # ------------------------------------------------------------------ cb-whisper
@@ -437,9 +512,7 @@ def run_cli(argv: Optional[List[str]] = None, device="cuda", predictions_out: Op
     if class_path in PAPER1_MODELS:
         return _run_paper1(subcommand, config, device)
     if class_path in PAPER2_MODELS:
-        raise NotImplementedError(
-            f"{class_path} (paper 2, efficient KWS) is not ported yet: ROADMAP.md §1 item 6"
-        )
+        return _run_paper2(subcommand, config, device)
     if class_path in CBWHISPER_MODELS:
         return _run_cbwhisper(subcommand, config, predictions_out=predictions_out, device=device)
     raise SystemExit(f"unknown model.class_path: {class_path}")

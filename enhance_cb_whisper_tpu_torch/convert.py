@@ -15,9 +15,15 @@
   ``[out, in, kh, kw]``); the same for a flax ``Discriminator``'s params
   (``head.linear`` or ``head.dense_0..2``) and
   :class:`.models.kws.Discriminator`;
-* :func:`to_flax_variables` — the inverse: a ``state_dict`` of either
-  module → flax-layout ``params`` + ``batch_stats`` trees of numpy arrays,
-  which the checkpoints hold, so the JAX package reads them.
+* :func:`from_flax_efficient_variables` — flax ``EfficientKWSModel``
+  variables (paper 2: the bare ``model`` ResNet, the sibling
+  ``classifier``, the ``projector`` Dense pairs and the ``time_projector``
+  NWC Conv1d kernels ``[k, in, out]`` with their BatchNorms) → a
+  ``state_dict`` for :class:`.efficient_kws.model.EfficientKWSModel`
+  (Conv1d ``[out, in, k]``);
+* :func:`to_flax_variables` — the inverse of both: a ``state_dict`` →
+  flax-layout ``params`` + ``batch_stats`` trees of numpy arrays, which the
+  checkpoints hold, so the JAX package reads them.
 * :func:`from_jax_quantized_params` — the JAX int8 ResNet pytree
   (``models/quant.py``: per conv ``wq`` int8 ``[kh, kw, in, out]``, ``s_w``
   and ``b`` f32 ``[out]``; the head's ``kernel``/``bias``; optional
@@ -111,6 +117,8 @@ def from_flax_resnet_variables(variables: Dict[str, Any]) -> Dict[str, torch.Ten
         module, leaf = path.rsplit(".", 1)
         if leaf == "kernel" and arr.ndim == 4:
             state[f"{module}.weight"] = torch.tensor(arr.transpose(3, 2, 0, 1))
+        elif leaf == "kernel" and arr.ndim == 3:  # NWC Conv1d [k, in, out]
+            state[f"{module}.weight"] = torch.tensor(arr.transpose(2, 1, 0))
         elif leaf == "kernel" and arr.ndim == 2:
             state[f"{module}.weight"] = torch.tensor(arr.T)
         elif leaf == "scale":
@@ -128,32 +136,53 @@ def from_flax_resnet_variables(variables: Dict[str, Any]) -> Dict[str, torch.Ten
     return state
 
 
+def flax_entry(key: str, tensor: torch.Tensor):
+    """One ``state_dict`` entry in the flax layout: ``(collection, path,
+    array)`` with ``collection`` "params" or "batch_stats", or None for
+    ``num_batches_tracked``.  Kernels are transposed to flax's
+    ``[kh, kw, in, out]``, ``[k, in, out]`` or ``[in, out]``."""
+    *path, leaf = key.split(".")
+    if leaf == "num_batches_tracked":
+        return None
+    a = tensor.detach().to(torch.float32).cpu().numpy()
+    if leaf in ("running_mean", "running_var"):
+        return "batch_stats", path + [leaf[len("running_"):]], a
+    if leaf == "bias":
+        return "params", path + ["bias"], a
+    if a.ndim == 4:
+        return "params", path + ["kernel"], a.transpose(2, 3, 1, 0)
+    if a.ndim == 3:
+        return "params", path + ["kernel"], a.transpose(2, 1, 0)
+    if a.ndim == 2:
+        return "params", path + ["kernel"], a.T
+    return "params", path + ["scale"], a
+
+
+def from_flax_efficient_variables(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``EfficientKWSModel`` variables → ``EfficientKWSModel.state_dict()``
+    entries: the module names match one to one (``model.stage_0_block_0.
+    layer_1.normalization``, ``classifier``, ``projector.proj_0_1``,
+    ``time_projector.conv_0``, ``time_projector.bn_0``)."""
+    return from_flax_resnet_variables(variables)
+
+
 def to_flax_variables(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, Any]]:
-    """``KWSModel.state_dict()`` or ``Discriminator.state_dict()`` → flax
-    ``{"params": ..., "batch_stats": ...}`` nested dicts of f32 numpy arrays
-    (the inverse of :func:`from_flax_resnet_variables`)."""
-    params: Dict[str, Any] = {}
-    stats: Dict[str, Any] = {}
+    """A ``state_dict`` of ``KWSModel``, ``Discriminator`` or
+    ``EfficientKWSModel`` → flax ``{"params": ..., "batch_stats": ...}``
+    nested dicts of f32 numpy arrays (the inverse of
+    :func:`from_flax_resnet_variables` and
+    :func:`from_flax_efficient_variables`)."""
+    trees: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
     for key, t in state.items():
-        *path, leaf = key.split(".")
-        if leaf == "num_batches_tracked":
+        entry = flax_entry(key, t)
+        if entry is None:
             continue
-        a = t.detach().to(torch.float32).cpu().numpy()
-        if leaf in ("running_mean", "running_var"):
-            tree, path = stats, path + [leaf[len("running_"):]]
-        elif leaf == "bias":
-            tree, path = params, path + ["bias"]
-        elif a.ndim == 4:
-            tree, path, a = params, path + ["kernel"], a.transpose(2, 3, 1, 0)
-        elif a.ndim == 2:
-            tree, path, a = params, path + ["kernel"], a.T
-        else:
-            tree, path = params, path + ["scale"]
-        node = tree
+        collection, path, a = entry
+        node = trees[collection]
         for part in path[:-1]:
             node = node.setdefault(part, {})
         node[path[-1]] = np.ascontiguousarray(a)
-    return {"params": params, "batch_stats": stats}
+    return trees
 
 
 def from_jax_quantized_params(qparams: Mapping, device="cuda") -> Dict[str, Any]:

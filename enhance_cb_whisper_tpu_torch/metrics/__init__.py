@@ -5,6 +5,7 @@ installed."""
 
 from .bootstrap import evaluate_with_conf_int
 from .entity_recall import entity_recall
-from .pr_curve import prf_at_threshold
+from .pr_curve import find_best_threshold_idx, prf_at_threshold, recall_at_k
 
-__all__ = ["evaluate_with_conf_int", "entity_recall", "prf_at_threshold"]
+__all__ = ["evaluate_with_conf_int", "entity_recall", "find_best_threshold_idx", "prf_at_threshold",
+           "recall_at_k"]

@@ -1,5 +1,6 @@
 """int8 quantized ResNet inference for catalog scoring (port of
-enhance_cb_whisper_tpu/models/quant.py, paper 1's classifier).
+enhance_cb_whisper_tpu/models/quant.py: paper 1's classifier and paper 2's,
+:func:`quantize_resnet_classifier` and :func:`quantize_efficient_classifier`).
 
 Scheme, as in the JAX package:
 
@@ -107,6 +108,23 @@ def quantize_resnet_classifier(model: torch.nn.Module, config: ResNetConfig,
     q["classifier"] = {
         "kernel": np.ascontiguousarray(state[f"{root}classifier.weight"].T.astype(np.float32)),
         "bias": state[f"{root}classifier.bias"].astype(np.float32),
+    }
+    return from_jax_quantized_params(q, device=device)
+
+
+def quantize_efficient_classifier(model: torch.nn.Module, config: ResNetConfig,
+                                  device=None) -> Dict[str, Any]:
+    """The same for a paper-2 :class:`..efficient_kws.model.EfficientKWSModel`:
+    its bare ResNet under ``model.`` and the head as the sibling
+    ``classifier``.  The projection stack stays float."""
+    if device is None:
+        device = next(model.parameters()).device
+    state = {k: v.detach().to(torch.float32).cpu().numpy() for k, v in model.state_dict().items()
+             if not k.endswith("num_batches_tracked")}
+    q = _quantize_resnet_tree(state, "model.", config)
+    q["classifier"] = {
+        "kernel": np.ascontiguousarray(state["classifier.weight"].T),
+        "bias": state["classifier.bias"],
     }
     return from_jax_quantized_params(q, device=device)
 

@@ -310,8 +310,7 @@ class KWSEngine:
         start_epoch, global_step = 0, 0
         if resume_from is not None:
             tree, meta = load_checkpoint(resume_from)
-            if not restore_train_state(state, tree):
-                print(f"{resume_from} holds no optimizer state in the port's layout: Adam restarts")
+            restore_train_state(state, tree)
             start_epoch = int(tree.get("epoch", meta.get("epoch", -1))) + 1
             # the step counter (per-step noise and logged steps continue the
             # series) and the best values (or the first validation after the

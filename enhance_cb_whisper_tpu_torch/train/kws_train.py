@@ -39,7 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..convert import from_flax_resnet_variables, to_flax_variables
+from ..convert import flax_entry, from_flax_resnet_variables, to_flax_variables
 from ..models.kws import Discriminator, KWSModel, cross_entropy, entropy_loss
 from ..models.resnet import ResNetConfig
 from ..ops.resize import features_from_hidden_states
@@ -211,46 +211,127 @@ def update_epoch_lr(config: KWSTrainConfig, state: KWSTrainState) -> None:
         set_learning_rate(state.optimizer, name, step_lr(lr, config.lr_step)(state.epoch))
 
 
+def _group_params(state: KWSTrainState):
+    """(group name, [(module, parameter name, parameter)]) per optimizer
+    group, ``module`` being "kws" or "disc"."""
+    names = {id(p): ("kws", n) for n, p in state.kws.named_parameters()}
+    if state.disc is not None:
+        names.update({id(p): ("disc", n) for n, p in state.disc.named_parameters()})
+    return [(g["name"], [(*names[id(p)], p) for p in g["params"]])
+            for g in state.optimizer.param_groups]
+
+
+def _moment_tree(state: KWSTrainState, members, key: str) -> Dict[str, Any]:
+    """One Adam moment of a group over the whole parameter tree, in the
+    flax layout: the group's leaves hold the moment (zeros before the first
+    step), every other leaf is optax's masked ``{}``."""
+    modules = {"kws": state.kws, **({"disc": state.disc} if state.disc is not None else {})}
+    mine = {(m, n) for m, n, _ in members}
+    tree: Dict[str, Any] = {m: {} for m in modules}
+    for m, module in modules.items():
+        for n, p in module.named_parameters():
+            moment = state.optimizer.state.get(p, {}).get(key) if (m, n) in mine else None
+            _, path, a = flax_entry(n, p if moment is None else moment)
+            if (m, n) not in mine:
+                leaf = {}
+            else:
+                leaf = np.ascontiguousarray(a) if moment is not None else np.zeros_like(a)
+            node = tree[m]
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = leaf
+    return tree
+
+
+def _adam_state(state: KWSTrainState, group) -> Dict[str, Any]:
+    """One group's optimizer state as the JAX package's
+    ``inject_hyperparams(adam)`` (chained after ``add_decayed_weights``
+    when the weight decay is on) serializes it."""
+    name, members = group
+    lr = next(g["lr"] for g in state.optimizer.param_groups if g["name"] == name)
+    steps = [state.optimizer.state.get(p, {}).get("step") for _, _, p in members]
+    count = np.asarray(int(steps[0]) if steps[0] is not None else 0, np.int32)
+    adam = {"0": {"count": count, "mu": _moment_tree(state, members, "exp_avg"),
+                  "nu": _moment_tree(state, members, "exp_avg_sq")}, "1": {}}
+    wd = state.optimizer.defaults["weight_decay"]
+    return {"count": count, "hyperparams": {"learning_rate": np.asarray(lr, np.float32)},
+            "hyperparams_states": {}, "inner_state": {"0": {}, "1": adam} if wd else adam}
+
+
+def optimizer_tree(state: KWSTrainState) -> Dict[str, Any]:
+    """The optimizer state in the JAX package's layout (``train/optim.py``):
+    one ``inject_hyperparams(adam)`` state, or under adversarial training
+    ``multi_transform``'s ``inner_states`` per group (features, classifier,
+    discriminator), each moment tree over every parameter with the other
+    groups' leaves masked.  Moments and kernels are in flax's layouts."""
+    groups = _group_params(state)
+    if [name for name, _ in groups] == ["all"]:
+        return _adam_state(state, groups[0])
+    return {"inner_states": {g[0]: {"inner_state": _adam_state(state, g)} for g in groups}}
+
+
 def checkpoint_tree(state: KWSTrainState, global_step: int) -> Dict[str, Any]:
-    """The checkpoint payload: ``params`` and ``batch_stats`` in the JAX
-    package's layout (either package's ``test``/``validate`` reads them),
-    the optimizer state in the port's own (``{"state": {index: Adam's
-    tensors}, "lr": {group: rate}}``), the epoch and the global step."""
+    """The checkpoint payload, all in the JAX package's layout (its ``fit``
+    resumes from it and its ``test``/``validate`` read it): ``params`` and
+    ``batch_stats``, the optimizer state (:func:`optimizer_tree`), the
+    epoch and the global step."""
     kws = to_flax_variables(state.kws.state_dict())
     params = {"kws": kws["params"]}
     if state.disc is not None:
         params["disc"] = to_flax_variables(state.disc.state_dict())["params"]
-    opt = state.optimizer.state_dict()
     return {
         "params": params,
         "batch_stats": {"kws": kws["batch_stats"]},
         "epoch": state.epoch,
-        "opt_state": {"state": {str(i): dict(s) for i, s in opt["state"].items()},
-                      "lr": {g["name"]: float(g["lr"]) for g in opt["param_groups"]}},
+        "opt_state": optimizer_tree(state),
         "global_step": global_step,
     }
 
 
-def restore_train_state(state: KWSTrainState, tree: Dict[str, Any]) -> bool:
-    """Load a checkpoint tree (:func:`checkpoint_tree`, or a JAX package
-    checkpoint's) into ``state``: parameters, BatchNorm statistics, the
-    epoch, and the optimizer state when it is in the port's layout.
-    Returns whether the optimizer state was restored."""
+def _load_adam_state(state: KWSTrainState, group, saved: Dict[str, Any], opt: Dict[str, Any],
+                     index: Dict[int, int]) -> None:
+    """One group's saved ``inject_hyperparams(adam)`` state into ``opt``
+    (an ``optimizer.state_dict()``): its rate, and per parameter Adam's
+    step and moments in torch's layout."""
+    name, members = group
+    inner = saved["inner_state"]
+    adam = inner["0"] if "count" in inner["0"] else inner["1"]["0"]
+    moments = {}
+    for key, leaf in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+        for m in {m for m, _, _ in members}:
+            for n, t in from_flax_resnet_variables({"params": adam[leaf][m]}).items():
+                moments[(m, n, key)] = t
+    step = torch.tensor(float(np.asarray(adam["count"])))
+    for m, n, p in members:
+        opt["state"][index[id(p)]] = {"step": step.clone(), "exp_avg": moments[(m, n, "exp_avg")],
+                                      "exp_avg_sq": moments[(m, n, "exp_avg_sq")]}
+    for g in opt["param_groups"]:
+        if g["name"] == name:
+            g["lr"] = float(np.asarray(saved["hyperparams"]["learning_rate"]))
+
+
+def restore_train_state(state: KWSTrainState, tree: Dict[str, Any]) -> None:
+    """Load a checkpoint tree (:func:`checkpoint_tree`'s or the JAX
+    package's, the same layout) into ``state``: parameters, BatchNorm
+    statistics, the epoch and, when the tree holds one, the optimizer state
+    (a checkpoint without it keeps Adam fresh, as the JAX package does)."""
     state.kws.load_converted(from_flax_resnet_variables(
         {"params": tree["params"]["kws"], "batch_stats": tree["batch_stats"]["kws"]}))
     if state.disc is not None:
         state.disc.load_state_dict(from_flax_resnet_variables({"params": tree["params"]["disc"]}))
     state.epoch = int(tree.get("epoch", state.epoch))
     saved = tree.get("opt_state")
-    if not (isinstance(saved, dict) and set(saved) == {"state", "lr"}):
-        return False
+    if saved is None:
+        return
+    groups = _group_params(state)
+    flat = [p for g in state.optimizer.param_groups for p in g["params"]]
+    index = {id(p): i for i, p in enumerate(flat)}
     opt = state.optimizer.state_dict()
-    opt["state"] = {int(i): {k: torch.tensor(np.asarray(v)) for k, v in s.items()}
-                    for i, s in saved["state"].items()}
-    for group in opt["param_groups"]:
-        group["lr"] = float(saved["lr"][group["name"]])
+    opt["state"] = {}
+    for group in groups:
+        single = saved["inner_states"][group[0]]["inner_state"] if "inner_states" in saved else saved
+        _load_adam_state(state, group, single, opt, index)
     state.optimizer.load_state_dict(opt)
-    return True
 
 
 def make_grad_fn(config: KWSTrainConfig, kws: KWSModel, disc: Optional[Discriminator]):

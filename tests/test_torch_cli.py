@@ -29,7 +29,7 @@ margins so that some keywords are spotted and others not.
   ``cross_kv_int8``, and ``encoder_int8`` with a separate encoder
   checkpoint (the same weights under another path).
 * An unfilled placeholder exits both CLIs with the same message; what the
-  port does not carry raises ``NotImplementedError`` (the paper-2 models,
+  port does not carry raises ``NotImplementedError`` (paper-2 ``fit``,
   and ``kv_staging`` with ``kv_cache_int8``, whose JAX results the port
   cannot give); ``fit`` without ``train_info`` raises; ``kv_staging`` alone is accepted; the language table equals ``transformers``' and the
   generation options match the JAX CLI's for ``language: null`` and
@@ -375,10 +375,13 @@ def test_unfilled_placeholder_exits_as_jax(env, tmp_path):
     # the JAX package attends staged tokens at full precision until a flush
     # quantizes them; the port carries no staging
     (["--model.init_args.kv_staging", "8", "--model.init_args.kv_cache_int8", "true"], "item 4"),
+    # paper 2 runs test and validate (tests/test_torch_efficient_cli.py);
+    # its training, item 6b, is not ported
     (["--model.class_path", "efficient_kws.model.KWSModel"], "item 6"),
 ])
 def test_unported_knobs_raise(env, tmp_path, override, item):
-    argv = ["test", "--config", _cb_config(env, tmp_path / "cb.yaml"), "--set",
+    subcommand = "fit" if "efficient_kws.model.KWSModel" in override else "test"
+    argv = [subcommand, "--config", _cb_config(env, tmp_path / "cb.yaml"), "--set",
             f"ACL_ROOT={env['acl']}", "--set", f"KWS_CKPT={env['kws']['cb']}", *override]
     with pytest.raises(NotImplementedError, match=item):
         port_cli.run_cli(argv, device="cpu")

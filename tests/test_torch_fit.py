@@ -25,6 +25,14 @@ ResNet (widths 8-32, one block a stage) at 32 × 48 features.
   batches, train mode after an in-fit ``validate``.
 * A port checkpoint read by JAX's ``load_checkpoint`` (and run through the
   JAX engine's ``test``), and a JAX checkpoint read by the port's.
+* Resuming across packages, optimizer state included: the port's
+  checkpoint restored by JAX's ``fit`` template and the JAX checkpoint by
+  the port's ``restore_train_state`` hold the writer's Adam moments, step
+  counts and rates bit for bit; one more training step from each then
+  matches the writer's own next step: at least 98 % of the elements, the
+  classifier and the discriminator within 1e-6, every weight within the
+  step's rate 1e-4 (the near-zero gradients again); a restarted Adam
+  lands about 1e-3 away (asserted, so the check can fail).
 * ``run_cli(["fit", ...], device="cpu")`` with the reference CLI's
   argument links, then ``test`` from the checkpoint it wrote, through the
   port's CLI and the JAX package's (equal metrics).
@@ -248,6 +256,88 @@ def test_checkpoints_are_written_and_read_by_both_packages(runs, root):
         np.testing.assert_array_equal(_flat(state["params"])[k], v, err_msg=k)
     with pytest.raises(ValueError, match="keys"):
         load_checkpoint(jax_ckpt, template={"params": template["params"]})
+
+
+def _next_step_batch(root):
+    dm = JaxDataMod(**_data_args(root))
+    dm.setup("fit")
+    np.random.seed(3)
+    return next(iter(dm.train_dataloader()))
+
+
+def _jax_step(runs):
+    config = jt.KWSTrainConfig(**TRAIN)
+    kws, disc, tx = runs.jax_engine._models
+    step = _FastJit(jt.make_train_step(config, kws, disc, tx))
+    return lambda p, s, o, batch: step(p, s, o, {k: jnp.asarray(v) for k, v in batch.items()},
+                                       jax.random.PRNGKey(0), config.beta(2), config.suppression(2))
+
+
+def _port_step(state, batch):
+    config = pt.KWSTrainConfig(**TRAIN)
+    pt.make_train_step(config, state)({k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()},
+                                      pt.StepNoise(0, "cpu"), config.beta(2), config.suppression(2))
+    return _flat({"kws": to_flax_variables(state.kws.state_dict())["params"],
+                  "disc": to_flax_variables(state.disc.state_dict())["params"]})
+
+
+def _assert_next_step_close(got, want, lr=1e-4):
+    """One step at rate ``lr`` from the same weights and Adam state: every
+    weight within the step's rate (a BatchNorm bias followed by another
+    BatchNorm has a near-zero gradient whose sign is rounding noise), at
+    least 98 % of the elements and the whole classifier and discriminator
+    within 1e-6."""
+    assert got.keys() == want.keys()
+    close = []
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=lr, err_msg=k)
+        close.append(np.abs(got[k] - want[k]).ravel() <= 1e-6)
+        if "classifier" in k or "disc" in k:
+            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-6, err_msg=k)
+    assert np.concatenate(close).mean() >= 0.98, np.concatenate(close).mean()
+
+
+def test_optimizer_state_resumes_across_packages(runs, root, tmp_path):
+    from flax import serialization
+
+    batch = _next_step_batch(root)
+    jax_step = _jax_step(runs)
+    initial = runs.jax_initial
+    template = {"params": initial.params, "batch_stats": initial.batch_stats, "epoch": 0,
+                "opt_state": initial.opt_state, "global_step": 0}
+    restart_gap = 5e-4
+
+    # the port's checkpoint resumed in JAX, against the port's own next step
+    port_ckpt = os.path.join(runs.port.ckpt_dir, "final")
+    restored, _ = jax_load_checkpoint(port_ckpt, template=template)
+    raw, _ = load_checkpoint(port_ckpt)
+    want_opt = _flat(raw["opt_state"])
+    got_opt = _flat(serialization.to_state_dict(restored["opt_state"]))
+    # two moments per weight and, per group, two counts and a rate
+    assert got_opt.keys() == want_opt.keys() and len(got_opt) == 2 * len(_flat(initial.params)) + 3 * 3
+    for k in want_opt:
+        np.testing.assert_array_equal(got_opt[k], want_opt[k], err_msg=k)
+    assert {int(v) for k, v in got_opt.items() if k.endswith("['count']")} == {6}
+    state = _port_engine(tmp_path / "a").init_state()
+    pt.restore_train_state(state, raw)
+    want = _port_step(state, batch)
+    got = _flat(jax_step(restored["params"], restored["batch_stats"], restored["opt_state"], batch)[0])
+    fresh = _flat(jax_step(restored["params"], restored["batch_stats"],
+                           runs.jax_engine._models[2].init(restored["params"]), batch)[0])
+    _assert_next_step_close(got, want)
+    # a restarted Adam (fresh moments and the base rate) lands far away
+    assert np.median([np.abs(fresh[k] - want[k]).max() for k in want]) > restart_gap
+
+    # JAX's checkpoint resumed in the port, against JAX's own next step
+    jax_ckpt = os.path.join(runs.jax_engine.ckpt_dir, "final")
+    restored, _ = jax_load_checkpoint(jax_ckpt, template=template)
+    state = _port_engine(tmp_path / "b").init_state()
+    pt.restore_train_state(state, load_checkpoint(jax_ckpt)[0])
+    again = _flat(pt.optimizer_tree(state))
+    for k, v in _flat(serialization.to_state_dict(restored["opt_state"])).items():
+        np.testing.assert_array_equal(again[k], v, err_msg=k)
+    want = _flat(jax_step(restored["params"], restored["batch_stats"], restored["opt_state"], batch)[0])
+    _assert_next_step_close(_port_step(state, batch), want)
 
 
 def test_validate_inside_fit_leaves_train_mode(runs):

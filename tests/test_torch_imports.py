@@ -34,7 +34,8 @@ def test_port_imports_no_jax():
     assert "enhance_cb_whisper_tpu_torch.models.cb_whisper" in modules
     assert "enhance_cb_whisper_tpu_torch.runtime.serving" in modules
     for name in ("train.kws_train", "train.optim", "data.samplers", "data.collators",
-                 "runtime.logging"):
+                 "runtime.logging", "efficient_kws", "efficient_kws.model", "efficient_kws.catalog",
+                 "efficient_kws.data", "efficient_kws.engine", "efficient_kws.torch_compat"):
         assert f"enhance_cb_whisper_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"
@@ -89,6 +90,8 @@ def test_entry_points_default_to_the_card():
     from enhance_cb_whisper_tpu_torch.cli import run_cli
     from enhance_cb_whisper_tpu_torch.convert import from_jax_quantized_params, from_jax_whisper_params
     from enhance_cb_whisper_tpu_torch.decoding.generate import GenerationOptions, WhisperGenerator
+    from enhance_cb_whisper_tpu_torch.efficient_kws.engine import EfficientKWSEngine
+    from enhance_cb_whisper_tpu_torch.efficient_kws.model import EfficientKWSConfig
     from enhance_cb_whisper_tpu_torch.models.cb_whisper import CBWhisper, CBWhisperConfig
     from enhance_cb_whisper_tpu_torch.models.kws import KWSModel
     from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
@@ -120,6 +123,7 @@ def test_entry_points_default_to_the_card():
     }
     assert WhisperGenerator(cfg, {}).device.type == "cuda"
     assert KWSEngine().device.type == "cuda"
+    assert EfficientKWSEngine(EfficientKWSConfig()).device.type == "cuda"
     # the CLI and the checkpoint loaders hand their device down to these
     for fn in (run_cli, load_whisper_from_pretrained, load_whisper_from_safetensors, load_hf_whisper,
                init_train_state, StepNoise):
