@@ -2674,7 +2674,7 @@ def phase_h(device) -> dict:
 PHASE_I_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "phase_i"
 P2_SIZE = (150, 1500)  # features_size of configs/efficient_kws/eval-*.yaml
 P2_LEF_MAPS = (75, 750)  # LEF's maps: both frame axes halved
-P2_CHUNK = 50  # keyword-DB rows per classifier launch (EfficientKWSEngine's chunk)
+P2_CHUNK = 50  # keyword-DB rows per classifier launch (efficient_kws.engine.CHUNK)
 P2_N_KW = 100
 P2_VARIANTS = {"L": {}, "LE": {"learn_features": True, "proj_mlp": True},
                "LEF": {"learn_features": True, "proj_mlp": True, "frames_conv": True}}
@@ -2747,10 +2747,13 @@ def _p2_centre(engine, model, dataset, n_items: int) -> float:
     margins (:func:`_gap_shift`): both decisions occur, far from 0.5."""
     import torch
 
+    from enhance_cb_whisper_tpu_torch.efficient_kws.engine import keyword_db
+
     margins = []
+    db = keyword_db(model, dataset)
     for i in range(n_items):
         item = dataset[i]
-        _, logits = engine.score_item(model, dataset, item)
+        _, logits = engine.score_item(model, db, item)
         margins.extend((logits[:, 1] - logits[:, 0])[item["hotword_mask"] > 0].tolist())
     shift = _gap_shift(margins)
     with torch.no_grad():
@@ -2769,17 +2772,19 @@ def _p2_datamodule(root: Path, size, n_layers: int, group: int):
 
 def phase_i1(device) -> None:
     """CPU = card on a tiny paper-2 model (2 layers, D 16, U 8, ResNet-18 at
-    32 x 64) over a 10-keyword ACL-6060 layout: every keyword's probability
-    within rtol 1e-4 / atol 1e-5 for L, LE and LEF and ``test``'s metrics
-    equal; then LE with ``kws_int8`` on a ResNet whose stage_1 1x1s take K2:
-    probabilities within 1e-3, the same decisions and metrics, K2 launched
-    on the card."""
+    32 x 64) over a 10-keyword ACL-6060 layout, the keyword DB scored 4 rows
+    at a time (chunks that cross its 4-keyword groups): every keyword's
+    probability within rtol 1e-4 / atol 1e-5 for L, LE and LEF and
+    ``test``'s metrics equal; then LE with ``kws_int8`` on a ResNet whose
+    stage_1 1x1s take K2: probabilities within 1e-3, the same decisions and
+    metrics, K2 launched on the card."""
     import copy
     import dataclasses
 
     import torch
 
-    from enhance_cb_whisper_tpu_torch.efficient_kws.engine import EfficientKWSEngine
+    from enhance_cb_whisper_tpu_torch.efficient_kws import engine as engine_mod
+    from enhance_cb_whisper_tpu_torch.efficient_kws.engine import EfficientKWSEngine, keyword_db
     from enhance_cb_whisper_tpu_torch.efficient_kws.model import EfficientKWSConfig, EfficientKWSModel
     from enhance_cb_whisper_tpu_torch.models.quant import s8_stages
     from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
@@ -2802,32 +2807,37 @@ def phase_i1(device) -> None:
     runs = [(v, EfficientKWSConfig(n_layers=2, embedding_dim=16, proj_mlp_units=8, resnet_version="resnet-18",
                                    **P2_VARIANTS[v]), False) for v in P2_VARIANTS]
     runs.append(("LE kws_int8", K2Tiny(n_layers=2, embedding_dim=16, proj_mlp_units=8, **P2_VARIANTS["LE"]), True))
-    for label, cfg, int8 in runs:
-        cpu_model = _init_p2_model(EfficientKWSModel(cfg), SEED)
-        engines = {dev: EfficientKWSEngine(cfg, device=dev, chunk=4) for dev in ("cpu", device)}
-        _p2_centre(engines["cpu"], cpu_model, ds, len(ds))
-        models = {"cpu": cpu_model, device: copy.deepcopy(cpu_model).to(device)}
-        probs, results = {}, {}
-        for dev, engine in engines.items():
-            if int8:
-                engine.enable_int8_scoring(models[dev], items=[ds[0], ds[1]], s8_1x1=s8_stages(tiny_k2))
-            matmul_s8_cuda.launches = 0
-            probs[dev] = np.concatenate([engine.score_item(models[dev], ds, ds[i])[0] for i in range(len(ds))])
-            launches = matmul_s8_cuda.launches
-            results[dev] = engine.test(models[dev], dm, num_bootstraps=100)
-        got, want = torch.from_numpy(probs[device]), torch.from_numpy(probs["cpu"])
-        max_abs, _, ok = _close(got, want)
-        if int8:  # bf16 intermediates can round a code the other way: the engine tests' 1e-3
-            ok = max_abs <= 1e-3
-        same = bool(((got > 0.5) == (want > 0.5)).all())
-        print(f"phase I1 {label}: tiny model cpu vs cuda, {len(ds)} utterances x {len(keywords)} keywords: "
-              f"max |p diff| {max_abs!r} ({'atol 1e-3' if int8 else f'rtol {RTOL}, atol {ATOL}'}) "
-              f"{'ok' if ok else 'over'}; decisions equal {same}; test() equal "
-              f"{results['cpu'] == results[device]}; K2 launches on the card {launches}")
-        if not (same and ok and results["cpu"] == results[device]):
-            raise RuntimeError(f"phase I1 {label}: the card disagrees with the CPU: {results}")
-        if int8 and launches <= 0:
-            raise RuntimeError("phase I1: the int8 paper-2 scorer never launched K2")
+    chunk, engine_mod.CHUNK = engine_mod.CHUNK, 4
+    try:
+        for label, cfg, int8 in runs:
+            cpu_model = _init_p2_model(EfficientKWSModel(cfg), SEED)
+            engines = {dev: EfficientKWSEngine(cfg, device=dev) for dev in ("cpu", device)}
+            _p2_centre(engines["cpu"], cpu_model, ds, len(ds))
+            models = {"cpu": cpu_model, device: copy.deepcopy(cpu_model).to(device)}
+            probs, results = {}, {}
+            for dev, engine in engines.items():
+                if int8:
+                    engine.enable_int8_scoring(models[dev], items=[ds[0], ds[1]], s8_1x1=s8_stages(tiny_k2))
+                matmul_s8_cuda.launches = 0
+                db = keyword_db(models[dev], ds)
+                probs[dev] = np.concatenate([engine.score_item(models[dev], db, ds[i])[0] for i in range(len(ds))])
+                launches = matmul_s8_cuda.launches
+                results[dev] = engine.test(models[dev], dm, num_bootstraps=100)
+            got, want = torch.from_numpy(probs[device]), torch.from_numpy(probs["cpu"])
+            max_abs, _, ok = _close(got, want)
+            if int8:  # bf16 intermediates can round a code the other way: the engine tests' 1e-3
+                ok = max_abs <= 1e-3
+            same = bool(((got > 0.5) == (want > 0.5)).all())
+            print(f"phase I1 {label}: tiny model cpu vs cuda, {len(ds)} utterances x {len(keywords)} keywords: "
+                  f"max |p diff| {max_abs!r} ({'atol 1e-3' if int8 else f'rtol {RTOL}, atol {ATOL}'}) "
+                  f"{'ok' if ok else 'over'}; decisions equal {same}; test() equal "
+                  f"{results['cpu'] == results[device]}; K2 launches on the card {launches}")
+            if not (same and ok and results["cpu"] == results[device]):
+                raise RuntimeError(f"phase I1 {label}: the card disagrees with the CPU: {results}")
+            if int8 and launches <= 0:
+                raise RuntimeError("phase I1: the int8 paper-2 scorer never launched K2")
+    finally:
+        engine_mod.CHUNK = chunk
 
 
 def phase_i2(device, shapes) -> dict:
@@ -2842,7 +2852,8 @@ def phase_i2(device, shapes) -> dict:
     import torch
 
     from enhance_cb_whisper_tpu_torch.cli import run_cli
-    from enhance_cb_whisper_tpu_torch.efficient_kws.engine import EfficientKWSEngine
+    from enhance_cb_whisper_tpu_torch.efficient_kws import engine as engine_mod
+    from enhance_cb_whisper_tpu_torch.efficient_kws.engine import EfficientKWSEngine, keyword_db
     from enhance_cb_whisper_tpu_torch.efficient_kws.model import EfficientKWSConfig, EfficientKWSModel
     from enhance_cb_whisper_tpu_torch.efficient_kws.torch_compat import lightning_efficient_kws
     from enhance_cb_whisper_tpu_torch.models.quant import s8_stages
@@ -2860,6 +2871,8 @@ def phase_i2(device, shapes) -> dict:
     print(f"phase I2: ACL-6060 layout of {P2_N_KW} keywords and {len(utterances)} utterances of "
           f"{[u['hs'].shape[1] for u in utterances]} frames (12 x 1024 stacks) written and read in "
           f"{time.perf_counter() - t0:.1f} s")
+    if engine_mod.CHUNK != P2_CHUNK:
+        raise RuntimeError(f"phase I2: the engine scores {engine_mod.CHUNK} rows a launch, A2 held {P2_CHUNK}")
     launches = {"mel": 0, "k2": 0}
     runs = [(v, False) for v in P2_VARIANTS] + [("LEF", True)]
     for i, (variant, int8) in enumerate(runs):
@@ -2872,13 +2885,14 @@ def phase_i2(device, shapes) -> dict:
         torch.save({"state_dict": lightning_efficient_kws(model.state_dict(), cfg)}, str(ckpt))
         if int8:
             engine.enable_int8_scoring(model, items=[ds[j] for j in range(4)], s8_1x1=s8_stages(cfg.resnet_config()))
+        db = keyword_db(model, ds)
         _, device_ms = _device_breakdown(f"{label}: one 30 s utterance x {P2_N_KW} keywords",
-                                         lambda: engine.score_item(model, ds, ds[0]))
+                                         lambda: engine.score_item(model, db, ds[0]))
         argv = ["test", "--config", str(CONFIGS / "efficient_kws" / f"eval-{variant}-comp-acl.yaml"),
                 "--set", f"CKPT={ckpt}", "--set", "THRESHOLD=0.5", "--set", f"ACL_ROOT={root}"]
         if int8:
             argv += ["--model.init_args.kws_int8", "true"]
-        del model, engine
+        del model, engine, db
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         mel_cuda.launches = matmul_s8_cuda.launches = 0
@@ -2982,9 +2996,14 @@ def phase_i3(device) -> dict:
     groups = [{"kwd": torch.randn((chunk, layers, P2_SIZE[0], 1024), generator=gen, device=device),
                "kwd_mask": torch.ones((chunk, layers, P2_SIZE[0]), device=device),
                "mask": torch.ones((chunk,), device=device)} for _ in range(8)]
+    # the catalog entry points turn TF32 and bf16 partial sums off themselves
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = matmul.allow_bf16_reduced_precision_reduction = True
     t0 = time.perf_counter()
     catalog = project_catalog(model, groups, chunk=chunk)
     torch.cuda.synchronize()
+    if matmul.allow_tf32 or torch.backends.cudnn.allow_tf32 or matmul.allow_bf16_reduced_precision_reduction:
+        raise RuntimeError("phase I3: project_catalog left TF32 or bf16 partial sums on")
     print(f"phase I3: project_catalog of 1024 keywords [3, {P2_SIZE[0]}, 1024] -> {tuple(catalog['kwd'].shape)} in "
           f"{(time.perf_counter() - t0) * 1e3!r} ms")
     del groups

@@ -162,7 +162,9 @@ def from_flax_efficient_variables(variables: Dict[str, Any]) -> Dict[str, torch.
     """flax ``EfficientKWSModel`` variables → ``EfficientKWSModel.state_dict()``
     entries: the module names match one to one (``model.stage_0_block_0.
     layer_1.normalization``, ``classifier``, ``projector.proj_0_1``,
-    ``time_projector.conv_0``, ``time_projector.bn_0``)."""
+    ``time_projector.conv_0``, ``time_projector.bn_0``), so this is
+    :func:`from_flax_resnet_variables` under the name paper 2's callers
+    look for; a paper-2 leaf it could not place would be added here."""
     return from_flax_resnet_variables(variables)
 
 

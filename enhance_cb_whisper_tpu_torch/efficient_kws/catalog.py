@@ -21,7 +21,10 @@ The float classifier is the model's own; with ``quantized_params``
 (:func:`..models.quant.quantize_efficient_classifier`) and calibrated
 ``act_scales`` the ResNet and head run int8, with the bottleneck 1×1
 convolutions of the stages in ``s8_1x1`` on the fused kernel K2.  The
-projection and the similarity stay float either way.  Sharding a catalog
+projection and the similarity stay float either way.  Each entry point
+holds :func:`..runtime.precision.reference_precision` when the model is on
+the card, so its fp32 products run at full FP32 as the JAX package's
+``precision="highest"`` ones do.  Sharding a catalog
 over several cards is ROADMAP.md §1 item 8.
 """
 
@@ -32,11 +35,16 @@ from typing import Any, Dict
 import torch
 
 from ..models.quant import make_quantized_kws_apply
+from ..runtime.precision import reference_precision
 from .model import EfficientKWSModel, _safe_normalize, masked_sims
 
 
 def _device(model: torch.nn.Module) -> torch.device:
-    return next(model.parameters()).device
+    """The model's device; on the card, TF32 and bf16 partial sums off."""
+    device = next(model.parameters()).device
+    if device.type == "cuda":
+        reference_precision()
+    return device
 
 
 def _tensor(x, device, dtype=torch.float32) -> torch.Tensor:
@@ -111,6 +119,7 @@ def make_projected_score_fn(model: EfficientKWSModel, chunk: int = 128, quantize
                             act_scales=None, s8_1x1=()):
     """``score(catalog, utt, utt_mask) -> probs [N_pad]`` (utt: [1, L, T, D]
     raw features); padded and ghost rows score 0."""
+    _device(model)
     bind = _make_chunk_classifier(model, quantized_params, act_scales, s8_1x1)
 
     @torch.no_grad()
@@ -188,6 +197,7 @@ def make_cascade_score_fn(model: EfficientKWSModel, chunk: int = 128, shortlist:
         f"shortlist ({shortlist}) must be a multiple of chunk ({chunk}) so "
         "stage 2 reuses the full scorer's chunk shape"
     )
+    _device(model)
     bind = _make_chunk_classifier(model, quantized_params, act_scales, s8_1x1)
 
     @torch.no_grad()

@@ -16,13 +16,13 @@
 
 ``variables`` is the fp32 (or bf16) :class:`.model.EfficientKWSModel` on the
 engine's device.  Where the JAX engine scores the whole keyword DB in one
-launch, the port projects the DB once per dataset, zero-pads it to a
-multiple of ``chunk`` rows and runs the classifier ``chunk`` rows at a
-time, so every launch has one shape and the activations stay bounded
-(ROADMAP.md, deliberate deviations); probabilities are per keyword, so
-the result is the same.  Training (``init_state``, ``make_train_step``,
-``fit``) and the audio mode (``whisper=``) are ROADMAP.md §1 item 6b and
-raise.
+launch, the port projects the DB once per dataset (:func:`keyword_db`),
+zero-pads it to a multiple of ``CHUNK`` rows and runs the classifier
+``CHUNK`` rows at a time, so every launch has one shape and the
+activations stay bounded (ROADMAP.md, deliberate deviations);
+probabilities are per keyword, so the result is the same.  Training
+(``init_state``, ``make_train_step``, ``fit``) and the audio mode
+(``whisper=``) are ROADMAP.md §1 item 6b and raise.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from .catalog import _make_chunk_classifier, project_catalog
 from .model import EfficientKWSConfig, EfficientKWSModel, masked_sims
 
 RECALL_KS = (1, 10, 20, 50, 100, 200)
+CHUNK = 50  # keyword-DB rows per classifier launch
 _TRAINING = "paper-2 training is not ported yet: ROADMAP.md §1 item 6b"
 
 
@@ -64,6 +65,13 @@ class EfficientTrainConfig:
     compute_dtype: str = "float32"
 
 
+def keyword_db(model: EfficientKWSModel, dataset):
+    """``dataset``'s whole keyword DB (every group) through ``model``'s
+    projection stack, zero-padded to a multiple of :data:`CHUNK` rows
+    (:func:`.catalog.project_catalog`)."""
+    return project_catalog(model.eval(), dataset.groups, chunk=CHUNK)
+
+
 class EfficientKWSEngine:
     def __init__(
         self,
@@ -71,10 +79,8 @@ class EfficientKWSEngine:
         train_config: EfficientTrainConfig = EfficientTrainConfig(),
         whisper: Optional[tuple] = None,
         device="cuda",
-        chunk: int = 50,
     ):
-        """Scoring runs on ``device``, the card by default; ``chunk`` rows
-        of the keyword DB go through the classifier at a time.  The JAX
+        """Scoring runs on ``device``, the card by default.  The JAX
         engine's training arguments (seed, checkpoint directory, logger,
         the audio mode's layer slice and frame budget) come with item 6b."""
         if whisper is not None:
@@ -84,12 +90,10 @@ class EfficientKWSEngine:
         self.model_config = model_config
         self.train_config = train_config
         self.device = torch.device(device)
-        self.chunk = chunk
         self.dtype = getattr(torch, train_config.compute_dtype or "float32")
         if self.device.type == "cuda":
             reference_precision()
         self._int8 = None  # (quantized parameters, act scales, s8_1x1)
-        self._db_cache: Dict[int, tuple] = {}
 
     def build_model(self, state=None) -> EfficientKWSModel:
         """An :class:`EfficientKWSModel` of the engine's configuration and
@@ -133,22 +137,12 @@ class EfficientKWSEngine:
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
 
-    def _keyword_db(self, model, dataset):
-        """The dataset's whole keyword DB projected once, padded to a
-        multiple of ``chunk`` rows; cached per (model, dataset)."""
-        key = id(dataset)
-        hit = self._db_cache.get(key)
-        if hit is None or hit[0] is not dataset or hit[1] is not model:
-            hit = (dataset, model, project_catalog(model, dataset.groups, chunk=self.chunk))
-            self._db_cache[key] = hit
-        return hit[2]
-
     @torch.no_grad()
-    def score_item(self, variables: EfficientKWSModel, dataset, item):
-        """(probabilities, logits) of every keyword of ``dataset`` against
-        ``item``'s utterance, numpy [n_keywords] and [n_keywords, 2]."""
+    def score_item(self, variables: EfficientKWSModel, db, item):
+        """(probabilities, logits) of every keyword of ``db`` (the
+        dataset's :func:`keyword_db`) against ``item``'s utterance, numpy
+        [n_keywords] and [n_keywords, 2]."""
         model = variables.eval()
-        db = self._keyword_db(model, dataset)
         utt_p, utt_mask_p = model.project(self._tensor(item["utt"][None]),
                                           self._tensor(item["utt_mask"][None]))
         if self._int8 is not None:
@@ -156,9 +150,10 @@ class EfficientKWSEngine:
             chunk_logits = _make_chunk_classifier(model, qparams, scales, s8)(utt_p, utt_mask_p)
         else:
             chunk_logits = _make_chunk_classifier(model)(utt_p, utt_mask_p)
+        chunk = db["chunk"]
         logits = torch.cat([
-            chunk_logits(db["kwd"][i:i + self.chunk], db["kwd_mask"][i:i + self.chunk])
-            for i in range(0, db["kwd"].shape[0], self.chunk)
+            chunk_logits(db["kwd"][i:i + chunk], db["kwd_mask"][i:i + chunk])
+            for i in range(0, db["kwd"].shape[0], chunk)
         ]).to(torch.float32)
         n = db["num_keywords"]
         probs = torch.softmax(logits, -1)[:, 1]
@@ -173,8 +168,9 @@ class EfficientKWSEngine:
         recalls = {k: [] for k in RECALL_KS}
         speakers = []
         group = dataset.keywords_per_group
+        db = keyword_db(variables, dataset)
         for item in prefetch((dataset[i] for i in range(len(dataset))), depth=2):
-            p, logits = self.score_item(variables, dataset, item)
+            p, logits = self.score_item(variables, db, item)
             probs = p * np.asarray(item["hotword_mask"])
             labels = np.asarray(item["hotword_labels"])
             losses.append(sum(self._ce(logits[lo:lo + group], labels[lo:lo + group])

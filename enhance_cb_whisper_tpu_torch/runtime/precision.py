@@ -9,7 +9,8 @@ It also lets cuBLAS reduce split-K partial sums of bf16 GEMMs in bf16
 (``allow_bf16_reduced_precision_reduction`` is ``True``), where XLA
 accumulates in f32.  :func:`reference_precision` turns all three off; the
 entry points that run on the card (``CBWhisper``, ``WhisperGenerator``,
-``KWSEngine``) call it when their device is CUDA.  The flags are global to
+``KWSEngine``, ``EfficientKWSEngine`` and the paper-2 catalog scorers)
+call it when their device is CUDA.  The flags are global to
 the process and stay off: nothing restores them.
 """
 

@@ -6,10 +6,10 @@ process on the CPU at the tiny dims of ``tests/test_torch_efficient_eval.py``
 "configs/efficient_kws/eval-*-comp-acl.yaml", ...])`` with the placeholders
 filled by ``--set`` and the widths shrunk by dotted overrides:
 
-* LE and LEF ``test`` from a reference Lightning ``.ckpt`` and
-  ``validate`` from a JAX checkpoint directory (the same weights), and L
-  ``test`` on the AISHELL config: every metric equal to the JAX CLI's,
-  losses to rtol 1e-5.  The JAX CLI needs
+* ``test`` from a reference Lightning ``.ckpt`` and ``validate`` from a
+  JAX checkpoint directory (the same weights), for LE and LEF on the
+  ACL-6060 configs and L on the AISHELL config (the fixture's hotword dev
+  split): every metric equal to the JAX CLI's, losses to rtol 1e-5.  The JAX CLI needs
   two values the configs do not give it (a float threshold where they
   quote the placeholder, and a batch size its datamodule accepts); the port
   runs the configs as written, with the same metrics;
@@ -21,9 +21,11 @@ filled by ``--set`` and the widths shrunk by dotted overrides:
   ROADMAP.md §1 item 6b.
 """
 
+import dataclasses
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -31,6 +33,7 @@ import enhance_cb_whisper_tpu.cli.main as jax_cli
 from enhance_cb_whisper_tpu.efficient_kws import model as jm
 from enhance_cb_whisper_tpu.runtime.checkpoint import save_checkpoint as jax_save_checkpoint
 from enhance_cb_whisper_tpu_torch.cli import main as port_cli
+from enhance_cb_whisper_tpu_torch.convert import to_flax_variables
 from enhance_cb_whisper_tpu_torch.efficient_kws import data as pd
 from enhance_cb_whisper_tpu_torch.efficient_kws import engine as pe
 from enhance_cb_whisper_tpu_torch.efficient_kws import model as pm
@@ -38,9 +41,8 @@ from enhance_cb_whisper_tpu_torch.efficient_kws.torch_compat import lightning_ef
 from enhance_cb_whisper_tpu_torch.models.quant import s8_stages
 
 from fixtures import DIM
-from test_torch_efficient_eval import (  # noqa: F401  (roots: a fixture)
+from test_torch_efficient_eval import (  # noqa: F401  (roots, _small_chunks: fixtures)
     ALL_STAGES,
-    CHUNK,
     FS,
     LANGS,
     VARIANTS,
@@ -53,7 +55,7 @@ from test_torch_efficient_eval import (  # noqa: F401  (roots: a fixture)
     _JaxBottleneck,
     _port_model,
     _PortBottleneck,
-    _variables,
+    _small_chunks,
     roots,
 )
 
@@ -66,6 +68,27 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+def _drawn_variables(jcfg, seed):
+    """Seeded variables in flax's layout, drawn with numpy over the port
+    model's parameter shapes (no JAX compile, which would take most of a
+    case's time): kernels He-normal, biases and BatchNorm shifts 0,
+    BatchNorm scales 1, statistics (0, 1).  Both CLIs then read the same
+    weights; ``_centre`` sets the class-1 bias."""
+    port_cls = _PortBottleneck if isinstance(jcfg, _JaxBottleneck) else pm.EfficientKWSConfig
+    pcfg = port_cls(**dataclasses.asdict(jcfg))
+    rng = np.random.default_rng(seed)
+
+    def draw(name, a):
+        if name == "kernel":
+            return rng.normal(0.0, np.sqrt(2.0 / np.prod(a.shape[:-1])), a.shape).astype(np.float32)
+        return np.full(a.shape, 1.0 if name in ("scale", "var") else 0.0, np.float32)
+
+    def tree(node):
+        return {k: tree(v) if isinstance(v, dict) else draw(k, v) for k, v in node.items()}
+
+    return tree(to_flax_variables(pm.EfficientKWSModel(pcfg).state_dict()))
 
 
 def _write_checkpoints(tmp_path, variant, variables, cfg=None):
@@ -89,23 +112,28 @@ def _argv(subcommand, variant, roots, ckpt, *extra, dataset="acl"):
             "--data.init_args.keywords_per_group", "3",
             "--data.init_args.val_info",
             json.dumps([{"language": lang, "root": roots["mls"], "kw_type": "natural"} for lang in LANGS]),
-            "--trainer.default_root_dir", os.path.join(os.path.dirname(ckpt), "runs"),
+            "--trainer.default_root_dir", os.path.join(os.path.dirname(ckpt), "runs"), *extra,
             # the JAX CLI takes the configs' quoted threshold as a string and
             # its datamodule refuses their default batch size of 1 under
             # utterance-examples sampling; the port needs neither value
-            "--model.init_args.threshold", "0.5", "--model.init_args.batch_size", "4", *extra]
+            "--model.init_args.threshold", "0.5", "--model.init_args.batch_size", "4"]
 
 
-@pytest.mark.parametrize("variant", ["LE", "LEF"])
-def test_cli_test_and_validate_match_jax(roots, tmp_path, variant):
-    _, variables = _variables(variant, _config(jm, variant), seed=2)
-    engine = pe.EfficientKWSEngine(_config(pm, variant), device="cpu", chunk=CHUNK)
-    dm = pd.EfficientKWSDataMod(**_dm_args(roots))
+@pytest.mark.parametrize("variant,dataset", [("LE", "acl"), ("LEF", "acl"), ("L", "aishell")])
+def test_cli_test_and_validate_match_jax(roots, tmp_path, variant, dataset):
+    variables = _drawn_variables(_config(jm, variant), seed=2)
+    extra, dm_args = (), _dm_args(roots)
+    if dataset == "aishell":  # the fixture's hotword dev split
+        info = {"name": "aishell", "root": roots["aishell"], "kw_type": "natural"}
+        extra = ("--data.init_args.test_split", "dev", "--data.init_args.test_info", json.dumps(info))
+        dm_args.update(test_split="dev", test_info=info)
+    engine = pe.EfficientKWSEngine(_config(pm, variant), device="cpu")
+    dm = pd.EfficientKWSDataMod(**dm_args)
     dm.setup("test")
     variables = _centre(variables, _port_model(variant, variables), engine, dm.test_dataset)
     ckpt, directory = _write_checkpoints(tmp_path, variant, variables)
     for subcommand, path in (("test", ckpt), ("validate", directory)):
-        argv = _argv(subcommand, variant, roots, path)
+        argv = _argv(subcommand, variant, roots, path, *extra, dataset=dataset)
         want = jax_cli.run_cli(list(argv))
         got = port_cli.run_cli(list(argv), device="cpu")
         _equal_metrics(got, want)
@@ -114,20 +142,10 @@ def test_cli_test_and_validate_match_jax(roots, tmp_path, variant):
         port_cli.run_cli(["fit"] + argv[1:], device="cpu")
 
 
-def test_cli_aishell_config_matches_jax(roots, tmp_path):
-    """The AISHELL eval config (L) on the fixture's hotword dev split."""
-    _, variables = _variables("L", _config(jm, "L"), seed=4)
-    ckpt, _ = _write_checkpoints(tmp_path, "L", variables)
-    test_info = {"name": "aishell", "root": roots["aishell"], "kw_type": "natural"}
-    argv = _argv("test", "L", roots, ckpt, "--data.init_args.test_split", "dev",
-                 "--data.init_args.test_info", json.dumps(test_info), dataset="aishell")
-    _equal_metrics(port_cli.run_cli(list(argv), device="cpu"), jax_cli.run_cli(list(argv)))
-
-
 def test_cli_kws_int8_matches_jax(roots, tmp_path, monkeypatch):
     fields = dict(n_layers=L, embedding_dim=DIM, proj_mlp_units=U, **VARIANTS["LE"])
-    _, variables = _variables("LE", _JaxBottleneck(**fields), seed=3)
-    engine = pe.EfficientKWSEngine(_PortBottleneck(**fields), device="cpu", chunk=CHUNK)
+    variables = _drawn_variables(_JaxBottleneck(**fields), seed=3)
+    engine = pe.EfficientKWSEngine(_PortBottleneck(**fields), device="cpu")
     dm = pd.EfficientKWSDataMod(**_dm_args(roots))
     dm.setup("test")
     variables = _centre(variables, _port_model("LE", variables, _PortBottleneck(**fields)), engine,

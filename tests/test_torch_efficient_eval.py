@@ -72,6 +72,13 @@ def _one_thread():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture(autouse=True)
+def _small_chunks(monkeypatch):
+    """The port's keyword DB scored CHUNK rows at a time, so the DB's
+    chunks cross its groups."""
+    monkeypatch.setattr(pe, "CHUNK", CHUNK)
+
+
 @pytest.fixture(scope="module")
 def roots(tmp_path_factory):
     base = tmp_path_factory.mktemp("paper2")
@@ -181,9 +188,10 @@ def _centre(variables, port_model, engine, dataset, q=67):
     """Shift the class-1 bias so that ``100 - q`` % of ``dataset``'s real
     pairs pass 0.5."""
     margins = []
+    db = pe.keyword_db(port_model, dataset)
     for i in range(len(dataset)):
         item = dataset[i]
-        _, logits = engine.score_item(port_model, dataset, item)
+        _, logits = engine.score_item(port_model, db, item)
         margins.append((logits[:, 1] - logits[:, 0])[item["hotword_mask"] > 0])
     shift = np.percentile(np.concatenate(margins), q)
     variables["params"]["classifier"]["bias"] = (
@@ -211,7 +219,7 @@ def test_validate_and_test_match_jax(roots, tmp_path, variant):
     port_dm, jax_dm = pd.EfficientKWSDataMod(**_dm_args(roots)), jd.EfficientKWSDataMod(**_dm_args(roots))
     port_dm.setup("validate")
     jax_dm.setup("validate")
-    engine = pe.EfficientKWSEngine(_config(pm, variant), device="cpu", chunk=CHUNK)
+    engine = pe.EfficientKWSEngine(_config(pm, variant), device="cpu")
     variables = _centre(variables, _port_model(variant, variables), engine,
                         list(port_dm.val_dataset.values())[0])
     model = _port_model(variant, variables)
@@ -257,11 +265,12 @@ def test_int8_scoring_matches_jax(roots, monkeypatch):
     port_dm.setup("test")
     jax_dm.setup("test")
     dataset = port_dm.test_dataset
-    engine = pe.EfficientKWSEngine(pcfg, device="cpu", chunk=CHUNK)
+    engine = pe.EfficientKWSEngine(pcfg, device="cpu")
     variables = _centre(variables, _port_model("LE", variables, pcfg), engine, dataset)
     model = _port_model("LE", variables, pcfg)
     jengine = je.EfficientKWSEngine(jcfg)
-    fp32 = [engine.score_item(model, dataset, dataset[i])[0] for i in range(len(dataset))]
+    db = pe.keyword_db(model, dataset)
+    fp32 = [engine.score_item(model, db, dataset[i])[0] for i in range(len(dataset))]
 
     items = [dataset[i] for i in range(2)]
     monkeypatch.setenv("ECW_S8_PALLAS", ALL_STAGES)
@@ -298,7 +307,7 @@ def test_int8_scoring_matches_jax(roots, monkeypatch):
 
     for i in range(len(dataset)):
         item = dataset[i]
-        got, _ = engine.score_item(model, dataset, item)
+        got, _ = engine.score_item(model, db, item)
         kwd = np.concatenate([g["kwd"] for g in item["groups"]])
         km = np.concatenate([g["kwd_mask"] for g in item["groups"]])
         want, _ = jengine._score_group(variables, kwd, item["utt"][None], km, item["utt_mask"][None])
