@@ -7,6 +7,7 @@
     python3 chip_smoke.py --levers   # the kernels' build, phase A2 and phase G alone
     python3 chip_smoke.py --train    # phase H (paper-1 training) alone
     python3 chip_smoke.py --paper2   # the kernels' build, phase A2 at paper 2's shapes and phase I alone
+    python3 chip_smoke.py --paper2-train  # K1's build, phase A and phase J (paper-2 training) alone
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, started together), then:
@@ -15,8 +16,9 @@ A.  holds the fused mel kernel K1 (csrc/mel.cu) against its plain torch
     version on the card at 80 and 128 mels: [4, 480000], a 37 s
     [2, 592000] batch, [3, 4960] (31 frames a row, fewer than a tile) and
     [1, 480] (3 frames, both reflected edges in one tile), and at 80 mels
-    [1, 760000], the whole 47.5 s utterance of phase B, rtol 1e-4 /
-    atol 1e-5 (the JAX package's Pallas-kernel tolerance);
+    [1, 760000], the whole 47.5 s utterance of phase B, and [16, 480000],
+    the batch phase J's audio-mode step gives it, rtol 1e-4 / atol 1e-5
+    (the JAX package's Pallas-kernel tolerance);
 A2. holds the fused s8 matmul + requant kernel K2 (csrc/matmul_s8.cu)
     against its plain version at every shape the int8 ResNet-50 scorer
     gives it (22 launches per chunk of 8 keyword maps at 150x750, 9
@@ -129,6 +131,23 @@ I.  paper 2 (the L/LE/LEF eval, ``efficient_kws/``), which launches no K1
     projected scorer in fp32 (1,024 keywords through ``project_catalog``)
     and bf16 (4,096), and the cascade at 100,352 keywords with a 2,048
     shortlist, each beside its FLOP bound;
+J.  paper-2 training (``EfficientKWSEngine.fit``), which launches K1 in
+    the audio mode only and K2 never (the kernel line's
+    ``paper2_train_launches``, over J2's and J3's CLI runs): J1 holds a
+    train step of a tiny L, LE and LEF (12-wide stacks, embedding_dim 8,
+    ResNet-18 at 32 x 64) CPU = card from the same weights with the same
+    CPU-seeded coin, and the audio mode's embedding of [8, 480000] on the
+    card (K1) against the CPU's (the plain mel), then a step of each; J2
+    runs ``run_cli(["fit", ...])`` on configs/efficient_kws/train-LEF.yaml
+    as written (ResNet-50 on 3 layers, 150 x 1500, batch 16 pairs,
+    kw_type all) over a synthetic MLS layout of the six languages at
+    whisper-large-v2's 12 x 1280 (wider than embedding_dim 1024), written
+    under build/chip_smoke/phase_j/ and deleted at the end: one epoch of
+    three batches with its 12 validation sets, then a resume; J3 the same
+    config with ``load_embeddings: false`` and a random whisper-large-v2
+    written as an HF directory, K1 exactly once a step at [16, 480000];
+    each prints ms per step, examples/s, peak memory and a torch.profiler
+    split of one step's device time beside its FLOP bound;
 C.  times K1 and K2 and their plain versions on the card, each by the
     median of CUDA-event timings of CUDA-graph replays (device time
     without host gaps) and of eager calls: K1 at [1, 480000], [8, 480000]
@@ -259,9 +278,10 @@ def phase_a(device) -> float:
     worst = 0.0
     # 3000 and 3700 frames a row; 31 frames, fewer than a tile; 3 frames,
     # both reflected edges in one tile; the 47.5 s utterance of phase B
-    # (4750 frames) at the main path's 80 mels
+    # (4750 frames) and phase J3's batch at the main path's 80 mels
     cases = [(shape, (80, 128)) for shape in ((4, 480000), (2, 592000), (3, 4960), (1, 480))]
     cases.append(((1, int(16000 * LONGFORM_SECONDS)), (80,)))
+    cases.append(((J_BATCH, 480000), (80,)))  # phase J3's step: 16 utterances of 30 s
     for (batch, n_samples), mel_counts in cases:
         audio = torch.from_numpy(_audio(batch, n_samples, rng)).to(device)
         for n_mels in mel_counts:
@@ -2542,7 +2562,7 @@ def _report_run(label, rec, seconds) -> None:
           f"(first {rec['ms'][0]!r} ms), {examples / span!r} examples/s from the first step's "
           f"start to the last one's end, {rec['examples'][0] / statistics.median(later) * 1e3!r} "
           f"examples/s within a step; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB; class loss {losses.tolist()}")
+          f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB; loss {losses.tolist()}")
 
 
 def _h_argv(root: Path, run: str, *overrides):
@@ -3050,6 +3070,605 @@ def phase_i(device, shapes) -> dict:
     return launches
 
 
+# ------------------------------------------------ phase J: paper-2 training
+
+PHASE_J_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "phase_j"
+J_LANGS = ("English", "German", "French", "Spanish", "Polish", "Portuguese")
+J_KEYWORDS, J_GHOST = 20, 3  # keywords a language; one has no cache (a ghost)
+J_TRAIN_UTTS, J_DEV_UTTS = 8, 2  # utterances a language
+J_FRAMES = (500, 900, 1200, 1500)  # the distinct utterance stacks' lengths
+J_BATCH = 16  # train-LEF.yaml's batch of (tts, natural) pairs: 16 examples a step
+J1_TINY = dict(n_layers=2, embedding_dim=8, proj_mlp_units=4, resnet_version="resnet-18")
+J1_WIDTH = 12  # the tiny stacks' width, wider than embedding_dim
+J1_WHISPER = dict(vocab_size=64, num_mel_bins=80, d_model=J1_WIDTH, encoder_layers=4,
+                  encoder_attention_heads=2, decoder_layers=1, decoder_attention_heads=2,
+                  encoder_ffn_dim=24, decoder_ffn_dim=24, max_source_positions=1500,
+                  max_target_positions=16)
+WHISPER_LARGE_V2 = dict(vocab_size=51865, num_mel_bins=80, d_model=1280, encoder_layers=32,
+                        encoder_attention_heads=20, decoder_layers=32, decoder_attention_heads=20,
+                        encoder_ffn_dim=5120, decoder_ffn_dim=5120, max_source_positions=1500,
+                        max_target_positions=448)
+
+
+def _j1_batch(rng, n_pairs, audio: bool):
+    """A kw_type='all' batch of ``n_pairs`` (tts, natural) pairs at J1's
+    tiny dims: 12-wide unit-norm stacks with zero-padded, masked tails;
+    with ``audio``, 30 s waveforms of 1-3 s and their valid encoder frames
+    instead of the utterance stacks."""
+    n = 2 * n_pairs
+
+    def stacks(t_pad, lo, hi):
+        x = rng.standard_normal((n, 2, t_pad, J1_WIDTH)).astype(np.float32)
+        x /= np.linalg.norm(x, axis=-1, keepdims=True)
+        mask = np.zeros((n, 2, t_pad), np.float32)
+        for i, t in enumerate(rng.integers(lo, hi, n)):
+            x[i, :, t:] = 0.0
+            mask[i, :, :t] = 1.0
+        return x, mask
+
+    kwd, kwd_mask = stacks(32, 4, 20)
+    batch = {"kwd_features": kwd, "kwd_mask": kwd_mask,
+             "labels": rng.integers(0, 2, n).astype(np.int64),
+             "domain": rng.integers(0, 12, n).astype(np.int64)}
+    if audio:
+        wav = _audio(n, 480000, rng)
+        lengths = rng.integers(16000, 48000, n)
+        for i, length in enumerate(lengths):
+            wav[i, length:] = 0.0
+        batch["utt_audio"] = wav
+        batch["utt_frames"] = np.ceil((lengths // 160) / 2).astype(np.int64)
+    else:
+        batch["utt_features"], batch["utt_mask"] = stacks(64, 20, 64)
+    return batch
+
+
+def _j1_snapshot(state, metrics):
+    """(loss, weights, statistics, AdamW's moments) of a state, as numpy."""
+    from enhance_cb_whisper_tpu_torch.convert import to_flax_variables
+    from enhance_cb_whisper_tpu_torch.train.kws_train import adam_tree
+
+    variables = to_flax_variables(state.model.state_dict())
+    opt = adam_tree(state.optimizer, {"": state.model})
+    groups = [g["inner_state"] for g in opt["inner_states"].values()] if "inner_states" in opt else [opt]
+    moments = {}
+    for which in ("mu", "nu"):
+        for g in groups:
+            moments.update({f"{which} {k}": v for k, v in _flat_np(g["inner_state"]["0"][which]).items()})
+    return float(metrics["loss"]), _flat_np(variables["params"]), _flat_np(variables["batch_stats"]), moments
+
+
+def _j1_pair(variant, device, whisper=None):
+    """One train step of the tiny ``variant`` on the CPU and one on
+    ``device``, from the same weights, on the same batch with the same
+    CPU-seeded coin.  ``whisper`` maps each device to its frozen encoder
+    (the audio mode).  Returns {device: snapshot}."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.efficient_kws.engine import EfficientKWSEngine, EfficientTrainConfig
+    from enhance_cb_whisper_tpu_torch.efficient_kws.model import EfficientKWSConfig
+    from enhance_cb_whisper_tpu_torch.train.kws_train import StepNoise, step_seed
+
+    cfg = EfficientKWSConfig(**J1_TINY, **P2_VARIANTS[variant])
+    train = EfficientTrainConfig(kw_type="all", learning_rate=1e-3, learning_rate_sru=2e-3)
+    batch = _j1_batch(np.random.default_rng(SEED + 60), 4, whisper is not None)
+    snap, start = {}, None
+    for dev in ("cpu", device):
+        kwargs = dict(whisper=whisper[dev], kws_layer_slice=(1, 5), utt_frames_budget=64) if whisper else {}
+        engine = EfficientKWSEngine(cfg, train, seed=SEED, device=dev, **kwargs)
+        state = engine.init_state(batch)
+        if start is None:
+            start = {k: v.clone() for k, v in state.model.state_dict().items()}
+        state.model.load_state_dict(start)
+        metrics = engine.make_train_step(state)({k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+                                                StepNoise(step_seed(SEED, 0), dev))
+        snap[dev] = _j1_snapshot(state, metrics)
+    return snap
+
+
+def _flat_np(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flat_np(v, name))
+        else:
+            out[name] = np.asarray(v)
+    return out
+
+
+def _j1_compare(label, cpu, card, lr=2e-3) -> str:
+    """The card's step against the CPU's: the loss within 1e-5 relative;
+    AdamW's moments (the first is 0.1 x the gradient after one step) within
+    rtol 1e-4 + 2e-4 x the leaf's largest magnitude, but LEF's time-
+    convolution bias, whose gradient vanishes ahead of a BatchNorm, only by
+    its size (below 1e-4 of the largest moment on both); the statistics
+    within rtol 1e-4 + 1e-5 x the leaf's scale (the time projector's means
+    plus that bias's own gap, which they follow); every weight within two
+    rates (Adam moves a weight by about its rate whatever its gradient's
+    size, so a rounding-level gradient can step the other way), at least
+    95 % of them within rtol 1e-4 + 1e-5 x the leaf's scale."""
+    loss_c, p_c, s_c, m_c = cpu
+    loss_d, p_d, s_d, m_d = card
+    if abs(loss_d - loss_c) > 1e-5 * abs(loss_c) + 1e-6:
+        raise RuntimeError(f"{label}: loss card {loss_d!r} CPU {loss_c!r}")
+    top = max(float(np.abs(v).max()) for v in m_c.values())
+    worst = 0.0
+    for k, want in m_c.items():
+        got = m_d[k]
+        if "time_projector.conv_" in k and k.endswith(".bias"):
+            if max(np.abs(want).max(), np.abs(got).max()) > 1e-4 * top:
+                raise RuntimeError(f"{label}: {k} is no longer rounding noise")
+            continue
+        scale = float(np.abs(want).max()) or 1.0
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-4 * scale, err_msg=f"{label} {k}")
+        worst = max(worst, float(np.abs(got - want).max()) / scale)
+    for k, want in s_c.items():
+        drift = 0.0
+        if k.startswith("time_projector.bn_") and k.endswith(".mean"):
+            bias = k.replace(".bn_", ".conv_").replace(".mean", ".bias")
+            drift = float(np.abs(p_d[bias] - p_c[bias]).max())
+        scale = float(np.abs(want).max()) or 1.0
+        np.testing.assert_allclose(s_d[k], want, rtol=1e-4, atol=1e-5 * scale + drift,
+                                   err_msg=f"{label} statistic {k}")
+    diffs, near = [], []
+    for k, want in p_c.items():
+        diff = np.abs(p_d[k] - want)
+        diffs.append(float(diff.max()))
+        near.append((diff <= 1e-4 * np.abs(want) + 1e-5 * (float(np.abs(want).max()) or 1.0)).ravel())
+    share = float(np.concatenate(near).mean())
+    if max(diffs) > 2 * lr or share < 0.95:
+        raise RuntimeError(f"{label}: weights max diff {max(diffs)!r}, {share!r} within the tolerance")
+    return (f"loss {loss_d!r} (CPU {loss_c!r}), worst moment diff / leaf scale {worst!r}, "
+            f"weights max diff {max(diffs)!r}, {share!r} within rtol 1e-4 + 1e-5 x scale")
+
+
+def _j1_whisper(device):
+    from enhance_cb_whisper_tpu_torch.convert import from_jax_whisper_params
+    from enhance_cb_whisper_tpu_torch.models.whisper import WhisperConfig, init_whisper_params
+
+    cfg = WhisperConfig(**J1_WHISPER)
+    return cfg, from_jax_whisper_params(init_whisper_params(np.random.default_rng(SEED + 61), cfg), device)
+
+
+def phase_j1(device) -> None:
+    """CPU = card on the tiny model (2 layers of 12-wide stacks, embedding_dim
+    8, ResNet-18 at 32 x 64): a train step of L, LE and LEF from the same
+    weights with the same CPU-seeded coin (:func:`_j1_pair`,
+    :func:`_j1_compare`'s tolerances); then the audio mode (LE, a random
+    4-layer Whisper encoder of width 12): the step's embedding of [8,
+    480000] on the card (K1) and on the CPU (the plain mel) within rtol
+    1e-3 / atol 1e-4 (K1 and its plain version agree to 1e-4 / 1e-5, which
+    the encoder carries on), zeros past each utterance, then a step each
+    with K1 launched once on the card (:func:`_j1_compare_audio`)."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.efficient_kws.engine import EfficientKWSEngine
+    from enhance_cb_whisper_tpu_torch.efficient_kws.model import EfficientKWSConfig
+    from enhance_cb_whisper_tpu_torch.ops import mel_cuda
+
+    for variant in P2_VARIANTS:
+        t0 = time.perf_counter()
+        snap = _j1_pair(variant, device)
+        text = _j1_compare(f"phase J1 {variant}", snap["cpu"], snap[device])
+        print(f"phase J1 {variant}: card = CPU ({text}) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    whisper = {dev: _j1_whisper(dev) for dev in ("cpu", device)}
+    b = _j1_batch(np.random.default_rng(SEED + 62), 4, True)
+    embeds = {}
+    for dev in ("cpu", device):
+        engine = EfficientKWSEngine(EfficientKWSConfig(**J1_TINY, **P2_VARIANTS["LE"]), whisper=whisper[dev],
+                                    kws_layer_slice=(1, 5), utt_frames_budget=64, device=dev)
+        mel_cuda.launches = 0
+        utt, mask = engine.embed_utterances(torch.from_numpy(b["utt_audio"]).to(dev),
+                                            torch.from_numpy(b["utt_frames"]).to(dev))
+        embeds[dev] = (utt.cpu(), mask.cpu(), mel_cuda.launches)
+    (u_c, m_c, _), (u_d, m_d, launched) = embeds["cpu"], embeds[device]
+    gap = float((u_d - u_c).abs().max())
+    tails_zero = all(not u_d[i, :, int(n):].any() for i, n in enumerate(b["utt_frames"]) if n < 64)
+    if not (torch.allclose(u_d, u_c, rtol=1e-3, atol=1e-4) and torch.equal(m_d, m_c) and tails_zero
+            and launched == 1):
+        raise RuntimeError(f"phase J1 audio: embedding card vs CPU max diff {gap!r}, masks equal "
+                           f"{torch.equal(m_d, m_c)}, zero tails {tails_zero}, K1 launches {launched}")
+    mel_cuda.launches = 0
+    snap = _j1_pair("LE", device, whisper)
+    if mel_cuda.launches != 1:
+        raise RuntimeError(f"phase J1 audio: the card's step launched K1 {mel_cuda.launches} times")
+    text = _j1_compare_audio(snap["cpu"], snap[device])
+    print(f"phase J1 audio: embedding [8, 480000] card (K1) vs CPU (plain mel) max diff {gap!r} "
+          f"(rtol 1e-3, atol 1e-4), masks equal, zero past each utterance; one step: {text}; K1 "
+          f"launched once in the step, in {time.perf_counter() - t0:.1f} s")
+
+
+def _j1_compare_audio(cpu, card) -> str:
+    """An audio-mode step, card against CPU: its inputs already differ by
+    K1's rounding (above), so the loss within 1e-4 relative and every
+    weight within two rates, at least 95 % within rtol 1e-4 + 1e-5 x scale."""
+    loss_c, p_c, _, _ = cpu
+    loss_d, p_d, _, _ = card
+    diffs = np.concatenate([np.abs(p_d[k] - v).ravel() for k, v in p_c.items()])
+    near = np.concatenate([(np.abs(p_d[k] - v) <= 1e-4 * np.abs(v) + 1e-5 * (float(np.abs(v).max()) or 1.0)).ravel()
+                           for k, v in p_c.items()])
+    if abs(loss_d - loss_c) > 1e-4 * abs(loss_c) or diffs.max() > 2 * 2e-3 or near.mean() < 0.95:
+        raise RuntimeError(f"phase J1 audio step: loss card {loss_d!r} CPU {loss_c!r}, weights max diff "
+                           f"{diffs.max()!r}, {near.mean()!r} within the tolerance")
+    return f"loss {loss_d!r} (CPU {loss_c!r}), weights max diff {diffs.max()!r}, {near.mean()!r} close"
+
+
+def _write_j_data(root: Path, device, seed: int) -> dict:
+    """A synthetic MLS layout of the six languages at whisper-large-v2's
+    widths: per language ``J_KEYWORDS`` keywords of 20-60 frames (tts and
+    natural, one of them without a cache), ``J_TRAIN_UTTS`` training
+    utterances (stacks of 500-1500 frames and 16 kHz WAVs of 10-30 s) with
+    two positives each, and a dev split of ``J_DEV_UTTS`` utterances.
+    Distinct stacks and WAVs are written once and linked per language."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    pool = root / "pool"
+    pool.mkdir(parents=True, exist_ok=True)
+    for j in range(J_KEYWORDS):
+        for kw_type in ("tts", "natural"):
+            np.save(pool / f"kw_{kw_type}_{j}.npy", _h_stack(gen, int(rng.integers(20, 61)), device))
+    for j, frames in enumerate(J_FRAMES):
+        np.save(pool / f"utt_{j}.npy", _h_stack(gen, frames, device))
+        # the WAV is as long as its stack's frames say (50 a second)
+        _write_wav(pool / f"utt_{j}.wav", _audio(1, frames * 320, rng)[0], rate=16000)
+    for lang in J_LANGS:
+        keywords = [f"{lang[:3].lower()}kw{i:02d}" for i in range(J_KEYWORDS)]
+        rev = sorted(keywords, key=lambda x: x[::-1])
+        base = root / f"mls_{lang.lower()}_opus"
+        for split, n_utts in (("train", J_TRAIN_UTTS), ("dev", J_DEV_UTTS)):
+            d = base / split
+            (d / "hs").mkdir(parents=True, exist_ok=True)
+            (d / "keywords.txt").write_text("\n".join(keywords) + "\n")
+            for kw_type in ("tts", "natural"):
+                (d / "keywords-hs" / kw_type).mkdir(parents=True, exist_ok=True)
+                for i in range(J_KEYWORDS):
+                    if i != J_GHOST:
+                        (d / "keywords-hs" / kw_type / f"{i:02d}.npy").symlink_to(pool / f"kw_{kw_type}_{i}.npy")
+            lines, codes, text, mentions = [], [], [], []
+            for u in range(n_utts):
+                code = f"{10 + u}_{20 + u}_{u:06d}"
+                j = u % len(J_FRAMES)
+                (d / "hs" / f"{code}.npy").symlink_to(pool / f"utt_{j}.npy")
+                if split == "train":
+                    wav = d / "audio" / str(10 + u) / str(20 + u) / f"{code}.wav"
+                    wav.parent.mkdir(parents=True, exist_ok=True)
+                    wav.symlink_to(pool / f"utt_{j}.wav")
+                    parts = [code]
+                    picks = rng.choice([i for i in range(J_KEYWORDS) if i != J_GHOST], 2, replace=False)
+                    for p in sorted(picks.tolist()):
+                        parts += [keywords[p], str(p), str(rev.index(keywords[p]))]
+                    lines.append("\t".join(parts))
+                else:
+                    kw = keywords[(5 * u + 1) % J_KEYWORDS]
+                    transcript = f"we spoke of {kw} today"
+                    codes.append(code)
+                    text.append(f"{code}\t{transcript}")
+                    start = transcript.index(kw)
+                    mentions.append("\t".join([code, kw, str(start), str(start + len(kw))]))
+            if split == "train":
+                (d / "positives.tsv").write_text("\n".join(lines) + "\n")
+            else:
+                (d / "uttid").write_text("\n".join(codes) + "\n")
+                (d / "transcripts.txt").write_text("\n".join(text) + "\n")
+                (d / "positives.tsv").write_text("\n".join(mentions) + "\n")
+    size = sum(p.stat().st_size for p in pool.iterdir())
+    return {"bytes": size}
+
+
+def _write_large_v2(directory: Path, device) -> float:
+    """A random whisper-large-v2 (32 + 32 layers of 1280, 80 mels) as an HF
+    checkpoint directory: ``config.json`` and ``model.safetensors`` in fp16
+    (the loader upcasts), the weights drawn on the card.  Returns the
+    seconds it took."""
+    import dataclasses
+
+    import torch
+    from safetensors.torch import save_file
+
+    from enhance_cb_whisper_tpu_torch.models.whisper import WhisperConfig
+    from enhance_cb_whisper_tpu_torch.models.whisper_loader import hf_whisper_state
+
+    t0 = time.perf_counter()
+    config = WhisperConfig(**WHISPER_LARGE_V2)
+    gen = torch.Generator(device=device).manual_seed(SEED + 70)
+
+    def lin(n_in, n_out, bias=True):
+        p = {"weight": torch.randn(n_out, n_in, generator=gen, device=device) * 0.02}
+        if bias:
+            p["bias"] = torch.zeros(n_out, device=device)
+        return p
+
+    def ln():
+        return {"weight": torch.ones(config.d_model, device=device),
+                "bias": torch.zeros(config.d_model, device=device)}
+
+    def attn():
+        d = config.d_model
+        return {"q_proj": lin(d, d), "k_proj": lin(d, d, bias=False), "v_proj": lin(d, d),
+                "out_proj": lin(d, d)}
+
+    def layer(cross):
+        out = {"self_attn": attn(), "self_attn_layer_norm": ln(),
+               "fc1": lin(config.d_model, config.encoder_ffn_dim),
+               "fc2": lin(config.encoder_ffn_dim, config.d_model), "final_layer_norm": ln()}
+        if cross:
+            out.update(encoder_attn=attn(), encoder_attn_layer_norm=ln())
+        return out
+
+    from enhance_cb_whisper_tpu_torch.models.whisper import sinusoid_positions
+
+    d = config.d_model
+    params = {
+        "encoder": {
+            "conv1": {"weight": torch.randn(d, config.num_mel_bins, 3, generator=gen, device=device) * 0.02,
+                      "bias": torch.zeros(d, device=device)},
+            "conv2": {"weight": torch.randn(d, d, 3, generator=gen, device=device) * 0.02,
+                      "bias": torch.zeros(d, device=device)},
+            "embed_positions": {"weight": torch.from_numpy(
+                sinusoid_positions(config.max_source_positions, d)).to(device)},
+            "layer_norm": ln(),
+            "layers": [layer(False) for _ in range(config.encoder_layers)],
+        },
+        "decoder": {
+            "embed_tokens": {"weight": torch.randn(config.vocab_size, d, generator=gen, device=device) * 0.02},
+            "embed_positions": {"weight": torch.randn(config.max_target_positions, d, generator=gen,
+                                                      device=device) * 0.02},
+            "layer_norm": ln(),
+            "layers": [layer(True) for _ in range(config.decoder_layers)],
+        },
+    }
+    directory.mkdir(parents=True, exist_ok=True)
+    state = {k: v.to(torch.float16).cpu() for k, v in hf_whisper_state(params).items()}
+    del params
+    save_file(state, str(directory / "model.safetensors"))
+    (directory / "config.json").write_text(json.dumps(
+        {"model_type": "whisper", "architectures": ["WhisperForConditionalGeneration"],
+         **dataclasses.asdict(config)}))
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _recorded_p2_steps():
+    """Time each paper-2 train step the engine makes (synchronised), count
+    its examples (after the kw_type='all' coin), and keep the last step's
+    engine, step function and batch for the profiler."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.efficient_kws import engine as pe
+
+    real = pe.EfficientKWSEngine.make_train_step
+    rec = {"ms": [], "examples": [], "starts": [], "ends": [], "losses": [], "last": None}
+
+    def make(self, state):
+        step = real(self, state)
+        rec["initial"] = [p.detach().clone() for p in state.model.parameters()]
+        halve = self.train_config.kw_type == "all"
+
+        def timed(batch, noise):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(batch, noise)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rec["ms"].append((t1 - t0) * 1e3)
+            rec["starts"].append(t0)
+            rec["ends"].append(t1)
+            rec["examples"].append(int(batch["labels"].shape[0]) // (2 if halve else 1))
+            rec["losses"].append(float(out["loss"]))
+            rec["last"] = (self, step, batch, noise)
+            return out
+
+        return timed
+
+    pe.EfficientKWSEngine.make_train_step = make
+    try:
+        yield rec
+    finally:
+        pe.EfficientKWSEngine.make_train_step = real
+
+
+@contextlib.contextmanager
+def _recorded_k1_shapes():
+    """Records the shape of every K1 wrapper call made inside the block; the
+    real wrapper still runs and counts its launch."""
+    from enhance_cb_whisper_tpu_torch.ops import mel_cuda
+
+    real, seen = mel_cuda.log10_mel, []
+
+    def recorded(audio, n_mels=80):
+        seen.append(tuple(audio.shape))
+        return real(audio, n_mels)
+
+    mel_cuda.log10_mel = recorded
+    try:
+        yield seen
+    finally:
+        mel_cuda.log10_mel = real
+
+
+def _p2_step_breakdown(label, rec) -> None:
+    """One paper-2 train step on the run's last batch: its FLOPs
+    (``FlopCounterMode``: convolutions, matmuls and attention) and bound at
+    the FP32 peak, the median wall of three unprofiled steps, and the device
+    time of the second of two profiled steps by kernel family (K1, the
+    frozen encoder's GEMMs and attention, taken from a profiled
+    ``embed_utterances`` of the same audio, the other GEMMs, convolutions,
+    BatchNorm, the optimizer, the rest) with its idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    engine, step, batch, noise = rec["last"]
+    examples = rec["examples"][-1]
+
+    def families(prof):
+        parts = {"K1 log10_mel": 0.0, "GEMMs and attention": 0.0, "convolutions": 0.0,
+                 "BatchNorm": 0.0, "optimizer": 0.0, "other": 0.0}
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0)
+            name = evt.key.lower()
+            if "mel" in name:
+                parts["K1 log10_mel"] += us
+            elif "batch_norm" in name or "bn_" in name or "welford" in name:
+                parts["BatchNorm"] += us
+            elif any(s in name for s in ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")):
+                parts["convolutions"] += us
+            elif any(s in name for s in ("gemm", "cutlass", "flash", "fmha", "attention", "sm90_xmma")):
+                parts["GEMMs and attention"] += us
+            elif "multi_tensor" in name or "adam" in name:
+                parts["optimizer"] += us
+            else:
+                parts["other"] += us
+        return parts
+
+    with FlopCounterMode(display=False) as counter:
+        step(batch, noise)
+    flops = counter.get_total_flops()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch, noise)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(batch, noise)
+            torch.cuda.synchronize()
+    parts = families(prof)
+    device_ms = sum(parts.values()) / 1e3
+    if "utt_audio" in batch:
+        # as many utterances as the step embeds (K1 takes contiguous rows)
+        audio, frames = batch["utt_audio"][::2].contiguous(), batch["utt_frames"][::2].contiguous()
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as eprof:
+                engine.embed_utterances(audio, frames)
+                torch.cuda.synchronize()
+        encoder = families(eprof)["GEMMs and attention"]
+        parts = {"K1 log10_mel": parts["K1 log10_mel"], "encoder GEMMs and attention": encoder,
+                 "other GEMMs": parts["GEMMs and attention"] - encoder,
+                 **{k: v for k, v in parts.items() if k not in ("K1 log10_mel", "GEMMs and attention")}}
+    text = ", ".join(f"{k} {v / 1e3!r} ms" for k, v in parts.items())
+    bound_ms = flops / FP32_RATE * 1e3
+    print(f"{label}: one step of {examples} examples: wall {wall!r} ms unprofiled (median of 3: "
+          f"{walls!r}); device {device_ms!r} ms (idle share {1 - device_ms / wall!r}): {text}; "
+          f"{flops / 1e12!r} TFLOP (convolutions, matmuls, attention), bound {bound_ms!r} ms at "
+          f"{FP32_RATE / 1e12:g} TFLOP/s, the step {wall / bound_ms!r}x it")
+
+
+def _j_argv(root: Path, run: str, *overrides):
+    return ["fit", "--config", str(CONFIGS / "efficient_kws" / "train-LEF.yaml"),
+            "--set", f"MLS_ROOT={root}", "--set", f"DEFAULT_ROOT_DIR={PHASE_J_DIR / run}",
+            "--trainer.max_epochs", "1", *overrides]
+
+
+def _j_fit(label, argv):
+    """``run_cli(argv)`` on the card with each step and K1 and K2's launches
+    recorded; the weights must move and stay finite.  Returns (state,
+    record, K1 shapes)."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.cli import run_cli
+
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, mel_cuda
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mel_cuda.launches = matmul_s8_cuda.launches = 0
+    with _recorded_p2_steps() as rec, _recorded_k1_shapes() as k1:
+        t0 = time.perf_counter()
+        state = run_cli(argv)  # the default device: the card
+        seconds = time.perf_counter() - t0
+    rec["launches"] = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches}
+    _report_run(label, rec, seconds)
+    moved = max(float((p.detach() - q).abs().max()) for p, q in zip(state.model.parameters(), rec["initial"]))
+    if not moved > 0 or not all(bool(torch.isfinite(p).all()) for p in state.model.parameters()):
+        raise RuntimeError(f"{label}: the weights did not move or are not finite ({moved!r})")
+    print(f"{label}: largest weight change {moved!r}; projector input width "
+          f"{state.model.projector.proj_0_0.in_features} (embedding_dim "
+          f"{state.model.config.embedding_dim})")
+    return state, rec, k1
+
+
+def phase_j2(device) -> dict:
+    """configs/efficient_kws/train-LEF.yaml as written (ResNet-50 on 3 layers,
+    features 150 x 1500, batch 16 pairs, kw_type all, utterance-examples
+    sampling) through ``run_cli(["fit", ...])`` from the hidden-state
+    caches at whisper-large-v2's 12 x 1280 (wider than embedding_dim 1024):
+    one epoch of three batches with the 12 validation sets, then a resume
+    from its ``final`` for one epoch of two.  Returns K1's and K2's launches
+    over the two CLI runs."""
+    import shutil
+
+    root = PHASE_J_DIR / "mls"
+    state, rec, _ = _j_fit("phase J2 caches", _j_argv(root, "caches", "--trainer.limit_train_batches", "3"))
+    launches = dict(rec["launches"])
+    _p2_step_breakdown("phase J2 caches", rec)
+    final = PHASE_J_DIR / "caches" / "checkpoints" / "final"
+    print(f"phase J2: checkpoints {sorted(p.name for p in final.parent.iterdir())}")
+    state, rec, _ = _j_fit("phase J2 resume", _j_argv(root, "caches", "--trainer.max_epochs", "2",
+                                                      "--trainer.limit_train_batches", "2",
+                                                      "--ckpt_path", str(final)))
+    if state.epoch != 1 or len(rec["ms"]) != 2:
+        raise RuntimeError(f"phase J2 resume: epoch {state.epoch}, {len(rec['ms'])} steps")
+    shutil.rmtree(PHASE_J_DIR / "caches", ignore_errors=True)
+    return {k: launches[k] + rec["launches"][k] for k in launches}
+
+
+def phase_j3(device) -> dict:
+    """The same config with ``load_embeddings: false``: the frozen encoder is
+    a random whisper-large-v2 written as an HF directory, each step embeds
+    its 16 utterances' 30 s audio (K1, then the encoder's layer slice (10,
+    22), the last 3 slabs); K1 launches exactly once a step, at [16,
+    480000], and K2 never.  Returns their launches over the CLI run."""
+    seconds = _write_large_v2(PHASE_J_DIR / "large-v2", device)
+    print(f"phase J3: random whisper-large-v2 written as an HF directory (fp16 safetensors, "
+          f"{(PHASE_J_DIR / 'large-v2' / 'model.safetensors').stat().st_size} B) in {seconds:.1f} s")
+    state, rec, k1 = _j_fit("phase J3 audio", _j_argv(
+        PHASE_J_DIR / "mls", "audio", "--trainer.limit_train_batches", "2",
+        "--model.init_args.load_embeddings", "false",
+        "--model.init_args.kws_whisper_ckpt", str(PHASE_J_DIR / "large-v2")))
+    steps, launches = len(rec["ms"]), rec["launches"]
+    print(f"phase J3: K1 launches {launches['mel']} over {steps} steps at {sorted(set(k1))}, "
+          f"K2 launches {launches['k2']}")
+    if launches["mel"] != steps or set(k1) != {(J_BATCH, 480000)}:
+        raise RuntimeError(f"phase J3: K1 launched {launches['mel']} times at {k1} over {steps} steps")
+    _p2_step_breakdown("phase J3 audio", rec)
+    return launches
+
+
+def phase_j(device) -> dict:
+    """Phase J: paper-2 training, J1, J2, J3; the phase's files are deleted
+    at the end, pass or fail.  Returns K1's and K2's launches over J2's and
+    J3's CLI runs (the kernel line's ``paper2_train_launches``)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(PHASE_J_DIR, ignore_errors=True)
+    try:
+        phase_j1(device)
+        t1 = time.perf_counter()
+        info = _write_j_data(PHASE_J_DIR / "mls", device, SEED + 71)
+        print(f"phase J: MLS layout of {len(J_LANGS)} languages x {J_KEYWORDS} keywords, "
+              f"{J_TRAIN_UTTS} training and {J_DEV_UTTS} dev utterances each ({H_LAYERS} x {H_DIM}; "
+              f"{info['bytes']} B of distinct files) written in {time.perf_counter() - t1:.1f} s")
+        cached = phase_j2(device)
+        audio = phase_j3(device)
+        launches = {k: cached[k] + audio[k] for k in cached}
+    finally:
+        shutil.rmtree(PHASE_J_DIR, ignore_errors=True)
+    if launches["k2"]:
+        raise RuntimeError(f"phase J: training launched K2 {launches['k2']} times")
+    print(f"phase J: {time.perf_counter() - t0:.1f} s; kernel launches over J2 and J3 {launches}")
+    return launches
+
+
 def _median_ms(fn, reps: int = 25) -> float:
     import torch
 
@@ -3284,7 +3903,8 @@ def _card() -> str:
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--k1"], ["--serving"], ["--levers"], ["--train"], ["--paper2"]):
+    if argv not in ([], ["--k1"], ["--serving"], ["--levers"], ["--train"], ["--paper2"],
+                    ["--paper2-train"]):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3312,6 +3932,17 @@ def main(argv) -> int:
         phase_a(device)
         phase_c(device)
         print_k1_bound()
+        print(_card())
+        return 0
+    if argv == ["--paper2-train"]:  # K1, phase A and paper-2 training alone
+        from enhance_cb_whisper_tpu_torch.ops import mel_cuda
+
+        mel_lib = mel_cuda.build()
+        print(f"build: {KERNEL_SOURCE} compiled and loaded in {time.perf_counter() - t_start:.1f} s")
+        _print_ptxas("K1", mel_lib)
+        phase_a(device)
+        phase_j(device)
+        print(f"chip_smoke --paper2-train: passed in {time.perf_counter() - t_start:.1f} s")
         print(_card())
         return 0
     build_kernels()
@@ -3365,6 +3996,7 @@ def main(argv) -> int:
     del cb
     train_launches = phase_h(device)
     paper2_launches = phase_i(device, p2_shapes["LEF"])
+    paper2_train_launches = phase_j(device)
     times = phase_c(device)
     k2 = phase_c_k2(device, shapes)
     phase_c_k2(device, p2_shapes["LEF"], f"chunk of {P2_CHUNK} paper-2 LEF maps")
@@ -3378,13 +4010,13 @@ def main(argv) -> int:
          "launches": fp32_launches["mel"], "cli_launches": cli_launches["mel"],
          "packed_launches": packed_launches["mel"], "levers_launches": levers_launches["mel"],
          "train_launches": train_launches["mel"], "paper2_launches": paper2_launches["mel"],
-         "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+         "paper2_train_launches": paper2_train_launches["mel"], "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": k1["ms"], "bound_by": k1["by"], "library_ms": None},
         {"name": "matmul_s8_requant", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
          "launches": int8_launches["k2"], "cli_launches": cli_launches["k2"],
          "packed_launches": packed_launches["k2"], "levers_launches": levers_launches["k2"],
          "train_launches": train_launches["k2"], "paper2_launches": paper2_launches["k2"],
-         "max_abs_err": k2_err, "mismatches": mismatches,
+         "paper2_train_launches": paper2_train_launches["k2"], "max_abs_err": k2_err, "mismatches": mismatches,
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
     ]}))

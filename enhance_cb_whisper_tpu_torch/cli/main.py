@@ -6,9 +6,12 @@
 
 * ``model.model.KWSModel``       → paper-1 KWS training (``run_CLI.py fit``)
   and eval (``kws.py test|validate``);
-* ``efficient_kws.model.KWSModel`` → the paper-2 L/LE/LEF eval
-  (``run_efficient_kws.py test|validate``) from a checkpoint directory or a
-  reference ``.ckpt``, with the reference CLI's argument links;
+* ``efficient_kws.model.KWSModel`` → paper-2 L/LE/LEF training
+  (``run_efficient_kws.py fit``, from hidden-state caches or, with
+  ``load_embeddings: false``, from audio through the frozen
+  ``kws_whisper_ckpt`` encoder) and eval (``test|validate``) from a
+  checkpoint directory or a reference ``.ckpt``, with the reference CLI's
+  argument links;
 * ``model.cb_whisper.CBWhisper``  → CB-Whisper entity recall (``cb-whisper.py test``).
 
 Models are built through the port's entry points on ``device`` (the card
@@ -17,9 +20,8 @@ CLI's argument links (``sampling``, ``resample_every_epoch``, ``kw_type``
 and ``batch_size`` from the model block to the data block; under
 adversarial training the batch size × ``accumulate_grad_batches``),
 hands ``device_features`` to the train step, writes its checkpoints under
-``trainer.default_root_dir``/checkpoints, and resumes from ``ckpt_path``.
-What the port does not carry yet raises instead of being ignored:
-paper-2 training and its audio mode (ROADMAP.md §1 item 6b).  The CB-Whisper serving knobs reach the
+``trainer.default_root_dir``/checkpoints, and resumes from ``ckpt_path``
+(both papers).  The CB-Whisper serving knobs reach the
 constructors as in the JAX CLI: ``compute_dtype``, ``vocab_int8``,
 ``decoder_int8``, ``kv_cache_int8``, ``cross_kv_int8``, and ``encoder_int8``
 (with a separate ``encoder_ckpt``).  ``eval_batch_size`` and
@@ -216,8 +218,6 @@ def _run_paper2(subcommand: str, config: Dict[str, Any], device):
     from ..efficient_kws.model import EfficientKWSConfig
     from ..models.quant import s8_stages
 
-    if subcommand == "fit":
-        raise NotImplementedError("paper-2 training is not ported yet: ROADMAP.md §1 item 6b")
     model_args = dict(get(config, "model.init_args", {}) or {})
     if "threshold" in model_args:
         # the eval configs quote their [THRESHOLD] placeholder, so `--set
@@ -234,14 +234,36 @@ def _run_paper2(subcommand: str, config: Dict[str, Any], device):
             data_args[key] = model_args[key]
     # a link falls back to the model's default when the config omits it
     data_args.setdefault("batch_size", 1)
-    if not data_args.get("load_embeddings", True):
-        raise NotImplementedError(
-            "load_embeddings: false (the Whisper encoder inside the step) is not ported yet: "
-            "ROADMAP.md §1 item 6b")
 
     model_config = EfficientKWSConfig(**filter_kwargs(model_args, EfficientKWSConfig))
     train_config = EfficientTrainConfig(**filter_kwargs(model_args, EfficientTrainConfig))
     datamodule = EfficientKWSDataMod(**filter_kwargs(data_args, EfficientKWSDataMod))
+    if subcommand == "fit":
+        if not data_args.get("train_info"):
+            raise ValueError("fit needs a training dataset: data.init_args.train_info is empty")
+        whisper = None
+        if not data_args.get("load_embeddings", True):
+            # the audio mode: the frozen Whisper encoder runs inside the step
+            from ..models.whisper_loader import load_whisper_from_pretrained
+
+            whisper = load_whisper_from_pretrained(model_args["kws_whisper_ckpt"], device=device)
+        log_dir = get(config, "trainer.default_root_dir") or "runs/efficient_kws"
+        engine = EfficientKWSEngine(
+            model_config, train_config, ckpt_dir=os.path.join(log_dir, "checkpoints"),
+            logger=_logger_from_config(config, log_dir), whisper=whisper,
+            kws_layer_slice=tuple(model_args.get("kws_layer_slice", (10, 22))),
+            utt_frames_budget=tuple(model_args.get("features_size", (150, 1500)))[1],
+            device=device,
+        )
+        limit = get(config, "trainer.limit_train_batches")
+        return engine.fit(
+            datamodule,
+            max_epochs=int(get(config, "trainer.max_epochs") or train_config.max_epochs),
+            early_stopping=_early_stopping(config),
+            monitors=_monitors(config),
+            limit_train_batches=None if limit is None else int(limit),
+            resume_from=config.get("ckpt_path"),
+        )
     # the eval logs nothing: no run directory (the JAX CLI opens one)
     engine = EfficientKWSEngine(model_config, train_config, device=device)
 

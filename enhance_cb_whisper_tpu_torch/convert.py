@@ -140,11 +140,12 @@ def flax_entry(key: str, tensor: torch.Tensor):
     """One ``state_dict`` entry in the flax layout: ``(collection, path,
     array)`` with ``collection`` "params" or "batch_stats", or None for
     ``num_batches_tracked``.  Kernels are transposed to flax's
-    ``[kh, kw, in, out]``, ``[k, in, out]`` or ``[in, out]``."""
+    ``[kh, kw, in, out]``, ``[k, in, out]`` or ``[in, out]``.  The array is
+    a copy: a later training step does not change it."""
     *path, leaf = key.split(".")
     if leaf == "num_batches_tracked":
         return None
-    a = tensor.detach().to(torch.float32).cpu().numpy()
+    a = tensor.detach().to(torch.float32, copy=True).cpu().numpy()
     if leaf in ("running_mean", "running_var"):
         return "batch_stats", path + [leaf[len("running_"):]], a
     if leaf == "bias":

@@ -205,7 +205,9 @@ class MLSKWSDataset:
     def __len__(self):
         return self.size
 
-    def __getitem__(self, idx):
+    def _locate(self, idx):
+        """(utterance language's metadata, utterance, keyword index within
+        its language, keyword language) of pair ``idx``."""
         flags = [idx >= d["offset_idx"] for d in self.metadata]
         submeta = self.metadata[flags.index(False) - 1 if not all(flags) else -1]
         data = submeta["data"][(idx - submeta["offset_idx"]) // self.n_keywords[-1]]
@@ -213,8 +215,10 @@ class MLSKWSDataset:
         lang_idx = [keyword_idx < n for n in self.n_keywords].index(True)
         if lang_idx != 0:
             keyword_idx -= self.n_keywords[lang_idx - 1]
-        kw_lang = self.languages[lang_idx]
+        return submeta, data, keyword_idx, self.languages[lang_idx]
 
+    def __getitem__(self, idx):
+        submeta, data, keyword_idx, kw_lang = self._locate(idx)
         mask = 0 if keyword_idx in self.ghost_keyword_indices[kw_lang] else 1
         utt = load_hidden_states(
             os.path.join(self.roots[submeta["language"]], "hs", data["code"] + ".bin")

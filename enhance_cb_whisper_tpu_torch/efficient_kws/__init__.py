@@ -1,7 +1,7 @@
 """Paper 2, "Massive Open-Vocabulary Keyword-Spotting": the L/LE/LEF
-models, pre-projected catalog scoring, the eval datasets and the eval
-engine (port of enhance_cb_whisper_tpu/efficient_kws/; training is
-ROADMAP.md §1 item 6b)."""
+models, pre-projected catalog scoring, the training and eval datasets,
+and the engine that trains (from hidden-state caches or from audio) and
+evaluates them (port of enhance_cb_whisper_tpu/efficient_kws/)."""
 
 from .model import EfficientKWSConfig, EfficientKWSModel
 

@@ -1,5 +1,4 @@
-"""Paper-2 data layer, its eval half (port of
-enhance_cb_whisper_tpu/efficient_kws/data.py).
+"""Paper-2 data layer (port of enhance_cb_whisper_tpu/efficient_kws/data.py).
 
 Items carry padded hidden-state stacks and 0/1 frame masks, not
 similarity maps, so the (learned) projections run inside the model:
@@ -10,11 +9,14 @@ similarity maps, so the (learned) projections run inside the model:
 * ``pad_long_before_resize=True`` zero-pads with masks; False truncates
   with all-ones masks.
 
-The eval datasets (:class:`MLSEvaluationDataset`, and the ACL-6060 and
-AISHELL forks of the paper-1 eval datasets) hold the keyword DB as
-pre-padded groups with ghost keywords zero-filled and masked.  Training
-(:class:`EfficientMLSKWSDataset`, ``setup("fit")``) is ROADMAP.md §1 item
-6b and raises.
+Training reads the MLS pairs (:class:`EfficientMLSKWSDataset`: a keyword's
+stack against an utterance's, labelled by the utterance's positives and
+its language) through the paper-1 sampler; with ``load_embeddings=False``
+an item carries the utterance as a 30 s zero-padded waveform and its valid
+encoder frame count instead, for the engine to embed inside the step.  The
+eval datasets (:class:`MLSEvaluationDataset`, and the ACL-6060 and AISHELL
+forks of the paper-1 eval datasets) hold the keyword DB as pre-padded
+groups with ghost keywords zero-filled and masked.
 """
 
 from __future__ import annotations
@@ -26,9 +28,14 @@ from typing import Sequence, Tuple
 import numpy as np
 
 from ..catalog.store import hidden_states_exist, load_hidden_states
-from ..data.datasets import ACL6060KeywordDataset, AishellHotwordDataset, _read_lines
-
-_TRAINING = "paper-2 training (the MLS training pairs) is not ported yet: ROADMAP.md §1 item 6b"
+from ..data.datasets import (
+    ACL6060KeywordDataset,
+    AishellHotwordDataset,
+    ConcatDataset,
+    MLSKWSDataset,
+    _read_lines,
+)
+from ..data.samplers import KWSSampler
 
 LONG_MAX_LENGTH = 1500  # dataset.py:29
 
@@ -52,12 +59,94 @@ def pad_or_truncate(hs: np.ndarray, target: int, pad: bool, n_layers: int):
     return hs[-n_layers:], mask[-n_layers:]
 
 
-class EfficientMLSKWSDataset:
-    """The MLS training pairs (raw embeddings + masks): paper-2 training,
-    not ported yet."""
+class EfficientMLSKWSDataset(MLSKWSDataset):
+    """The MLS training pairs as raw embeddings and masks
+    (dataset.py:210-606)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_TRAINING)
+    def __init__(
+        self,
+        root: str,
+        languages: Sequence[str] = (
+            "English", "French", "German", "Polish", "Portuguese", "Spanish",
+        ),
+        kw_type: str = "natural",
+        features_size: Tuple[int, int] = (150, 1500),
+        n_layers: int = 3,
+        pad_long_before_resize: bool = True,
+        n_channels: int = 12,
+        hidden_dim: int = 1024,
+        load_embeddings: bool = True,
+    ):
+        super().__init__(root, languages, kw_type)
+        self.features_size = tuple(features_size)
+        self.n_layers = n_layers
+        self.pad_long_before_resize = pad_long_before_resize
+        self.n_channels = n_channels
+        self.hidden_dim = hidden_dim
+        self.load_embeddings = load_embeddings
+        # the ghost stand-in takes the shape of a real cache (the reference
+        # hard-codes (12, 1024))
+        for lang in self.languages:
+            real = [i for i in range(len(self.keywords[lang]))
+                    if i not in self.ghost_keyword_indices[lang]]
+            if real:
+                s = load_hidden_states(self._kw_path(lang, real[0]))
+                self.n_channels, self.hidden_dim = s.shape[0], s.shape[2]
+                break
+
+    def __getitem__(self, idx):
+        submeta, data, keyword_idx, kw_lang = self._locate(idx)
+        mask = 0 if keyword_idx in self.ghost_keyword_indices[kw_lang] else 1
+        if mask:
+            kwd = load_hidden_states(self._kw_path(kw_lang, keyword_idx))
+        else:
+            kwd = np.zeros((self.n_channels, 1, self.hidden_dim), np.float32)
+        kwd_f, kwd_m = pad_or_truncate(kwd, self.features_size[0], self.pad_long_before_resize,
+                                       self.n_layers)
+        label = int(any(keyword_idx == p for _, p, _ in data["positives"])
+                    and submeta["language"] == kw_lang)
+        item = {
+            "label": label,
+            "mask": mask,
+            "domain": (0 if self.kw_type == "tts" else len(self.languages))
+            + self.languages.index(submeta["language"]),
+            "idx": idx,  # carried for parity (dataset.py:575); the collator skips it
+            "kwd_features": kwd_f,
+            "kwd_mask": kwd_m,
+        }
+        root = self.roots[submeta["language"]]
+        if self.load_embeddings:
+            utt = load_hidden_states(os.path.join(root, "hs", data["code"] + ".bin"))
+            item["utt_features"], item["utt_mask"] = pad_or_truncate(
+                utt, self.features_size[1], self.pad_long_before_resize, self.n_layers)
+        else:
+            item["utt_audio"], item["utt_frames"] = self._load_utterance_audio(root, data["code"])
+        return item
+
+    @staticmethod
+    def _load_utterance_audio(root: str, code: str):
+        """The 30 s zero-padded waveform and its valid encoder frame count,
+        ``ceil((unpadded samples // 160) / 2)`` (reference utils.py:187),
+        from ``audio/{spk}/{book}/{code}.{opus,wav,mp3,flac}``.  Only WAV
+        decodes (:func:`..audio.io.load_audio_16k`); another format raises."""
+        import re
+
+        from ..audio.io import load_audio_16k
+        from ..ops.mel import HOP_LENGTH, N_SAMPLES
+
+        m = re.match(r"(?P<f1>\d+)_(?P<f2>\d+)_\d+", code)
+        base = os.path.join(root, "audio", m.group("f1"), m.group("f2"), code)
+        for ext in (".opus", ".wav", ".mp3", ".flac"):
+            if os.path.exists(base + ext):
+                wav = load_audio_16k(base + ext)
+                break
+        else:
+            raise FileNotFoundError(f"no audio for {code} under {root}/audio")
+        wav = wav[:N_SAMPLES]
+        frames = int(np.ceil((wav.shape[0] // HOP_LENGTH) / 2.0))
+        padded = np.zeros((N_SAMPLES,), np.float32)
+        padded[: wav.shape[0]] = wav
+        return padded, frames
 
 
 class _EfficientGroupedEval:
@@ -297,12 +386,13 @@ MLS_LANGUAGES = ["English", "German", "French", "Spanish", "Polish", "Portuguese
 
 
 class EfficientKWSDataMod:
-    """Paper-2 data module: 12 per-language MLS validation datasets
-    (tts + natural × languages) and the AISHELL or ACL-6060 test set.  The
-    constructor takes the training arguments too (the CLI links them);
-    ``setup("fit")`` raises (ROADMAP.md §1 item 6b).  It does not check
-    ``batch_size % 4 == 0`` for utterance-examples sampling, which only
-    training batches need."""
+    """Paper-2 data module (data_module.py:31-387): the MLS training pairs
+    (tts, natural, or both for ``kw_type: all``), 12 per-language MLS
+    validation datasets (tts + natural × languages) and the AISHELL or
+    ACL-6060 test set.  ``batch_size % 4 == 0`` under utterance-examples
+    sampling is checked at ``setup("fit")``, where the JAX package checks
+    it in the constructor and so refuses the eval configs (they leave the
+    batch size at the model's default of 1)."""
 
     def __init__(
         self,
@@ -347,18 +437,38 @@ class EfficientKWSDataMod:
         self.languages = list(languages)
         self.test_split = test_split
         self.collate_fn = EfficientKWSDataCollator()
-        # the JAX package asserts batch_size % 4 == 0 under utterance-examples
-        # sampling here, which refuses the eval configs (they leave the batch
-        # size at the model's default of 1); only training batches need it
+
+    def _train_dataset(self, root, kw_type):
+        return EfficientMLSKWSDataset(
+            root=root,
+            languages=self.languages,
+            kw_type=kw_type,
+            features_size=self.features_size,
+            n_layers=self.n_layers,
+            pad_long_before_resize=self.pad_long_before_resize,
+            load_embeddings=self.load_embeddings,
+        )
 
     def setup(self, stage=None):
         from ..data.datamodule import DataLoader, _as_info
 
         self._loader_cls = DataLoader
-        if stage == "fit":
-            raise NotImplementedError(_TRAINING)
+        if stage in ("fit", None) and self.train_info:
+            if self.sampling == "utterance-examples":
+                assert self.batch_size % 4 == 0, (
+                    f"utterance-examples sampling takes batches of a multiple of 4, got {self.batch_size}")
+            info = _as_info(self.train_info[0])
+            if info.kw_type != "all":
+                self.fit_dataset = self._train_dataset(info.root, info.kw_type)
+                sampler_source = self.fit_dataset
+            else:
+                self.fit_dataset = ConcatDataset(
+                    [self._train_dataset(info.root, t) for t in ("tts", "natural")])
+                sampler_source = self.fit_dataset.datasets[0]
+            self.sampler = KWSSampler(sampler_source, sampling=self.sampling,
+                                      resample_every_epoch=self.resample_every_epoch)
 
-        if stage in ("validate", None) and self.val_info:
+        if stage in ("fit", "validate", None) and self.val_info:
             self.val_dataset = {}
             for raw in self.val_info:
                 info = raw if isinstance(raw, dict) else dataclasses.asdict(_as_info(raw))
@@ -410,6 +520,10 @@ class EfficientKWSDataMod:
                     keywords_per_group=self.keywords_per_group,
                     **common,
                 )
+
+    def train_dataloader(self):
+        return self._loader_cls(self.fit_dataset, batch_size=self.batch_size,
+                                collate_fn=self.collate_fn, sampler=self.sampler)
 
     def val_dataloader(self):
         return [

@@ -1,6 +1,17 @@
-"""Paper-2 engine, its eval half: validate / test for the L/LE/LEF models
-(port of enhance_cb_whisper_tpu/efficient_kws/engine.py).
+"""Paper-2 engine: train / validate / test for the L/LE/LEF models (port of
+enhance_cb_whisper_tpu/efficient_kws/engine.py).
 
+* training — CE on raw-embedding batches (ghost keywords labelled -100),
+  the tts/natural coin for ``kw_type='all'``, AdamW over one group or, with
+  a projector, two ("resnet" at ``learning_rate``, "proj" at
+  ``learning_rate_sru``) and a per-epoch cosine schedule; ``fit`` runs the
+  epoch loop with validation, the best checkpoint per monitor and
+  ``final`` each epoch, early stopping and resume;
+* the audio mode (``whisper=``, the configs' ``load_embeddings: false``):
+  the step embeds the batch's 30 s waveforms itself, the log-mel on the
+  fused kernel K1 (:func:`..ops.mel.log_mel_spectrogram`) and the frozen
+  Whisper encoder's L2-normalized layer slice, frames past each
+  utterance's end zeroed, all without a graph;
 * ``validate`` — per (language × kw_type) dataset: every utterance scored
   against the whole keyword DB; the best-F operating point by the
   ``5PR / (4P + R)`` search; recall@{1, 10, 20, 50, 100, 200}; averages and
@@ -15,37 +26,46 @@
   bottleneck 1×1 convolutions run on the fused kernel K2.
 
 ``variables`` is the fp32 (or bf16) :class:`.model.EfficientKWSModel` on the
-engine's device.  Where the JAX engine scores the whole keyword DB in one
-launch, the port projects the DB once per dataset (:func:`keyword_db`),
-zero-pads it to a multiple of ``CHUNK`` rows and runs the classifier
-``CHUNK`` rows at a time, so every launch has one shape and the
-activations stay bounded (ROADMAP.md, deliberate deviations);
-probabilities are per keyword, so the result is the same.  Training
-(``init_state``, ``make_train_step``, ``fit``) and the audio mode
-(``whisper=``) are ROADMAP.md §1 item 6b and raise.
+engine's device; a training state (:class:`EfficientTrainState`) holds it
+in train mode, and ``fit`` puts it back there after each validation.
+Where the JAX engine scores the whole keyword DB in one launch, the port
+projects the DB once per dataset (:func:`keyword_db`), zero-pads it to a
+multiple of ``CHUNK`` rows and runs the classifier ``CHUNK`` rows at a
+time, so every launch has one shape and the activations stay bounded
+(ROADMAP.md, deliberate deviations); probabilities are per keyword, so the
+result is the same.  Checkpoints hold the parameters, statistics and
+AdamW's state in the JAX package's layout, so each package resumes the
+other's run.  The coin comes from the paper-1 noise source
+(:class:`..train.kws_train.StepNoise`, seeded per step from ``seed + 1``),
+so a test can hand the step the JAX package's draws.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ..convert import from_flax_efficient_variables
+from ..convert import from_flax_efficient_variables, to_flax_variables
 from ..metrics import evaluate_with_conf_int
 from ..metrics.pr_curve import binary_pr_curve, find_best_threshold_idx, operating_point, recall_at_k
+from ..models.kws import cross_entropy
 from ..models.quant import calibrate_act_scales, quantize_efficient_classifier
+from ..runtime.checkpoint import CheckpointManager, EarlyStopping, load_checkpoint
+from ..runtime.logging import MetricsLogger
 from ..runtime.precision import reference_precision
+from ..train.kws_train import StepNoise, adam_tree, init_flax_style, load_adam_tree, step_seed
+from ..train.optim import cosine_lr, make_adam, set_learning_rate
 from .catalog import _make_chunk_classifier, project_catalog
 from .model import EfficientKWSConfig, EfficientKWSModel, masked_sims
 
 RECALL_KS = (1, 10, 20, 50, 100, 200)
 CHUNK = 50  # keyword-DB rows per classifier launch
-_TRAINING = "paper-2 training is not ported yet: ROADMAP.md §1 item 6b"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +85,16 @@ class EfficientTrainConfig:
     compute_dtype: str = "float32"
 
 
+@dataclasses.dataclass
+class EfficientTrainState:
+    """The model (parameters and BatchNorm statistics live in it), its
+    AdamW, and the epoch the optimizer's rates were last set for."""
+
+    model: EfficientKWSModel
+    optimizer: torch.optim.Optimizer
+    epoch: int = 0
+
+
 def keyword_db(model: EfficientKWSModel, dataset):
     """``dataset``'s whole keyword DB (every group) through ``model``'s
     projection stack, zero-padded to a multiple of :data:`CHUNK` rows
@@ -77,23 +107,34 @@ class EfficientKWSEngine:
         self,
         model_config: EfficientKWSConfig,
         train_config: EfficientTrainConfig = EfficientTrainConfig(),
+        seed: int = 123,
+        ckpt_dir: str = "checkpoints/efficient_kws",
+        logger: Optional[MetricsLogger] = None,
         whisper: Optional[tuple] = None,
+        kws_layer_slice: tuple = (10, 22),
+        utt_frames_budget: int = 1500,
         device="cuda",
     ):
-        """Scoring runs on ``device``, the card by default.  The JAX
-        engine's training arguments (seed, checkpoint directory, logger,
-        the audio mode's layer slice and frame budget) come with item 6b."""
-        if whisper is not None:
-            raise NotImplementedError(
-                "the audio mode (load_embeddings: false, the Whisper encoder inside the "
-                "train step) is not ported yet: ROADMAP.md §1 item 6b")
+        """Scoring and training run on ``device``, the card by default.
+        ``whisper`` is ``(WhisperConfig, params)`` of the frozen encoder of
+        the audio mode (params on ``device``); its layer slice feeds the
+        model's last ``n_layers`` slabs, cut to ``min(utt_frames_budget,
+        max_source_positions)`` frames."""
         self.model_config = model_config
         self.train_config = train_config
+        self.seed = seed
+        self.ckpt_dir = ckpt_dir
+        self.logger = logger or MetricsLogger()
         self.device = torch.device(device)
         self.dtype = getattr(torch, train_config.compute_dtype or "float32")
         if self.device.type == "cuda":
             reference_precision()
         self._int8 = None  # (quantized parameters, act scales, s8_1x1)
+        self._whisper = None
+        if whisper is not None:
+            wcfg, wparams = whisper
+            budget = min(utt_frames_budget, wcfg.max_source_positions)
+            self._whisper = (wcfg, wparams, tuple(kws_layer_slice), budget)
 
     def build_model(self, state=None) -> EfficientKWSModel:
         """An :class:`EfficientKWSModel` of the engine's configuration and
@@ -308,11 +349,185 @@ class EfficientKWSEngine:
 
     # ---------------------------------------------------------------- train
 
-    def init_state(self, sample):
-        raise NotImplementedError(_TRAINING)
+    @torch.no_grad()
+    def embed_utterances(self, audio: torch.Tensor, frames: torch.Tensor):
+        """The audio mode's utterance side: ``audio`` [B, 480000] and its
+        valid encoder frames [B] → (stacks [B, n_layers, budget, D], masks
+        [B, n_layers, budget]), the log-mel on K1 and the frozen encoder's
+        layer slice, L2-normalized, frames past each utterance zeroed, with
+        no graph."""
+        from ..models.whisper import encoder_kws_stack
+        from ..ops.mel import log_mel_spectrogram
 
-    def make_train_step(self):
-        raise NotImplementedError(_TRAINING)
+        wcfg, wparams, layer_slice, budget = self._whisper
+        mel = log_mel_spectrogram(audio, n_mels=wcfg.num_mel_bins)
+        stack = encoder_kws_stack(wparams, mel, wcfg, layer_slice=layer_slice, valid_frames=frames)
+        utt = stack[:, -self.model_config.n_layers:, :budget].contiguous()
+        t = torch.arange(budget, device=utt.device)
+        mask = (t[None, :] < torch.clamp_max(frames.to(utt.device), budget)[:, None]).to(torch.float32)
+        return utt, mask[:, None, :].expand(utt.shape[:3])
 
-    def fit(self, datamodule, **kwargs):
-        raise NotImplementedError(_TRAINING)
+    def init_state(self, sample: Dict[str, Any]) -> EfficientTrainState:
+        """A fresh model in train mode on the engine's device, flax's
+        initializers drawn on the CPU from ``seed``, its projector as wide
+        as ``sample``'s keyword stacks (flax's ``Dense`` takes that width
+        from the data), and its AdamW."""
+        model = EfficientKWSModel(self.model_config, dtype=self.dtype,
+                                  input_dim=int(np.shape(sample["kwd_features"])[-1]))
+        init_flax_style(model, torch.Generator().manual_seed(int(self.seed)))
+        model = model.to(self.device).train()
+        return EfficientTrainState(model, self._optimizer(model), 0)
+
+    def _base_rates(self) -> Dict[str, float]:
+        tc = self.train_config
+        if self.model_config.proj_mlp:
+            return {"resnet": tc.learning_rate, "proj": tc.learning_rate_sru}
+        return {"all": tc.learning_rate}
+
+    def _optimizer(self, model: EfficientKWSModel) -> torch.optim.Optimizer:
+        """AdamW over one group, or with ``proj_mlp`` two: "proj" for the
+        projector and time projector, "resnet" for the rest (the JAX
+        package's ``multi_transform`` labels)."""
+        if self.model_config.proj_mlp:
+            groups: Dict[str, list] = {"resnet": [], "proj": []}
+            for name, p in model.named_parameters():
+                proj = name.split(".")[0] in ("projector", "time_projector")
+                groups["proj" if proj else "resnet"].append(p)
+        else:
+            groups = {"all": list(model.parameters())}
+        tc = self.train_config
+        return make_adam(groups, self._base_rates(), tc.beta_1, tc.beta_2, tc.weight_decay,
+                         adamw=True)
+
+    def update_epoch_lr(self, state: EfficientTrainState, epoch: int) -> None:
+        """The cosine schedule at an epoch boundary: each group's rate for
+        ``epoch``."""
+        state.epoch = epoch
+        for name, lr in self._base_rates().items():
+            set_learning_rate(state.optimizer, name,
+                              cosine_lr(lr, self.train_config.max_epochs)(epoch))
+
+    def make_train_step(self, state: EfficientTrainState):
+        """``step(batch, noise) -> {"loss": 0-d tensor}``, as the JAX
+        package's step, in its order: the ``kw_type='all'`` coin on every
+        batch leaf (so the audio is chosen before the encoder runs), the
+        audio mode's embedding, CE with -100 ignored (BatchNorm on the
+        batch, its running statistics moved), then AdamW, which updates
+        every parameter (optax's zero gradients too).  ``batch`` is a dict
+        of tensors on the engine's device."""
+        config = self.train_config
+        model, optimizer = state.model, state.optimizer
+        params = [p for group in optimizer.param_groups for p in group["params"]]
+
+        def step(batch: Dict[str, torch.Tensor], noise) -> Dict[str, torch.Tensor]:
+            if config.kw_type == "all":
+                # keep the tts (slot 0) or natural (slot 1) member of each
+                # adjacent pair, tts with probability 1 - kw_p
+                half = batch["labels"].shape[0] // 2
+                pick_tts = noise.coin(half, 1.0 - config.kw_p)
+                sel = 2 * torch.arange(half, device=pick_tts.device) + (~pick_tts).long()
+                batch = {k: v[sel] for k, v in batch.items()}
+            if "utt_audio" in batch:
+                batch = dict(batch)
+                batch["utt_features"], batch["utt_mask"] = self.embed_utterances(
+                    batch.pop("utt_audio"), batch.pop("utt_frames"))
+            for p in params:
+                p.grad = None
+            logits, _ = model(batch["kwd_features"], batch["utt_features"],
+                              batch["kwd_mask"], batch["utt_mask"])
+            loss = cross_entropy(logits, batch["labels"])
+            loss.backward()
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            optimizer.step()
+            return {"loss": loss.detach()}
+
+        return step
+
+    def checkpoint_tree(self, state: EfficientTrainState, global_step: int) -> Dict[str, Any]:
+        """The checkpoint payload in the JAX package's layout: ``params``,
+        ``batch_stats``, the epoch, AdamW's state
+        (:func:`..train.kws_train.adam_tree`) and the global step."""
+        variables = to_flax_variables(state.model.state_dict())
+        return {"params": variables["params"], "batch_stats": variables["batch_stats"],
+                "epoch": state.epoch, "opt_state": adam_tree(state.optimizer, {"": state.model}),
+                "global_step": global_step}
+
+    def restore_state(self, state: EfficientTrainState, tree: Dict[str, Any]) -> None:
+        """Load a checkpoint tree (:meth:`checkpoint_tree`'s or the JAX
+        package's) into ``state``: parameters, statistics, the epoch and,
+        when the tree holds one, AdamW's state."""
+        projector = getattr(state.model, "projector", None)
+        state.model.load_converted(from_flax_efficient_variables(
+            {"params": tree["params"], "batch_stats": tree.get("batch_stats", {})}))
+        if getattr(state.model, "projector", None) is not projector:
+            raise ValueError("the checkpoint's projector takes stacks of another width than the data's")
+        state.epoch = int(tree.get("epoch", state.epoch))
+        if tree.get("opt_state") is not None:
+            load_adam_tree(state.optimizer, {"": state.model}, tree["opt_state"])
+
+    def fit(self, datamodule, max_epochs: Optional[int] = None,
+            early_stopping: Optional[EarlyStopping] = None,
+            monitors: Optional[Dict[str, str]] = None,
+            limit_train_batches: Optional[int] = None,
+            resume_from: Optional[str] = None) -> EfficientTrainState:
+        """Train; returns the final training state.  The first batch is
+        drawn for :meth:`init_state` from a loader of its own, as the JAX
+        package draws it, so the sampler's epochs line up."""
+        from ..audio.prefetch import prefetch
+
+        datamodule.setup("fit")
+        max_epochs = max_epochs or self.train_config.max_epochs
+        state = self.init_state(next(iter(datamodule.train_dataloader())))
+        manager = CheckpointManager(
+            self.ckpt_dir,
+            monitors or {"f1_checkpoint": "metrics/f1:max", "f1_l4_checkpoint": "metrics/f1_l4:max"},
+            hparams={**dataclasses.asdict(self.train_config), **dataclasses.asdict(self.model_config)},
+        )
+        start_epoch, global_step = 0, 0
+        if resume_from is not None:
+            tree, meta = load_checkpoint(resume_from)
+            self.restore_state(state, tree)
+            start_epoch = int(tree.get("epoch", meta.get("epoch", -1))) + 1
+            global_step = int(tree.get("global_step", 0))
+            print(f"resumed from {resume_from} at epoch {start_epoch}")
+            restored_best = manager.restore_best()
+            if restored_best:
+                print(f"restored checkpoint bests: {restored_best}")
+        step_fn = self.make_train_step(state)
+
+        for epoch in range(start_epoch, max_epochs):
+            self.update_epoch_lr(state, epoch)
+            metrics = None
+            # the loader's thread reads and collates batch N+1 while the
+            # device trains on batch N
+            loader = prefetch(datamodule.train_dataloader(), depth=2)
+            # stop at the limit without waiting for a batch that is not trained
+            batches = loader if limit_train_batches is None else itertools.islice(
+                loader, limit_train_batches)
+            try:
+                for batch in batches:
+                    tensors = {k: torch.from_numpy(np.asarray(v)).to(self.device)
+                               for k, v in batch.items()}
+                    noise = StepNoise(step_seed(self.seed + 1, global_step), self.device)
+                    metrics = step_fn(tensors, noise)
+                    global_step += 1
+            finally:
+                loader.close()
+            if metrics is not None:  # an epoch can train zero batches
+                self.logger.log_metrics({"train/loss": float(metrics["loss"])},
+                                        step=global_step, epoch=epoch)
+            val = {}
+            if getattr(datamodule, "val_dataset", None):
+                val = self.validate(state.model, datamodule, dump_dir=self.ckpt_dir)
+                state.model.train()  # the eval put the model in eval mode
+                self.logger.log_metrics(val, step=global_step, epoch=epoch)
+            saved = manager.step(epoch, val, self.checkpoint_tree(state, global_step))
+            if self.logger.log_model:
+                for path in saved:
+                    self.logger.log_artifact(path)
+            if val and early_stopping is not None and early_stopping.step(val):
+                print(f"early stopping at epoch {epoch}")
+                break
+        return state

@@ -3,8 +3,10 @@ enhance_cb_whisper_tpu/efficient_kws/model.py).
 
 * **L** (``learn_features=False``): cosine-similarity maps over the raw
   Whisper embeddings, one channel per layer, into a ResNet-18/34/50;
-* **LE** (``proj_mlp=True``): a per-layer MLP ``Linear(D, D/2) → ReLU →
-  Linear(D/2, proj_mlp_units)`` projects both sides before the similarity;
+* **LE** (``proj_mlp=True``): a per-layer MLP ``Linear(W, D/2) → ReLU →
+  Linear(D/2, proj_mlp_units)`` projects both sides before the similarity
+  (W is the stacks' width, D ``embedding_dim``: flax's ``Dense`` takes its
+  input width from the data, so W need not be D);
 * **LEF** (``frames_conv=True``): then a per-layer ``Conv1d(U, U, k=3, p=1)
   → BatchNorm → MaxPool1d(3, 2, 1)`` halves the frame axis.
 
@@ -20,7 +22,11 @@ time projector works in torch's NCW layout: ``[B, T, U]`` is transposed to
 ``[B, U, T]`` around the convolution, its BatchNorm and the pool.
 ``dtype=torch.bfloat16`` runs the projection stack and the ResNet in bf16
 (parameters, BatchNorm statistics and the similarity in f32), as the flax
-module's ``dtype`` does.  Eval only: training is ROADMAP.md §1 item 6b.
+module's ``dtype`` does.  In train mode every BatchNorm normalizes by the
+batch and moves its running statistics as flax does (:class:`..models.
+resnet.BatchNorm`); LEF's time projector runs once for the keywords and
+once for the utterances, so its statistics move twice a step, in that
+order, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -58,15 +64,16 @@ def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 
 class PerLayerMLP(nn.Module):
-    """One ``Linear(D, D/2) → ReLU → Linear(D/2, units)`` per layer."""
+    """One ``Linear(in_dim, D/2) → ReLU → Linear(D/2, units)`` per layer:
+    ``in_dim`` is the width of the stacks it takes, D ``embedding_dim``."""
 
-    def __init__(self, embedding_dim: int, units: int, n_layers: int,
+    def __init__(self, in_dim: int, embedding_dim: int, units: int, n_layers: int,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_layers = n_layers
         self.dtype = dtype
         for i in range(n_layers):
-            self.add_module(f"proj_{i}_0", nn.Linear(embedding_dim, embedding_dim // 2))
+            self.add_module(f"proj_{i}_0", nn.Linear(in_dim, embedding_dim // 2))
             self.add_module(f"proj_{i}_1", nn.Linear(embedding_dim // 2, units))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, L, T, D] → [B, L, T, units]
@@ -148,7 +155,11 @@ class EfficientKWSModel(nn.Module):
     {absent, present}.  Call :meth:`eval` before scoring: the BatchNorms
     read their running statistics."""
 
-    def __init__(self, config: EfficientKWSConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: EfficientKWSConfig, dtype: torch.dtype = torch.float32,
+                 input_dim: Optional[int] = None):
+        """``input_dim`` is the width of the hidden-state stacks the
+        projector takes (``embedding_dim`` when not given; a loaded state
+        brings its own, :meth:`load_converted`)."""
         super().__init__()
         self.config = config
         self.dtype = dtype
@@ -156,18 +167,28 @@ class EfficientKWSModel(nn.Module):
         self.model = ResNet(rcfg, dtype=dtype)
         self.classifier = nn.Linear(rcfg.hidden_sizes[-1], 2)
         # f32 projection stack by default; bf16 runs its matmuls in bf16
-        proj_dtype = None if dtype == torch.float32 else dtype
+        self._proj_dtype = None if dtype == torch.float32 else dtype
         if config.learn_features and config.proj_mlp:
-            self.projector = PerLayerMLP(config.embedding_dim, config.proj_mlp_units,
-                                         config.n_layers, dtype=proj_dtype)
+            self.projector = self._projector(input_dim or config.embedding_dim)
             if config.frames_conv:
                 self.time_projector = PerLayerTimeConv(config.proj_mlp_units, config.n_layers,
-                                                       dtype=proj_dtype)
+                                                       dtype=self._proj_dtype)
+
+    def _projector(self, in_dim: int) -> PerLayerMLP:
+        cfg = self.config
+        return PerLayerMLP(in_dim, cfg.embedding_dim, cfg.proj_mlp_units, cfg.n_layers,
+                           dtype=self._proj_dtype)
 
     def load_converted(self, state) -> "EfficientKWSModel":
         """Load a state from :func:`..convert.from_flax_efficient_variables`
         or :func:`.torch_compat.load_torch_efficient_kws` (every parameter
-        and running statistic must be present)."""
+        and running statistic must be present).  The projector takes the
+        input width of the state's ``projector.proj_0_0``."""
+        width = state.get("projector.proj_0_0.weight")
+        if width is not None and hasattr(self, "projector") \
+                and width.shape[1] != self.projector.proj_0_0.in_features:
+            device = self.projector.proj_0_0.weight.device
+            self.projector = self._projector(int(width.shape[1])).to(device)
         missing, unexpected = self.load_state_dict(state, strict=False)
         missing = [k for k in missing if not k.endswith("num_batches_tracked")]
         if missing or unexpected:

@@ -587,11 +587,14 @@ def encoder_kws_stack(
     layer_slice: Tuple[int, int] = (10, 22),
     return_encoding: bool = False,
     dtype: torch.dtype = torch.float32,
+    valid_frames: Optional[torch.Tensor] = None,
 ):
     """hidden_states[lo:hi] in f32, L2-normalized over the embedding dim →
     [B, n_slabs, T_enc, D] (and the last hidden state, in ``dtype``, with
     ``return_encoding=True``: one encoder forward feeds both keyword
-    spotting and the decoder's cross-attention)."""
+    spotting and the decoder's cross-attention).  With ``valid_frames``
+    ([B] integers), each row's frames at or beyond its count are zeroed
+    after the norm."""
     lo, hi = layer_slice
     if not (0 <= lo < hi <= config.encoder_layers + 1):
         raise ValueError(
@@ -600,6 +603,10 @@ def encoder_kws_stack(
         )
     last, states = encoder_forward(params, input_features, config, output_hidden_states=True, dtype=dtype)
     stack = l2_normalize(states[lo:hi].transpose(0, 1).to(torch.float32))
+    if valid_frames is not None:
+        t = torch.arange(stack.shape[2], device=stack.device)
+        keep = t[None, :] < valid_frames.to(stack.device)[:, None]
+        stack = torch.where(keep[:, None, :, None], stack, torch.zeros((), device=stack.device))
     if return_encoding:
         return stack, last
     return stack

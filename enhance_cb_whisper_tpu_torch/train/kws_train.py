@@ -151,14 +151,14 @@ def build_models(config: KWSTrainConfig, resnet_config: ResNetConfig):
     return kws, disc
 
 
-def _init_flax_style(module: nn.Module, generator: torch.Generator) -> None:
+def init_flax_style(module: nn.Module, generator: torch.Generator) -> None:
     """flax's default initializers: LeCun-normal kernels (a normal truncated
     at two standard deviations, rescaled to variance 1/fan_in), zero biases,
     unit BatchNorm scales and variances."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                fan_in = m.weight[0].numel()
+            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()  # in × kernel size
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                 nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
                 if m.bias is not None:
@@ -197,9 +197,9 @@ def init_train_state(config: KWSTrainConfig, resnet_config: ResNetConfig, seed: 
     train mode on ``device``, and their optimizer."""
     kws, disc = build_models(config, resnet_config)
     generator = torch.Generator().manual_seed(int(seed))
-    _init_flax_style(kws, generator)
+    init_flax_style(kws, generator)
     if disc is not None:
-        _init_flax_style(disc, generator)
+        init_flax_style(disc, generator)
         disc = disc.to(device).train()
     kws = kws.to(device).train()
     return KWSTrainState(kws, disc, make_optimizer(config, kws, disc), 0)
@@ -211,63 +211,79 @@ def update_epoch_lr(config: KWSTrainConfig, state: KWSTrainState) -> None:
         set_learning_rate(state.optimizer, name, step_lr(lr, config.lr_step)(state.epoch))
 
 
-def _group_params(state: KWSTrainState):
+def _modules(state: KWSTrainState) -> Dict[str, nn.Module]:
+    return {"kws": state.kws, **({"disc": state.disc} if state.disc is not None else {})}
+
+
+def _group_params(optimizer: torch.optim.Optimizer, modules: Dict[str, nn.Module]):
     """(group name, [(module, parameter name, parameter)]) per optimizer
-    group, ``module`` being "kws" or "disc"."""
-    names = {id(p): ("kws", n) for n, p in state.kws.named_parameters()}
-    if state.disc is not None:
-        names.update({id(p): ("disc", n) for n, p in state.disc.named_parameters()})
-    return [(g["name"], [(*names[id(p)], p) for p in g["params"]])
-            for g in state.optimizer.param_groups]
+    group, ``module`` being a key of ``modules``."""
+    names = {id(p): (m, n) for m, module in modules.items() for n, p in module.named_parameters()}
+    return [(g["name"], [(*names[id(p)], p) for p in g["params"]]) for g in optimizer.param_groups]
 
 
-def _moment_tree(state: KWSTrainState, members, key: str) -> Dict[str, Any]:
+def _moment_tree(optimizer, modules: Dict[str, nn.Module], members, key: str) -> Dict[str, Any]:
     """One Adam moment of a group over the whole parameter tree, in the
     flax layout: the group's leaves hold the moment (zeros before the first
-    step), every other leaf is optax's masked ``{}``."""
-    modules = {"kws": state.kws, **({"disc": state.disc} if state.disc is not None else {})}
+    step), every other leaf is optax's masked ``{}``.  Each module's
+    parameters sit under its key, or at the root for the key ""."""
     mine = {(m, n) for m, n, _ in members}
-    tree: Dict[str, Any] = {m: {} for m in modules}
+    tree: Dict[str, Any] = {}
     for m, module in modules.items():
+        root = tree.setdefault(m, {}) if m else tree
         for n, p in module.named_parameters():
-            moment = state.optimizer.state.get(p, {}).get(key) if (m, n) in mine else None
+            moment = optimizer.state.get(p, {}).get(key) if (m, n) in mine else None
             _, path, a = flax_entry(n, p if moment is None else moment)
             if (m, n) not in mine:
                 leaf = {}
             else:
                 leaf = np.ascontiguousarray(a) if moment is not None else np.zeros_like(a)
-            node = tree[m]
+            node = root
             for part in path[:-1]:
                 node = node.setdefault(part, {})
             node[path[-1]] = leaf
     return tree
 
 
-def _adam_state(state: KWSTrainState, group) -> Dict[str, Any]:
+def _adam_state(optimizer, modules, group) -> Dict[str, Any]:
     """One group's optimizer state as the JAX package's
-    ``inject_hyperparams(adam)`` (chained after ``add_decayed_weights``
-    when the weight decay is on) serializes it."""
+    ``inject_hyperparams`` serializes it: ``adam`` (chained after
+    ``add_decayed_weights`` when the weight decay is on), or ``adamw``
+    (Adam's moments, then the decay and the rate, which hold no state)."""
     name, members = group
-    lr = next(g["lr"] for g in state.optimizer.param_groups if g["name"] == name)
-    steps = [state.optimizer.state.get(p, {}).get("step") for _, _, p in members]
+    lr = next(g["lr"] for g in optimizer.param_groups if g["name"] == name)
+    steps = [optimizer.state.get(p, {}).get("step") for _, _, p in members]
     count = np.asarray(int(steps[0]) if steps[0] is not None else 0, np.int32)
-    adam = {"0": {"count": count, "mu": _moment_tree(state, members, "exp_avg"),
-                  "nu": _moment_tree(state, members, "exp_avg_sq")}, "1": {}}
-    wd = state.optimizer.defaults["weight_decay"]
+    moments = {"count": count, "mu": _moment_tree(optimizer, modules, members, "exp_avg"),
+               "nu": _moment_tree(optimizer, modules, members, "exp_avg_sq")}
+    if isinstance(optimizer, torch.optim.AdamW):
+        inner = {"0": moments, "1": {}, "2": {}}
+    else:
+        adam = {"0": moments, "1": {}}
+        inner = {"0": {}, "1": adam} if optimizer.defaults["weight_decay"] else adam
     return {"count": count, "hyperparams": {"learning_rate": np.asarray(lr, np.float32)},
-            "hyperparams_states": {}, "inner_state": {"0": {}, "1": adam} if wd else adam}
+            "hyperparams_states": {}, "inner_state": inner}
+
+
+def adam_tree(optimizer: torch.optim.Optimizer, modules: Dict[str, nn.Module]) -> Dict[str, Any]:
+    """An Adam or AdamW optimizer's state in the JAX package's layout
+    (``train/optim.py``): one ``inject_hyperparams`` state for a single
+    group called "all", else ``multi_transform``'s ``inner_states`` per
+    group, each moment tree over every parameter of ``modules`` with the
+    other groups' leaves masked.  Moments and kernels are in flax's
+    layouts."""
+    groups = _group_params(optimizer, modules)
+    if [name for name, _ in groups] == ["all"]:
+        return _adam_state(optimizer, modules, groups[0])
+    return {"inner_states": {g[0]: {"inner_state": _adam_state(optimizer, modules, g)}
+                             for g in groups}}
 
 
 def optimizer_tree(state: KWSTrainState) -> Dict[str, Any]:
-    """The optimizer state in the JAX package's layout (``train/optim.py``):
-    one ``inject_hyperparams(adam)`` state, or under adversarial training
-    ``multi_transform``'s ``inner_states`` per group (features, classifier,
-    discriminator), each moment tree over every parameter with the other
-    groups' leaves masked.  Moments and kernels are in flax's layouts."""
-    groups = _group_params(state)
-    if [name for name, _ in groups] == ["all"]:
-        return _adam_state(state, groups[0])
-    return {"inner_states": {g[0]: {"inner_state": _adam_state(state, g)} for g in groups}}
+    """The paper-1 optimizer state in the JAX package's layout
+    (:func:`adam_tree`): one group, or under adversarial training the
+    features, classifier and discriminator groups."""
+    return adam_tree(state.optimizer, _modules(state))
 
 
 def checkpoint_tree(state: KWSTrainState, global_step: int) -> Dict[str, Any]:
@@ -288,18 +304,19 @@ def checkpoint_tree(state: KWSTrainState, global_step: int) -> Dict[str, Any]:
     }
 
 
-def _load_adam_state(state: KWSTrainState, group, saved: Dict[str, Any], opt: Dict[str, Any],
+def _load_adam_state(group, saved: Dict[str, Any], opt: Dict[str, Any],
                      index: Dict[int, int]) -> None:
-    """One group's saved ``inject_hyperparams(adam)`` state into ``opt``
-    (an ``optimizer.state_dict()``): its rate, and per parameter Adam's
-    step and moments in torch's layout."""
+    """One group's saved ``inject_hyperparams`` state into ``opt`` (an
+    ``optimizer.state_dict()``): its rate, and per parameter Adam's step
+    and moments in torch's layout."""
     name, members = group
     inner = saved["inner_state"]
     adam = inner["0"] if "count" in inner["0"] else inner["1"]["0"]
     moments = {}
     for key, leaf in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
         for m in {m for m, _, _ in members}:
-            for n, t in from_flax_resnet_variables({"params": adam[leaf][m]}).items():
+            tree = adam[leaf][m] if m else adam[leaf]
+            for n, t in from_flax_resnet_variables({"params": tree}).items():
                 moments[(m, n, key)] = t
     step = torch.tensor(float(np.asarray(adam["count"])))
     for m, n, p in members:
@@ -308,6 +325,20 @@ def _load_adam_state(state: KWSTrainState, group, saved: Dict[str, Any], opt: Di
     for g in opt["param_groups"]:
         if g["name"] == name:
             g["lr"] = float(np.asarray(saved["hyperparams"]["learning_rate"]))
+
+
+def load_adam_tree(optimizer: torch.optim.Optimizer, modules: Dict[str, nn.Module],
+                   saved: Dict[str, Any]) -> None:
+    """Load :func:`adam_tree`'s layout (the port's or the JAX package's)
+    into ``optimizer``: each group's rate, step count and moments."""
+    flat = [p for g in optimizer.param_groups for p in g["params"]]
+    index = {id(p): i for i, p in enumerate(flat)}
+    opt = optimizer.state_dict()
+    opt["state"] = {}
+    for group in _group_params(optimizer, modules):
+        single = saved["inner_states"][group[0]]["inner_state"] if "inner_states" in saved else saved
+        _load_adam_state(group, single, opt, index)
+    optimizer.load_state_dict(opt)
 
 
 def restore_train_state(state: KWSTrainState, tree: Dict[str, Any]) -> None:
@@ -320,18 +351,8 @@ def restore_train_state(state: KWSTrainState, tree: Dict[str, Any]) -> None:
     if state.disc is not None:
         state.disc.load_state_dict(from_flax_resnet_variables({"params": tree["params"]["disc"]}))
     state.epoch = int(tree.get("epoch", state.epoch))
-    saved = tree.get("opt_state")
-    if saved is None:
-        return
-    groups = _group_params(state)
-    flat = [p for g in state.optimizer.param_groups for p in g["params"]]
-    index = {id(p): i for i, p in enumerate(flat)}
-    opt = state.optimizer.state_dict()
-    opt["state"] = {}
-    for group in groups:
-        single = saved["inner_states"][group[0]]["inner_state"] if "inner_states" in saved else saved
-        _load_adam_state(state, group, single, opt, index)
-    state.optimizer.load_state_dict(opt)
+    if tree.get("opt_state") is not None:
+        load_adam_tree(state.optimizer, _modules(state), tree["opt_state"])
 
 
 def make_grad_fn(config: KWSTrainConfig, kws: KWSModel, disc: Optional[Discriminator]):

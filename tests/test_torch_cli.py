@@ -29,9 +29,9 @@ margins so that some keywords are spotted and others not.
   ``cross_kv_int8``, and ``encoder_int8`` with a separate encoder
   checkpoint (the same weights under another path).
 * An unfilled placeholder exits both CLIs with the same message; what the
-  port does not carry raises ``NotImplementedError`` (paper-2 ``fit``,
-  and ``kv_staging`` with ``kv_cache_int8``, whose JAX results the port
-  cannot give); ``fit`` without ``train_info`` raises; ``kv_staging`` alone is accepted; the language table equals ``transformers``' and the
+  port does not carry raises ``NotImplementedError`` (``kv_staging`` with
+  ``kv_cache_int8``, whose JAX results the port cannot give); ``fit``
+  without ``train_info`` raises, for paper 1 and paper 2; ``kv_staging`` alone is accepted; the language table equals ``transformers``' and the
   generation options match the JAX CLI's for ``language: null`` and
   ``max_initial_timestamp_index: 0``.
 * The kernels' lazy loaders and launch counters are safe under threads (the
@@ -371,19 +371,20 @@ def test_unfilled_placeholder_exits_as_jax(env, tmp_path):
     assert str(got.value) == str(want.value) and "KWS_CKPT" in str(got.value)
 
 
-@pytest.mark.parametrize("override, item", [
+@pytest.mark.parametrize("override, item, error", [
     # the JAX package attends staged tokens at full precision until a flush
     # quantizes them; the port carries no staging
-    (["--model.init_args.kv_staging", "8", "--model.init_args.kv_cache_int8", "true"], "item 4"),
-    # paper 2 runs test and validate (tests/test_torch_efficient_cli.py);
-    # its training, item 6b, is not ported
-    (["--model.class_path", "efficient_kws.model.KWSModel"], "item 6"),
-])
-def test_unported_knobs_raise(env, tmp_path, override, item):
+    (["--model.init_args.kv_staging", "8", "--model.init_args.kv_cache_int8", "true"], "item 4",
+     (NotImplementedError, "item 4")),
+    # paper 2 trains (tests/test_torch_efficient_fit.py), but not from a
+    # config that names no training dataset
+    (["--model.class_path", "efficient_kws.model.KWSModel"], "item 6", (ValueError, "train_info")),
+], ids=["override0-item 4", "override1-item 6"])
+def test_unported_knobs_raise(env, tmp_path, override, item, error):
     subcommand = "fit" if "efficient_kws.model.KWSModel" in override else "test"
     argv = [subcommand, "--config", _cb_config(env, tmp_path / "cb.yaml"), "--set",
             f"ACL_ROOT={env['acl']}", "--set", f"KWS_CKPT={env['kws']['cb']}", *override]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error[0], match=error[1]):
         port_cli.run_cli(argv, device="cpu")
 
 

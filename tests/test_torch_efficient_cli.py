@@ -17,8 +17,9 @@ filled by ``--set`` and the widths shrunk by dotted overrides:
   port hands ``s8_stages`` to the engine with no environment variable set
   (JAX with ``ECW_S8_PALLAS`` naming every stage), and the metrics equal
   JAX's;
-* ``fit`` on a paper-2 config raises ``NotImplementedError`` naming
-  ROADMAP.md §1 item 6b.
+* ``fit`` on an eval config, which names no training dataset, raises
+  ``ValueError`` naming ``train_info`` (the CLI's ``fit`` itself:
+  ``tests/test_torch_efficient_fit.py``).
 """
 
 import dataclasses
@@ -138,7 +139,7 @@ def test_cli_test_and_validate_match_jax(roots, tmp_path, variant, dataset):
         got = port_cli.run_cli(list(argv), device="cpu")
         _equal_metrics(got, want)
     assert port_cli.run_cli(argv[:-4], device="cpu") == got  # the config as written
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(ValueError, match="train_info"):
         port_cli.run_cli(["fit"] + argv[1:], device="cpu")
 
 

@@ -11,7 +11,9 @@ launch.
 
 * Datasets (groups, ghost masks, items), the collator, ``chunk_stride``:
   equal arrays; a ragged truncation raises in both; the datamodule builds
-  the same validation sets, and ``setup("fit")`` raises (item 6b).
+  the same validation sets, and ``setup("fit")`` refuses a batch size
+  utterance-examples sampling cannot split (the training half:
+  ``tests/test_torch_efficient_train_data.py``).
 * ``validate`` (best-F search, recall@k, per-language aggregates, the
   JSON dumps) and ``test`` (P/R/F1 at the threshold, bootstrap CIs) for
   L and LEF (LE through the CLI, ``tests/test_torch_efficient_cli.py``):
@@ -166,10 +168,14 @@ def test_datamodule_builds_the_eval_sets_and_refuses_fit(roots):
     assert len(port.val_dataloader()) == 2
     assert len(port.test_dataset) == len(jax_dm.test_dataset) == 4
     _same_item(next(iter(port.test_dataloader())), jax_dm.test_dataset[0])
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        port.setup("fit")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        pd.EfficientMLSKWSDataset(roots["mls"])
+    train = _dm_args(roots, train_info=[{"name": "mls", "root": roots["mls"], "kw_type": "natural"}])
+    refused = pd.EfficientKWSDataMod(**dict(train, batch_size=2, sampling="utterance-examples"))
+    with pytest.raises(AssertionError, match="multiple of 4"):
+        refused.setup("fit")
+    port = pd.EfficientKWSDataMod(**train)
+    port.setup("fit")
+    _same_item(port.fit_dataset[0], jd.EfficientMLSKWSDataset(
+        roots["mls"], languages=LANGS, kw_type="natural", features_size=FS, n_layers=L)[0])
 
 
 def _variables(variant, jcfg, seed=0):
