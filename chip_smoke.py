@@ -8,6 +8,7 @@
     python3 chip_smoke.py --train    # phase H (paper-1 training) alone
     python3 chip_smoke.py --paper2   # the kernels' build, phase A2 at paper 2's shapes and phase I alone
     python3 chip_smoke.py --paper2-train  # K1's build, phase A and phase J (paper-2 training) alone
+    python3 chip_smoke.py --pipeline  # K1's build, phase A and phase P (the offline cache pipeline) alone
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, started together), then:
@@ -84,10 +85,12 @@ F.  serving: on the tiny model, ``generate_packed`` at ``slots=3`` over
     windows and their occupied slots, ms per decode step at slots 1 and 4,
     peak memory;
 G.  the serving levers (bf16 compute, weight-only int8 vocab and decoder,
-    int8 self- and cross-attention K/V, the s8 KWS encoder): G1 holds each
+    int8 self- and cross-attention K/V, the int8 cache with staged writes
+    (``kv_staging`` 16), the s8 KWS encoder): G1 holds each
     on the tiny model CPU = card (identical keywords and transcripts under
     each int8 lever on fp32 and the s8 KWS encoder on a separate encoder
-    copy; bf16 alone and the serving set bf16 + int8 vocab + int8 decoder
+    copy; beam-sample at 4 beams and T 0.7 with the same injected Gumbel
+    draws: identical tokens and scores; bf16 alone and the serving set bf16 + int8 vocab + int8 decoder
     with int8 spotting by the CPU tests' bf16 bound on teacher-forced
     logits); G2 runs phase B's 5.5 s utterance through ``run_test`` at
     whisper-medium widths under fp32, each lever, the serving set with
@@ -148,6 +151,19 @@ J.  paper-2 training (``EfficientKWSEngine.fit``), which launches K1 in
     written as an HF directory, K1 exactly once a step at [16, 480000];
     each prints ms per step, examples/s, peak memory and a torch.profiler
     split of one step's device time beside its FLOP bound;
+P.  the offline cache pipeline (``python -m
+    enhance_cb_whisper_tpu_torch.pipeline --extract_hs``): P1 runs it on the
+    tiny model (written as an HF directory) over five WAVs on the CPU and on
+    the card, identical caches within 1e-4; P2 runs its ``main`` at
+    whisper-medium's encoder (random weights, the decoder cut to two layers)
+    over 17 WAVs of 5-40 s, half at 44.1 kHz, and a sub-hop WAV and a
+    non-WAV file (both skipped), written under build/chip_smoke/phase_p/ and
+    deleted at the end: K1 exactly once per batch of <= 8 at [<= 8, 480000]
+    (the kernel line's ``pipeline_launches``), every cache equal to
+    ``encoder_kws_stack`` of its file through ``prepare_features``, files/s,
+    MB/s written, the encoder's ms per file against its FP32 bound and a
+    profiled run's idle share; then the f16 caches (< 0.6x the files) and
+    the s8 encoder in bf16 (per-frame cosine > 0.999 against f32);
 C.  times K1 and K2 and their plain versions on the card, each by the
     median of CUDA-event timings of CUDA-graph replays (device time
     without host gaps) and of eager calls: K1 at [1, 480000], [8, 480000]
@@ -1937,6 +1953,9 @@ G_LEVERS = {
     "vocab_int8": {"vocab_int8": True},
     "decoder_int8": {"decoder_int8": True},
     "kv_cache_int8": {"kv_cache_int8": True},
+    # staged writes into the int8 cache: the last 16 tokens unquantized
+    # until each flush, as the JAX package's kv_staging does
+    "kv_cache_int8 + kv_staging 16": {"kv_cache_int8": True, "kv_staging": 16},
     "cross_kv_int8": {"cross_kv_int8": True},
 }
 # the serving set of configs/cb-whisper-acl.yaml's knobs; it runs with int8
@@ -1987,6 +2006,36 @@ def _bf16_forced_check(label, make, wave, device) -> None:
         raise RuntimeError(f"{label}: bf16 on the card is out of the CPU tests' bound")
 
 
+def _beam_sample_check(device, wave) -> None:
+    """Beam-sample (4 beams at temperature 0.7) on the tiny model, CPU =
+    card: the same Gumbel draws (the CPU noise source, injected into both)
+    sample the same tokens, and other tokens than beam search."""
+    import dataclasses
+    from functools import partial
+
+    from enhance_cb_whisper_tpu_torch.audio.io import prepare_features
+    from enhance_cb_whisper_tpu_torch.decoding.generate import cpu_gumbel_noise
+
+    out = {}
+    for dev in ("cpu", device):
+        cb = _tiny_pipeline(dev)
+        gen = cb.generator
+        segment = gen._pad_segment(prepare_features(wave, n_mels=80, device=dev)[0][:, :, : gen.n_segment_frames])
+        cross_kv = gen._cross_kv_fn(gen._encode(segment))
+        opts = dataclasses.replace(cb.opts, num_beams=4)
+        prompt = np.asarray([[3, 10, 11]], np.int64)
+        sampled = gen._decode_prompted(cross_kv, prompt, None, opts, False, temperature=0.7,
+                                       noise=partial(cpu_gumbel_noise, 1, 1))
+        beam = gen._decode_prompted(cross_kv, prompt, None, opts, False)
+        out[str(dev)] = (sampled[0], float(sampled[1][0]), beam[0])
+    cpu, card = out["cpu"], out[str(device)]
+    same = bool((cpu[0] == card[0]).all())
+    print(f"phase G1 beam-sample (4 beams, T 0.7, injected CPU draws): tokens cpu = cuda {same}; scores "
+          f"{cpu[1]!r} / {card[1]!r}; other tokens than beam search {bool((card[0] != card[2]).any())}")
+    if not same or abs(cpu[1] - card[1]) > 1e-4 or (card[0] == card[2]).all():
+        raise RuntimeError("beam-sample: the card disagrees with the CPU, or sampled beam search's tokens")
+
+
 def phase_g1(device) -> None:
     """Each lever on the tiny random CB-Whisper (phase B's), CPU = card.
     Over phase B's two waves (6 s and 21 s: shortform and the seek loop,
@@ -2025,6 +2074,8 @@ def phase_g1(device) -> None:
     if cpu != gpu or not quantized:
         raise RuntimeError(f"s8 KWS encoder: the card disagrees with the CPU: {gpu} vs {cpu}")
     del built
+
+    _beam_sample_check(device, waves[0])
 
     k2_tiny, shift, _ = _k2_tiny_resnet(waves)
     for label, spec, int8 in (("bf16", G_LEVERS["bf16"], False), ("serving set + kws_int8", G_SERVING, True)):
@@ -3669,6 +3720,311 @@ def phase_j(device) -> dict:
     return launches
 
 
+# ------------------------------------------------------ phase P: the offline pipeline
+
+PHASE_P_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "phase_p"
+P_SLICE = (10, 22)
+P_BATCH = 8  # the pipeline's default batch_size
+# 16 files of 5-30 s, every other one a 44.1 kHz recording, and one of 40 s
+P_SECONDS = tuple(float(s) for s in np.linspace(5.0, 30.0, 16)) + (40.0,)
+
+
+def _p_corpus(root: Path, seconds, seed: int) -> dict:
+    """WAVs under ``root`` (two nesting levels), every other one at 44.1 kHz,
+    plus one shorter than a hop and one named ``.mp3`` that is not audio;
+    returns code -> seconds of the decodable files."""
+    import wave
+
+    rng = np.random.default_rng(seed)
+    codes = {}
+    for i, s in enumerate(seconds):
+        code = f"utt{i:02d}"
+        wav = _audio(1, int(s * 16000), rng)[0]
+        path = root / ("a" if i % 2 else "b") / f"{code}.wav"
+        if i % 2:
+            _write_wav(path, wav, 44100)
+        else:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            with wave.open(str(path), "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(16000)
+                w.writeframes((np.clip(wav, -1, 1) * 32767).astype("<i2").tobytes())
+        codes[code] = s
+    _write_wav(root / "short.wav", np.zeros(100, np.float32), 16000)
+    (root / "notaudio.mp3").write_bytes(b"ID3 not an mp3")
+    return codes
+
+
+def _p_extract(argv, label: str):
+    """``pipeline.main(argv)`` timed (wall, synchronized), with K1's launches
+    and launch shapes over exactly the call and its printed lines."""
+    import io
+
+    import torch
+
+    from enhance_cb_whisper_tpu_torch import pipeline
+    from enhance_cb_whisper_tpu_torch.ops import mel_cuda
+
+    out = io.StringIO()
+    mel_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _recorded_k1_shapes() as shapes, contextlib.redirect_stdout(out):
+        pipeline.main(argv)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    printed = out.getvalue().splitlines()
+    print(f"{label}: pipeline.main {wall!r} s; K1 launches {mel_cuda.launches} at {shapes}; "
+          f"printed {printed}")
+    return wall, {"mel": mel_cuda.launches, "shapes": shapes}, printed
+
+
+@contextlib.contextmanager
+def _p_host_times():
+    """Host seconds inside the pipeline, summed by part: the checkpoint's
+    load, the WAVs' decode and resampling (the loader thread, beside the
+    card's work) and the cache writes."""
+    from enhance_cb_whisper_tpu_torch import pipeline
+    from enhance_cb_whisper_tpu_torch.models import whisper_loader
+
+    rec = {"checkpoint load": 0.0, "decode + resample (loader thread)": 0.0, "cache writes": 0.0}
+    targets = ((whisper_loader, "load_whisper_from_pretrained", "checkpoint load"),
+               (pipeline, "_load_padded", "decode + resample (loader thread)"),
+               (pipeline, "save_hidden_states", "cache writes"))
+    originals = [getattr(module, name) for module, name, _ in targets]
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                rec[key] += time.perf_counter() - t0
+        return run
+
+    for (module, name, key), fn in zip(targets, originals):
+        setattr(module, name, timed(fn, key))
+    try:
+        yield rec
+    finally:
+        for (module, name, _), fn in zip(targets, originals):
+            setattr(module, name, fn)
+
+
+def _p_caches(directory: Path) -> dict:
+    return {p.stem: np.load(p) for p in sorted(directory.glob("*.npy"))}
+
+
+def phase_p1(device) -> None:
+    """The pipeline on the tiny random Whisper (phase B's dims, written as
+    an HF directory) over five WAVs of 0.5-8 s at batch 3: the CPU's
+    caches (the plain mel) = the card's (K1), within 1e-4."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.convert import from_jax_whisper_params
+    from enhance_cb_whisper_tpu_torch.models.whisper import WhisperConfig, init_whisper_params
+    from enhance_cb_whisper_tpu_torch.pipeline import extract_hidden_states
+
+    t0 = time.perf_counter()
+    root = PHASE_P_DIR / "tiny"
+    cfg = WhisperConfig(
+        vocab_size=128, num_mel_bins=80, d_model=64, encoder_layers=3, encoder_attention_heads=4,
+        decoder_layers=2, decoder_attention_heads=4, encoder_ffn_dim=128, decoder_ffn_dim=128,
+        max_source_positions=1500, max_target_positions=40,
+    )
+    params = from_jax_whisper_params(init_whisper_params(np.random.default_rng(SEED), cfg), "cpu")
+    _write_whisper_checkpoint(root / "ckpt", cfg, params)
+    codes = _p_corpus(root / "audio", (0.5, 2.25, 4.0, 6.5, 8.0), SEED + 81)
+    caches = {}
+    for dev in ("cpu", device):
+        extract_hidden_states(str(root / "audio"), str(root / "ckpt"), str(root / str(dev)), layer_slice=(1, 3),
+                              batch_size=3, device=dev)
+        caches[str(dev)] = _p_caches(root / str(dev))
+    cpu, card = caches["cpu"], caches[str(device)]
+    if sorted(cpu) != sorted(card) or sorted(card) != sorted(codes):
+        raise RuntimeError(f"phase P1: caches written cpu {sorted(cpu)} card {sorted(card)}, files {sorted(codes)}")
+    err = max(float(np.abs(card[c] - cpu[c]).max()) for c in cpu)
+    print(f"phase P1: tiny model, {len(cpu)} caches CPU (plain mel) vs card (K1): shapes equal "
+          f"{all(cpu[c].shape == card[c].shape for c in cpu)}, max |diff| {err!r} (tolerance 1e-4); "
+          f"{time.perf_counter() - t0:.1f} s")
+    if err > 1e-4 or any(cpu[c].shape != card[c].shape for c in cpu):
+        raise RuntimeError("phase P1: the card's caches differ from the CPU's")
+    torch.cuda.empty_cache()
+
+
+def _p_breakdown(argv, wall_s: float) -> None:
+    """Device time of one more profiled ``pipeline.main(argv)`` by kernel
+    family, its idle share against the unprofiled wall ``wall_s``."""
+    import io
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from enhance_cb_whisper_tpu_torch import pipeline
+
+    with contextlib.redirect_stdout(io.StringIO()), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipeline.main(argv)
+        torch.cuda.synchronize()
+    families = {"K1 log10_mel": 0.0, "GEMMs": 0.0, "attention": 0.0, "convolutions": 0.0, "copies": 0.0,
+                "other kernels": 0.0}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0)
+        name = evt.key.lower()
+        if "log10_mel" in name or "mel_kernel" in name:
+            families["K1 log10_mel"] += us
+        elif "gemm" in name or "cutlass" in name:
+            families["GEMMs"] += us
+        elif "flash" in name or "attention" in name or "fmha" in name:
+            families["attention"] += us
+        elif "conv" in name or "cudnn" in name:
+            families["convolutions"] += us
+        elif "memcpy" in name or "memset" in name:
+            families["copies"] += us
+        else:
+            families["other kernels"] += us
+    device_s = sum(families.values()) / 1e6
+    parts = ", ".join(f"{k} {v / 1e3!r} ms" for k, v in families.items())
+    print(f"phase P2 breakdown: device {device_s!r} s over the run (idle share {1 - device_s / wall_s!r} of "
+          f"the unprofiled wall {wall_s!r} s): {parts}")
+
+
+def encoder_flops(cfg, frames: int = 3000) -> int:
+    """FLOPs of one Whisper encoder forward on a 30 s mel: the two
+    convolutions and, per layer, the Q/K/V/O projections, the FFN and the
+    two attention products."""
+    t, d, f = frames // 2, cfg.d_model, cfg.encoder_ffn_dim
+    convs = 2 * 3 * (frames * d * cfg.num_mel_bins + t * d * d)
+    layer = 2 * t * (4 * d * d + 2 * d * f) + 2 * 2 * t * t * d
+    return convs + cfg.encoder_layers * layer
+
+
+def phase_p2(device) -> dict:
+    """The pipeline's CLI at whisper-medium's encoder (24 layers, d_model
+    1024, random fp32 weights from the numpy seed, the decoder cut to two
+    layers: the pipeline never runs it) written as an HF directory, over 17
+    WAVs of 5-40 s (half at 44.1 kHz), a sub-hop WAV and a non-WAV file, at
+    batch 8: K1 exactly once per batch at [<= 8, 480000]; both bad files
+    skipped with their messages; every cache equal to ``encoder_kws_stack``
+    of the same file through ``prepare_features`` on the card; files/s, MB/s
+    written, the encoder's ms per file against its FP32 FLOP bound and, from
+    a profiled run, the idle share.  Then the f16 caches (< 0.6x the f32
+    files, within 2e-3) and ``--encoder_int8 --compute_dtype bfloat16``
+    (per-frame cosine > 0.999 against f32).  Returns K1's launches over the
+    f32 run."""
+    import shutil
+
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.audio.io import load_audio_16k, prepare_features
+    from enhance_cb_whisper_tpu_torch.convert import from_jax_whisper_params
+    from enhance_cb_whisper_tpu_torch.models.whisper import (
+        WhisperConfig,
+        encoder_kws_stack,
+        init_whisper_params,
+    )
+    from enhance_cb_whisper_tpu_torch.models.whisper_loader import load_whisper_from_pretrained
+    from enhance_cb_whisper_tpu_torch.ops.mel import N_SAMPLES
+    from enhance_cb_whisper_tpu_torch.pipeline import find_audio_files
+
+    t_start = time.perf_counter()
+    root = PHASE_P_DIR / "medium"
+    config = WhisperConfig(decoder_layers=2)
+    params = from_jax_whisper_params(init_whisper_params(np.random.default_rng(SEED), config), "cpu")
+    t0 = time.perf_counter()
+    _write_whisper_checkpoint(root / "ckpt", config, params)
+    del params
+    codes = _p_corpus(root / "audio", P_SECONDS, SEED + 82)
+    print(f"phase P2: whisper-medium encoder checkpoint ({config.encoder_layers} layers, d_model "
+          f"{config.d_model}) and {len(codes)} WAVs written in {time.perf_counter() - t0:.1f} s")
+    base = ["--extract_hs", "-a", str(root / "audio"), "-w", str(root / "ckpt")]
+
+    with _p_host_times() as host:
+        wall, launches, printed = _p_extract(base + ["-t", str(root / "f32")], "phase P2 f32")
+    f32 = _p_caches(root / "f32")
+    n_items = len(codes) + 2
+    batches = -(-n_items // P_BATCH)
+    shapes_ok = all(s[0] <= P_BATCH and s[1:] == (N_SAMPLES,) for s in launches["shapes"])
+    skipped = [line for line in printed if "skipped" in line or "cannot decode" in line]
+    if sorted(f32) != sorted(codes) or launches["mel"] != batches or not shapes_ok or len(skipped) != 2:
+        raise RuntimeError(f"phase P2: caches {sorted(f32)}, K1 {launches}, skipped {skipped}")
+    size = sum((root / "f32" / f"{c}.npy").stat().st_size for c in f32)
+    print(f"phase P2 f32: {len(f32)} caches of {len(codes) + 2} files ({size} B) in {wall!r} s: "
+          f"{len(f32) / wall!r} files/s, {size / wall / 1e6!r} MB/s written; K1 once per batch "
+          f"({batches} batches of <= {P_BATCH}); skipped: {skipped}; host seconds {host}")
+
+    # each cache against the same file encoded on its own
+    t0 = time.perf_counter()
+    config_r, params_r = load_whisper_from_pretrained(str(root / "ckpt"), device=device)
+    load_s = time.perf_counter() - t0
+    files = find_audio_files(str(root / "audio"))
+    err, enc_ms = 0.0, []
+    with torch.no_grad():
+        for code, cache in f32.items():
+            wav = load_audio_16k(files[code])[:N_SAMPLES]
+            features, _ = prepare_features(wav, n_mels=config.num_mel_bins, device=device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stack = encoder_kws_stack(params_r, features, config_r, layer_slice=P_SLICE)
+            torch.cuda.synchronize()
+            enc_ms.append((time.perf_counter() - t0) * 1e3)
+            want = stack[0, :, : cache.shape[1]].cpu().numpy()
+            err = max(err, float(np.abs(want - cache).max()))
+    del params_r
+    torch.cuda.empty_cache()
+    bound_ms = encoder_flops(config) / FP32_RATE * 1e3
+    enc = statistics.median(enc_ms[1:])
+    print(f"phase P2 f32 caches vs encoder_kws_stack per file: max |diff| {err!r} (tolerance 1e-5); "
+          f"checkpoint load {load_s!r} s; encoder + stack {enc!r} ms per 30 s file (median of "
+          f"{len(enc_ms) - 1}), its FP32 bound {bound_ms!r} ms ({encoder_flops(config) / 1e12!r} TFLOP at "
+          f"{FP32_RATE / 1e12:g} TFLOP/s): {enc / bound_ms!r}x it")
+    if err > 1e-5:
+        raise RuntimeError("phase P2: a cache differs from its file's encoder_kws_stack")
+    _p_breakdown(base + ["-t", str(root / "profiled")], wall)
+    shutil.rmtree(root / "profiled", ignore_errors=True)
+
+    wall16, _, _ = _p_extract(base + ["-t", str(root / "f16"), "--cache_dtype", "float16"], "phase P2 f16")
+    f16 = _p_caches(root / "f16")
+    ratio = max((root / "f16" / f"{c}.npy").stat().st_size / (root / "f32" / f"{c}.npy").stat().st_size
+                for c in f16)
+    err16 = max(float(np.abs(f16[c].astype(np.float32) - f32[c]).max()) for c in f32)
+    print(f"phase P2 f16: {len(f16) / wall16!r} files/s; largest f16/f32 file size ratio {ratio!r}; "
+          f"max |f16 - f32| {err16!r} (tolerance 2e-3)")
+    if sorted(f16) != sorted(f32) or ratio >= 0.6 or err16 > 2e-3:
+        raise RuntimeError("phase P2: the f16 caches fail their checks")
+    shutil.rmtree(root / "f16", ignore_errors=True)
+
+    wall8, _, _ = _p_extract(base + ["-t", str(root / "int8"), "--encoder_int8", "--compute_dtype", "bfloat16"],
+                             "phase P2 encoder_int8 + bf16")
+    i8 = _p_caches(root / "int8")
+    cos = min(float((i8[c] * f32[c]).sum(-1).min()) for c in f32)
+    print(f"phase P2 encoder_int8 + bf16: {len(i8) / wall8!r} files/s; least per-frame cosine against f32 "
+          f"{cos!r} (bound 0.999)")
+    if sorted(i8) != sorted(f32) or not cos > 0.999:
+        raise RuntimeError("phase P2: the encoder_int8 caches are too far from the f32 ones")
+    print(f"phase P2: {time.perf_counter() - t_start:.1f} s in all")
+    return launches
+
+
+def phase_p(device) -> dict:
+    """Phase P: the offline cache pipeline, P1 and P2; its files are deleted
+    at the end, pass or fail.  Returns K1's launches over P2's f32 run (the
+    kernel line's ``pipeline_launches``)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(PHASE_P_DIR, ignore_errors=True)
+    try:
+        phase_p1(device)
+        launches = phase_p2(device)
+    finally:
+        shutil.rmtree(PHASE_P_DIR, ignore_errors=True)
+    print(f"phase P: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _median_ms(fn, reps: int = 25) -> float:
     import torch
 
@@ -3904,7 +4260,7 @@ def main(argv) -> int:
     import torch
 
     if argv not in ([], ["--k1"], ["--serving"], ["--levers"], ["--train"], ["--paper2"],
-                    ["--paper2-train"]):
+                    ["--paper2-train"], ["--pipeline"]):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -3934,15 +4290,15 @@ def main(argv) -> int:
         print_k1_bound()
         print(_card())
         return 0
-    if argv == ["--paper2-train"]:  # K1, phase A and paper-2 training alone
+    if argv in (["--paper2-train"], ["--pipeline"]):  # K1, phase A and phase J or P alone
         from enhance_cb_whisper_tpu_torch.ops import mel_cuda
 
         mel_lib = mel_cuda.build()
         print(f"build: {KERNEL_SOURCE} compiled and loaded in {time.perf_counter() - t_start:.1f} s")
         _print_ptxas("K1", mel_lib)
         phase_a(device)
-        phase_j(device)
-        print(f"chip_smoke --paper2-train: passed in {time.perf_counter() - t_start:.1f} s")
+        (phase_j if argv == ["--paper2-train"] else phase_p)(device)
+        print(f"chip_smoke {argv[0]}: passed in {time.perf_counter() - t_start:.1f} s")
         print(_card())
         return 0
     build_kernels()
@@ -3997,6 +4353,7 @@ def main(argv) -> int:
     train_launches = phase_h(device)
     paper2_launches = phase_i(device, p2_shapes["LEF"])
     paper2_train_launches = phase_j(device)
+    pipeline_launches = phase_p(device)
     times = phase_c(device)
     k2 = phase_c_k2(device, shapes)
     phase_c_k2(device, p2_shapes["LEF"], f"chunk of {P2_CHUNK} paper-2 LEF maps")
@@ -4010,7 +4367,8 @@ def main(argv) -> int:
          "launches": fp32_launches["mel"], "cli_launches": cli_launches["mel"],
          "packed_launches": packed_launches["mel"], "levers_launches": levers_launches["mel"],
          "train_launches": train_launches["mel"], "paper2_launches": paper2_launches["mel"],
-         "paper2_train_launches": paper2_train_launches["mel"], "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+         "paper2_train_launches": paper2_train_launches["mel"], "pipeline_launches": pipeline_launches["mel"],
+         "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": k1["ms"], "bound_by": k1["by"], "library_ms": None},
         {"name": "matmul_s8_requant", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
          "launches": int8_launches["k2"], "cli_launches": cli_launches["k2"],

@@ -1,4 +1,4 @@
-"""Hidden-state cache reads (port of enhance_cb_whisper_tpu/catalog/store.py).
+"""Hidden-state cache IO (port of enhance_cb_whisper_tpu/catalog/store.py).
 
 A cache holds one Whisper-encoder hidden-state stack [n_layers, T, D] per
 utterance or keyword: plain ``.npy`` (the JAX package's native format), or
@@ -28,6 +28,15 @@ def load_hidden_states(path: str) -> np.ndarray:
             t = torch.load(f, map_location="cpu", weights_only=True)
         return t.detach().to(torch.float32).numpy()
     raise FileNotFoundError(path)
+
+
+def save_hidden_states(path: str, hs: np.ndarray, dtype=np.float32) -> None:
+    """Write a stack as ``.npy`` (the suffix is forced) in ``dtype``;
+    ``np.float16`` halves the file, and :func:`load_hidden_states` upcasts
+    it again (the stacks are L2-normalized, so the rounding is ~1e-3)."""
+    if not path.endswith(".npy"):
+        path = os.path.splitext(path)[0] + ".npy"
+    np.save(path, np.asarray(hs, dtype=dtype))
 
 
 def hidden_states_exist(path: str) -> bool:

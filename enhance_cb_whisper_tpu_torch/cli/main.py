@@ -25,14 +25,13 @@ hands ``device_features`` to the train step, writes its checkpoints under
 constructors as in the JAX CLI: ``compute_dtype``, ``vocab_int8``,
 ``decoder_int8``, ``kv_cache_int8``, ``cross_kv_int8``, and ``encoder_int8``
 (with a separate ``encoder_ckpt``).  ``eval_batch_size`` and
-``eval_packed`` pick batched or packed decode.  ``kv_staging``, a TPU
-cache-write layout, is accepted and does nothing with float caches; with
-``kv_cache_int8`` it would change the results (the JAX package attends the
-staged tokens at full precision until they are flushed), so that pair
-raises.  ``kws_int8`` (paper 1, paper 2 and CB-Whisper) runs the fused s8
-kernel K2 on every bottleneck 1×1 conv whose shapes it takes, as the JAX
-CLI does with ``ECW_S8_PALLAS`` naming every stage; the port reads no
-environment variable.
+``eval_packed`` pick batched or packed decode.  ``kv_staging`` W, a TPU
+cache-write layout, does nothing with float caches; with ``kv_cache_int8``
+the last W decode tokens are attended at full precision until a flush
+quantizes them, as in the JAX package.  ``kws_int8`` (paper 1, paper 2
+and CB-Whisper) runs the fused s8 kernel K2 on every bottleneck 1×1 conv
+whose shapes it takes, as the JAX CLI does with ``ECW_S8_PALLAS`` naming
+every stage; the port reads no environment variable.
 """
 
 from __future__ import annotations
@@ -366,15 +365,6 @@ def _build_generation_options(tokenizer, hf_gc, model_args, whisper_config=None)
     )
 
 
-def _check_cbwhisper_knobs(model_args) -> None:
-    """Raise on the knob combination whose JAX results the port cannot give."""
-    if int(model_args.get("kv_staging", 0)) > 0 and model_args.get("kv_cache_int8"):
-        raise NotImplementedError(
-            "kv_staging with kv_cache_int8 is not ported: the JAX package attends the staged "
-            "tokens at full precision until its flush quantizes them: ROADMAP.md §1 item 4"
-        )
-
-
 def _compute_dtype(model_args):
     import torch
 
@@ -396,7 +386,6 @@ def _run_cbwhisper(subcommand: str, config: Dict[str, Any], predictions_out=None
     from ..models.whisper_loader import load_whisper_from_pretrained
 
     model_args = get(config, "model.init_args", {}) or {}
-    _check_cbwhisper_knobs(model_args)
     cb_config = CBWhisperConfig(**filter_kwargs(model_args, CBWhisperConfig))
 
     whisper_ckpt = model_args["whisper_ckpt"]
@@ -460,6 +449,7 @@ def _run_cbwhisper(subcommand: str, config: Dict[str, Any], predictions_out=None
         decoder_int8=bool(model_args.get("decoder_int8", False)),
         kv_cache_int8=bool(model_args.get("kv_cache_int8", False)),
         cross_kv_int8=bool(model_args.get("cross_kv_int8", False)),
+        kv_staging=int(model_args.get("kv_staging", 0)),
     )
     if model_args.get("kws_int8"):
         # int8 spotting, calibrated lazily over the first scored segments

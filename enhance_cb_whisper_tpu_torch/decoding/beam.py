@@ -16,9 +16,11 @@ package:
 
 The JAX ``while_loop`` is a Python loop here.  Conventions kept: the cache
 arrives positioned at ``prompt_len - 1`` and the first step re-feeds the
-final prompt token.  The self-attention cache is reordered by beam index
-each step (``index_select`` over its written prefix) instead of the JAX
-package's ancestry map.
+final prompt token; a staged int8 cache is flushed after every W-th step
+(the JAX loop runs whole W-step windows, the steps past its stop changing
+nothing but the cache, which the port skips).  The self-attention cache
+is reordered by beam index each step (``index_select`` over its written
+prefix) instead of the JAX package's ancestry map.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from ..models.whisper import flush_staging
 from .logits_process import NEG_INF, LogitsProcessorConfig, apply_logits_processors
 from .topk import exact_top_k
 
@@ -37,10 +40,20 @@ DecodeFn = Callable[[torch.Tensor, Any, Any], Tuple[torch.Tensor, Any]]
 def _gather_beams(cache: dict, rows: torch.Tensor, length: int) -> None:
     """Reorder the cache's batch·beam rows by ``rows`` [B·K], in place, over
     the written prefix ``[:length]`` of every slab of every layer: the K/V
-    and, for an int8 cache, their per-token scales."""
+    and, for an int8 cache, their per-token scales and staging windows
+    (whose written slots are fewer than ``length``)."""
     for layer in cache["layers"]:
         for slab in layer.values():
             slab[:, :length] = slab[:, :length].index_select(0, rows)
+
+
+def _flush_full_window(cache: Any) -> None:
+    """Staged int8 caches: after the W-th step since the last flush, commit
+    the window to the int8 slabs (the JAX package flushes once per W-step
+    window of its decode loop)."""
+    if isinstance(cache, dict) and "base" in cache:
+        if cache["index"] - cache["base"] == cache["layers"][0]["ks"].shape[1]:
+            flush_staging(cache)
 
 
 @torch.no_grad()
@@ -56,8 +69,22 @@ def beam_search(
     length_penalty: float = 1.0,
     pad_token_id: int = 50257,
     eos_token_id: int = 50257,
+    do_sample: bool = False,
+    temperature: float = 1.0,
+    noise: Optional[Callable[[int, Tuple[int, ...]], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (sequences [B, max_length] right-padded, scores [B])."""
+    """Returns (sequences [B, max_length] right-padded, scores [B]).
+
+    ``do_sample=True`` is HF's beam-sample: the processed log-probs are
+    divided by ``temperature`` before they accumulate, and the 2K
+    candidates are drawn without replacement from the softmax of the
+    accumulated scores by Gumbel-top-k, ranking ``total + g`` with ``g =
+    noise(cur_len, (B, K, V))`` standard Gumbel draws (the JAX package's
+    ``jax.random.gumbel`` can be injected) through the same two-stage
+    top-2K as the deterministic search.  Candidate order is sampling
+    order; the candidates keep their unperturbed scores."""
+    if do_sample and noise is None:
+        raise ValueError("sampling needs a noise source")
     device = prompt.device
     batch, plen = prompt.shape
     K = num_beams
@@ -86,16 +113,24 @@ def beam_search(
         logprobs = apply_logits_processors(
             processors, logprobs, tokens.reshape(batch * K, max_length), cur_len, prompt_len,
         ).reshape(batch, K, V)
+        if do_sample:
+            logprobs = logprobs / temperature
         total = logprobs + running_scores[:, :, None]  # [B, K, V]
+        ranked = total
+        if do_sample:
+            ranked = total + noise(cur_len, (batch, K, V)).to(device, torch.float32)
 
         # per-beam top-2K, then top-2K of the K*2K pool: the global top-2K
         # of the flattened [K*V] axis with the same (beam-major) tie order
-        per_scores, per_token = exact_top_k(total.reshape(batch * K, V), 2 * K)
-        pool_scores = per_scores.reshape(batch, K * 2 * K)
+        per_ranked, per_token = exact_top_k(ranked.reshape(batch * K, V), 2 * K)
+        pool_ranked = per_ranked.reshape(batch, K * 2 * K)
         pool_token = per_token.reshape(batch, K * 2 * K)
-        cand_scores, pool_sel = exact_top_k(pool_scores, 2 * K)  # [B, 2K]
+        cand_scores, pool_sel = exact_top_k(pool_ranked, 2 * K)  # [B, 2K]
         cand_beam = pool_sel // (2 * K)
         cand_token = torch.gather(pool_token, 1, pool_sel)
+        if do_sample:
+            pool_scores = torch.gather(total.reshape(batch * K, V), 1, per_token).reshape(batch, K * 2 * K)
+            cand_scores = torch.gather(pool_scores, 1, pool_sel)
         is_eos = cand_token == eos_token_id
 
         # retire eos candidates (rank < K) into the finished set
@@ -124,6 +159,7 @@ def beam_search(
         new_tokens = torch.gather(tokens, 1, sel_beam[:, :, None].expand(batch, K, max_length)).clone()
         new_tokens[:, :, cur_len] = sel_token
         _gather_beams(cache, (row_base + sel_beam).reshape(-1), cur_len)
+        _flush_full_window(cache)
 
         # frozen batches keep their previous state
         tokens = torch.where(done[:, None, None], tokens, new_tokens)
@@ -183,6 +219,7 @@ def greedy_search(
     cur_len = prompt_len
     while cur_len < max_length and not bool(finished.all()):
         logits, cache = decode_fn(tokens[:, cur_len - 1 : cur_len], cache, ctx)
+        _flush_full_window(cache)
         processed = apply_logits_processors(
             processors, logits.to(torch.float32), tokens, cur_len, prompt_len
         )

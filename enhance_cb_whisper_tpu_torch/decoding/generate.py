@@ -36,10 +36,12 @@ The serving levers (``dtype``, ``vocab_int8``, ``decoder_int8``,
 path: shortform, longform and its ladder, packed decode and
 ``detect_language``.
 
-Not ported yet: beam-sample (``num_beams > 1`` at a temperature above 0,
-which the ladder never asks for).  Prompt-length bucketing existed only to
-bound JAX compiles and is dropped: the prompt is prefilled at its true
-length, and a packed run's prompts all have one width.
+A direct :meth:`WhisperGenerator._decode_prompted` call at ``num_beams >
+1`` and a temperature above 0 is beam-sample (the ladder never asks for
+it: its sampled rungs decode with ``num_beams=1``).  Prompt-length
+bucketing existed only to bound JAX compiles and is dropped: the prompt is
+prefilled at its true length, and a packed run's prompts all have one
+width.
 """
 
 from __future__ import annotations
@@ -172,13 +174,17 @@ class WhisperGenerator:
     ``decoder_int8`` (weight-only int8 vocab projection and decode-loop
     linears, quantized here from the f32 weights); ``kv_cache_int8`` (int8
     self-attention cache) and ``cross_kv_int8`` (int8 cross-attention
-    K/V, quantized once per segment).  ``self.params`` holds the weights as
-    the forward uses them: quantized, then cast to ``dtype``."""
+    K/V, quantized once per segment).  ``kv_staging`` W > 0 with
+    ``kv_cache_int8`` keeps the last W decode tokens in a compute-dtype
+    window flushed into the int8 cache every W steps, as the JAX package's
+    staged writes do (:func:`..models.whisper.init_cache`); with a float
+    cache it changes nothing and is ignored.  ``self.params`` holds the
+    weights as the forward uses them: quantized, then cast to ``dtype``."""
 
     def __init__(self, config: WhisperConfig, params: Dict[str, Any], device="cuda",
                  dtype: torch.dtype = torch.float32, vocab_int8: bool = False,
                  decoder_int8: bool = False, kv_cache_int8: bool = False,
-                 cross_kv_int8: bool = False):
+                 cross_kv_int8: bool = False, kv_staging: int = 0):
         self.config = config
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -188,6 +194,10 @@ class WhisperGenerator:
         self._decoder_int8 = bool(decoder_int8)
         self._kv_cache_int8 = bool(kv_cache_int8)
         self._cross_kv_int8 = bool(cross_kv_int8)
+        # staged writes change only an int8 cache's results (the window's
+        # tokens are attended unquantized until a flush); float caches
+        # take none
+        self._kv_staging = int(kv_staging) if self._kv_cache_int8 else 0
         self.params = self._serving_params(params)
         self.n_segment_frames = INPUT_STRIDE * config.max_source_positions
 
@@ -281,8 +291,8 @@ class WhisperGenerator:
         logits = []
         for i in range(n_seg):
             rows = slice(i * reps, (i + 1) * reps)
-            part = {"index": index, "layers": [{name: slab[rows] for name, slab in layer.items()}
-                                               for layer in cache["layers"]]}
+            part = dict(cache, layers=[{name: slab[rows] for name, slab in layer.items()}
+                                       for layer in cache["layers"]])
             cross_kv = [{name: t[i : i + 1] for name, t in layer.items()} for layer in ctx["cross_kv"]]
             out, _ = decoder_forward(ctx["params"], ids[rows], cross_kv, self.config,
                                      cache=part, attention_mask=ctx["attn_mask"][rows],
@@ -303,9 +313,14 @@ class WhisperGenerator:
         cuBLAS picks its GEMM kernel by the number of rows, so a batched
         prefill would give a row other bits beside other segments."""
         cache = init_cache(self.config, prompt.shape[0], max_length, self.device,
-                           dtype=self.dtype, kv_int8=self._kv_cache_int8)
+                           dtype=self.dtype, kv_int8=self._kv_cache_int8,
+                           staging_window=self._kv_staging)
         logits = self._by_segment(prompt, cache, ctx, prefill=True)
         cache["index"] = prompt.shape[1] - 1
+        if "base" in cache:
+            # the prompt lies in the int8 slab; the first step re-feeds its
+            # last token into window slot 0, past the slab's part
+            cache["base"] = prompt.shape[1] - 1
         return cache, logits
 
     def _make_ctx(self, cross_kv, prompt_mask: np.ndarray, max_length: int, reps: int) -> dict:
@@ -355,7 +370,8 @@ class WhisperGenerator:
         """Prefill the prompt, run beam/greedy/sampling to
         max_target_positions; returns (full sequences incl. prompt
         [B, max_len], scores [B], no-speech probabilities [B]).  ``noise``
-        maps (cur_len, shape) to Gumbel draws for a sampled rung.  The
+        maps (cur_len, shape) to Gumbel draws for a sampled decode: greedy
+        at ``num_beams=1``, beam-sample above.  The
         no-speech probability (softmax at ``no_speech_token_id`` of the
         first generated position) is computed only when a threshold will
         read it, else 0."""
@@ -369,11 +385,6 @@ class WhisperGenerator:
         processors = self._processors(dataclasses.replace(opts, return_timestamps=return_timestamps))
         use_sampling = temperature > 0.0
         K = opts.num_beams
-        if use_sampling and K > 1:
-            raise NotImplementedError(
-                "beam-sample (num_beams > 1 at a temperature above 0) is not ported; "
-                "the fallback ladder samples with num_beams=1"
-            )
         reps = K if K > 1 else 1
         ctx = self._make_ctx(cross_kv, pmask, max_length, reps)
         prompt = torch.from_numpy(np.asarray(decoder_input_ids, dtype=np.int64)).to(self.device)
@@ -395,6 +406,8 @@ class WhisperGenerator:
                 self._decode_step, prompt, plen, cache, ctx, processors,
                 num_beams=K, max_length=max_length, length_penalty=opts.length_penalty,
                 pad_token_id=opts.pad_token_id, eos_token_id=opts.eos_token_id,
+                do_sample=use_sampling, temperature=float(temperature) if use_sampling else 1.0,
+                noise=noise,
             )
         return seqs.cpu().numpy(), scores.cpu().numpy(), no_speech_probs
 

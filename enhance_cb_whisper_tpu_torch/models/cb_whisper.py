@@ -91,13 +91,15 @@ class CBWhisper:
         decoder_int8: bool = False,
         kv_cache_int8: bool = False,
         cross_kv_int8: bool = False,
+        kv_staging: int = 0,
     ):
         """``whisper_params``/``encoder_params`` are torch parameter dicts on
         ``device`` (:func:`..convert.from_jax_whisper_params`); ``kws_model``
         is moved to ``device`` and put in eval mode.  The card is the
-        default: a CPU run passes ``device="cpu"``.  ``dtype`` and the int8
-        flags are :class:`..decoding.generate.WhisperGenerator`'s serving
-        levers; ``dtype`` is the KWS encoder's compute dtype too."""
+        default: a CPU run passes ``device="cpu"``.  ``dtype``, the int8
+        flags and ``kv_staging`` are
+        :class:`..decoding.generate.WhisperGenerator`'s serving levers;
+        ``dtype`` is the KWS encoder's compute dtype too."""
         self.config = config
         self.whisper_config = whisper_config
         self.device = torch.device(device)
@@ -114,6 +116,7 @@ class CBWhisper:
         self.generator = WhisperGenerator(
             whisper_config, whisper_params, device=self.device, dtype=dtype, vocab_int8=vocab_int8,
             decoder_int8=decoder_int8, kv_cache_int8=kv_cache_int8, cross_kv_int8=cross_kv_int8,
+            kv_staging=kv_staging,
         )
         self._compute_dtype = dtype
         # a separate KWS encoder keeps its f32 weights for a later int8

@@ -12,8 +12,11 @@ JAX pytrees by :func:`..convert.from_jax_whisper_params`):
 The self-attention KV cache is a dict ``{"index": int, "layers": [{"k",
 "v"}]}`` whose [B, max_len, H, Dh] slabs are written IN PLACE by
 :func:`decoder_forward` (no copy per step).  Beam search reorders it by
-index (``decoding/beam.py``); the JAX ancestry cache and staged writes are
-TPU mechanisms that this port does not carry.
+index (``decoding/beam.py``); the JAX ancestry cache is a TPU mechanism
+that this port does not carry.  Staged writes (the JAX package's
+``kv_staging``) are carried for the int8 cache alone, the one cache whose
+results they change: the last tokens stay in a compute-dtype window until
+:func:`flush_staging` quantizes them (:func:`init_cache`).
 
 The serving levers of the JAX package, with its casts one for one:
 
@@ -208,17 +211,32 @@ def _attention_step(
     k_new: torch.Tensor,  # [B, 1, H, Dh] this token's K/V, compute dtype
     v_new: torch.Tensor,
     mask: Optional[torch.Tensor],  # broadcastable to [B, H, 1, T], True=keep
+    stage_k: Optional[torch.Tensor] = None,  # [B, S, H, Dh] staged tokens, compute dtype
+    stage_v: Optional[torch.Tensor] = None,
+    stage_mask: Optional[torch.Tensor] = None,  # broadcastable to [B, H, 1, S]
 ) -> torch.Tensor:
     """A decode step over an int8 cache (JAX ``_attention_split``): the
     dequantized cache strictly before this position, and this token's K/V
     at full precision as one more score column.  The caller stores the
-    token's quantized codes afterwards."""
+    token's quantized codes afterwards.  Staged tokens (``stage_k``/
+    ``stage_v``, at full precision) are a third score block between the
+    two, as in the JAX package."""
     scores_c = _scores(q, k_cache.to(q.dtype)) * k_scale[:, None, None, :]
     if mask is not None:
         scores_c = scores_c.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(torch.cat([scores_c, _scores(q, k_new)], dim=-1), dim=-1)
-    probs_c = probs[..., :-1] * v_scale[:, None, None, :]
-    return _weighted(probs_c.to(q.dtype), v_cache.to(q.dtype)) + _weighted(probs[..., -1:].to(q.dtype), v_new)
+    blocks = [scores_c]
+    if stage_k is not None:
+        scores_s = _scores(q, stage_k.to(q.dtype))
+        if stage_mask is not None:
+            scores_s = scores_s.masked_fill(~stage_mask, NEG_INF)
+        blocks.append(scores_s)
+    probs = torch.softmax(torch.cat([*blocks, _scores(q, k_new)], dim=-1), dim=-1)
+    t = k_cache.shape[1]
+    probs_c = probs[..., :t] * v_scale[:, None, None, :]
+    out = _weighted(probs_c.to(q.dtype), v_cache.to(q.dtype)) + _weighted(probs[..., -1:].to(q.dtype), v_new)
+    if stage_k is not None:
+        out = out + _weighted(probs[..., t:-1].to(q.dtype), stage_v.to(q.dtype))
+    return out
 
 
 def _mha(p: Dict[str, Any], x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -617,23 +635,62 @@ def encoder_kws_stack(
 
 
 def init_cache(config: WhisperConfig, batch: int, max_len: int, device: torch.device,
-               dtype: torch.dtype = torch.float32, kv_int8: bool = False) -> Dict[str, Any]:
+               dtype: torch.dtype = torch.float32, kv_int8: bool = False,
+               staging_window: int = 0) -> Dict[str, Any]:
     """Per layer ``{"k", "v"}`` [batch, max_len, H, Dh] slabs in ``dtype``;
     with ``kv_int8`` int8 slabs and f32 ``k_scale``/``v_scale`` [batch,
-    max_len] (per-token scales, :func:`_quantize_kv`)."""
+    max_len] (per-token scales, :func:`_quantize_kv`).
+
+    ``staging_window`` W > 0 (int8 caches only) adds per layer a W-token
+    window ``ks``/``vs`` [batch, W, H, Dh] in ``dtype`` and the cache's
+    ``base``, the position of the window's first token.  A decode step
+    attends the slab before ``base``, the window's tokens at full precision
+    and its own token, then writes its K/V into the window; the decode loop
+    calls :func:`flush_staging` every W steps."""
     head_dim = config.d_model // config.decoder_attention_heads
     shape = (batch, max_len, config.decoder_attention_heads, head_dim)
+    if staging_window and not kv_int8:
+        raise ValueError("staging_window applies to an int8 cache: a float cache's results do not change")
+    if staging_window and not 0 < staging_window < max_len:
+        raise ValueError(f"staging_window must be in (0, max_len={max_len}); got {staging_window}")
 
     def layer():
         if kv_int8:
-            return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
-                    "v": torch.zeros(shape, dtype=torch.int8, device=device),
-                    "k_scale": torch.zeros((batch, max_len), device=device),
-                    "v_scale": torch.zeros((batch, max_len), device=device)}
+            out = {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                   "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                   "k_scale": torch.zeros((batch, max_len), device=device),
+                   "v_scale": torch.zeros((batch, max_len), device=device)}
+            if staging_window:
+                wshape = (batch, staging_window, *shape[2:])
+                out["ks"] = torch.zeros(wshape, dtype=dtype, device=device)
+                out["vs"] = torch.zeros(wshape, dtype=dtype, device=device)
+            return out
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
-    return {"index": 0, "layers": [layer() for _ in range(config.decoder_layers)]}
+    cache = {"index": 0, "layers": [layer() for _ in range(config.decoder_layers)]}
+    if staging_window:
+        cache["base"] = 0
+    return cache
+
+
+def flush_staging(cache: Dict[str, Any]) -> Dict[str, Any]:
+    """Quantize every layer's staging window into its int8 slabs at
+    ``base`` with the slab's per-token quantizer, and advance ``base`` by W
+    (window tokens past the slab's end are dropped).  A cache without
+    staging is returned as it is."""
+    if "base" not in cache:
+        return cache
+    base = cache["base"]
+    for layer in cache["layers"]:
+        window = layer["ks"].shape[1]
+        n = max(0, min(window, layer["k"].shape[1] - base))
+        for src, codes, scale in (("ks", "k", "k_scale"), ("vs", "v", "v_scale")):
+            q, sc = _quantize_kv(layer[src][:, :n])
+            layer[codes][:, base : base + n] = q
+            layer[scale][:, base : base + n] = sc
+    cache["base"] = base + cache["layers"][0]["ks"].shape[1]
+    return cache
 
 
 def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -668,13 +725,30 @@ def precompute_cross_kv(params: Dict[str, Any], encoder_out: torch.Tensor,
     return out
 
 
-def _self_attention_int8(q, k, v, cache_layer, offset: int, mask, step: bool) -> torch.Tensor:
+def _self_attention_int8(q, k, v, cache_layer, offset: int, mask, step: bool,
+                         base: Optional[int] = None) -> torch.Tensor:
     """Self-attention over an int8 cache, with the JAX package's two write
     semantics.  A decode ``step`` attends over the dequantized cache before
     ``offset`` and over this token's K/V at full precision, then stores the
     token's codes.  A multi-token write (the prefill) stores the codes
-    first and attends over the dequantized tokens, the new ones included."""
+    first and attends over the dequantized tokens, the new ones included.
+
+    With a staging window (:func:`init_cache`) a step attends the slab
+    before ``base``, the window's ``offset - base`` tokens and its own
+    token, and stores its K/V in the window, unquantized."""
     t = k.shape[1]
+    if step and "ks" in cache_layer:
+        staged = offset - base
+        attn = _attention_step(
+            q, cache_layer["k"][:, :base], cache_layer["v"][:, :base],
+            cache_layer["k_scale"][:, :base], cache_layer["v_scale"][:, :base],
+            k.to(q.dtype), v.to(q.dtype), mask[..., :base],
+            stage_k=cache_layer["ks"][:, :staged], stage_v=cache_layer["vs"][:, :staged],
+            stage_mask=mask[..., base:offset],
+        )
+        cache_layer["ks"][:, staged : staged + 1] = k
+        cache_layer["vs"][:, staged : staged + 1] = v
+        return attn
     (k_q, k_s), (v_q, v_s) = _quantize_kv(k), _quantize_kv(v)
     if step:
         attn = _attention_step(
@@ -702,6 +776,7 @@ def _decoder_layer(
     cache_layer: Optional[Dict[str, torch.Tensor]],
     offset: int,
     step: bool = False,
+    base: Optional[int] = None,
 ) -> torch.Tensor:
     head_dim = x.shape[-1] // num_heads
     t = x.shape[1]
@@ -711,7 +786,7 @@ def _decoder_layer(
     k = _split_heads(_linear(p["self_attn"]["k_proj"], h), num_heads)
     v = _split_heads(_linear(p["self_attn"]["v_proj"], h), num_heads)
     if cache_layer is not None and "k_scale" in cache_layer:
-        attn = _self_attention_int8(q, k, v, cache_layer, offset, self_mask, step)
+        attn = _self_attention_int8(q, k, v, cache_layer, offset, self_mask, step, base)
     else:
         if cache_layer is not None:
             # in-place cache write; attend over the written prefix only
@@ -786,6 +861,7 @@ def decoder_forward(
         x = _decoder_layer(
             layer, x, cross_kv[i], config.decoder_attention_heads, mask,
             cache["layers"][i] if cache is not None else None, offset, step,
+            cache.get("base") if cache is not None else None,
         )
     x = _layer_norm(p["layer_norm"], x)
     if "embed_tokens_q" in p:

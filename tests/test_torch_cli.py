@@ -26,11 +26,11 @@ margins so that some keywords are spotted and others not.
 * The serving knobs, each alone with greedy decode, through both CLIs give
   identical transcripts, keywords and entity recall: ``compute_dtype:
   bfloat16``, ``vocab_int8``, ``decoder_int8``, ``kv_cache_int8``,
-  ``cross_kv_int8``, and ``encoder_int8`` with a separate encoder
-  checkpoint (the same weights under another path).
-* An unfilled placeholder exits both CLIs with the same message; what the
-  port does not carry raises ``NotImplementedError`` (``kv_staging`` with
-  ``kv_cache_int8``, whose JAX results the port cannot give); ``fit``
+  ``kv_cache_int8`` with ``kv_staging``, ``cross_kv_int8``, and
+  ``encoder_int8`` with a separate encoder checkpoint (the same weights
+  under another path).
+* An unfilled placeholder exits both CLIs with the same message; a staging
+  window as long as the decode raises; ``fit``
   without ``train_info`` raises, for paper 1 and paper 2; ``kv_staging`` alone is accepted; the language table equals ``transformers``' and the
   generation options match the JAX CLI's for ``language: null`` and
   ``max_initial_timestamp_index: 0``.
@@ -277,6 +277,10 @@ CB_MODES = {
     "vocab_int8": ({"num_beams": 1}, ["--model.init_args.vocab_int8", "true"]),
     "decoder_int8": ({"num_beams": 1}, ["--model.init_args.decoder_int8", "true"]),
     "kv_cache_int8": ({"num_beams": 1}, ["--model.init_args.kv_cache_int8", "true"]),
+    # staged writes into the int8 cache: the window's tokens unquantized
+    # until a flush, as in the JAX package
+    "kv_staging_int8": ({"num_beams": 1}, ["--model.init_args.kv_cache_int8", "true",
+                                           "--model.init_args.kv_staging", "4"]),
     "cross_kv_int8": ({"num_beams": 1}, ["--model.init_args.cross_kv_int8", "true"]),
     # the s8 KWS encoder needs a separate encoder checkpoint
     "encoder_int8": ({"num_beams": 1, "kws_int8_calibration_batches": 2, "encoder_ckpt": "[ENCODER]"},
@@ -372,10 +376,10 @@ def test_unfilled_placeholder_exits_as_jax(env, tmp_path):
 
 
 @pytest.mark.parametrize("override, item, error", [
-    # the JAX package attends staged tokens at full precision until a flush
-    # quantizes them; the port carries no staging
-    (["--model.init_args.kv_staging", "8", "--model.init_args.kv_cache_int8", "true"], "item 4",
-     (NotImplementedError, "item 4")),
+    # staging with an int8 cache runs (CB_MODES "kv_staging_int8"), but not
+    # with a window as long as the decode, as in the JAX package
+    (["--model.init_args.kv_staging", "4096", "--model.init_args.kv_cache_int8", "true"], "item 4",
+     (ValueError, "staging_window must be in")),
     # paper 2 trains (tests/test_torch_efficient_fit.py), but not from a
     # config that names no training dataset
     (["--model.class_path", "efficient_kws.model.KWSModel"], "item 6", (ValueError, "train_info")),

@@ -35,7 +35,8 @@ def test_port_imports_no_jax():
     assert "enhance_cb_whisper_tpu_torch.runtime.serving" in modules
     for name in ("train.kws_train", "train.optim", "data.samplers", "data.collators",
                  "runtime.logging", "efficient_kws", "efficient_kws.model", "efficient_kws.catalog",
-                 "efficient_kws.data", "efficient_kws.engine", "efficient_kws.torch_compat"):
+                 "efficient_kws.data", "efficient_kws.engine", "efficient_kws.torch_compat",
+                 "pipeline"):
         assert f"enhance_cb_whisper_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"
@@ -101,6 +102,7 @@ def test_entry_points_default_to_the_card():
         load_whisper_from_pretrained,
         load_whisper_from_safetensors,
     )
+    from enhance_cb_whisper_tpu_torch.pipeline import extract_hidden_states
     from enhance_cb_whisper_tpu_torch.runtime.kws_engine import KWSEngine
     from enhance_cb_whisper_tpu_torch.train.kws_train import StepNoise, init_train_state
 
@@ -126,7 +128,7 @@ def test_entry_points_default_to_the_card():
     assert EfficientKWSEngine(EfficientKWSConfig()).device.type == "cuda"
     # the CLI and the checkpoint loaders hand their device down to these
     for fn in (run_cli, load_whisper_from_pretrained, load_whisper_from_safetensors, load_hf_whisper,
-               init_train_state, StepNoise):
+               init_train_state, StepNoise, extract_hidden_states):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
     for name, call in calls.items():
         if torch.cuda.is_available():
