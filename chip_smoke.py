@@ -9,6 +9,7 @@
     python3 chip_smoke.py --paper2   # the kernels' build, phase A2 at paper 2's shapes and phase I alone
     python3 chip_smoke.py --paper2-train  # K1's build, phase A and phase J (paper-2 training) alone
     python3 chip_smoke.py --pipeline  # K1's build, phase A and phase P (the offline cache pipeline) alone
+    python3 chip_smoke.py --scale-out  # the kernels' build and phase Q (torch.distributed) alone
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, started together), then:
@@ -116,7 +117,7 @@ H.  paper-1 training, which launches neither kernel (the count of each is
     build/chip_smoke/phase_h/ and deleted at the end: the host collator,
     device_features, adversarial training at 8 x 20 examples a step,
     one DANNCE step, a resume from the written checkpoint and ``test`` on
-    it; each run prints ms per step, examples/s, peak memory, and a
+    it (each fit a few batches: the step split is taken on its last); each run prints ms per step, examples/s, peak memory, and a
     torch.profiler split of one step's device time (convolutions forward
     and backward, BatchNorm, the optimizer, the rest) with its idle share;
     the losses must be finite and the weights must move;
@@ -164,6 +165,24 @@ P.  the offline cache pipeline (``python -m
     MB/s written, the encoder's ms per file against its FP32 bound and a
     profiled run's idle share; then the f16 caches (< 0.6x the files) and
     the s8 encoder in bf16 (per-frame cosine > 0.999 against f32);
+Q.  scale-out (``parallel/``, after D, on phase B's model and utterances),
+    its ranks spawned by ``parallel/mesh.py:launch``: a world of 2 on gloo,
+    both ranks on cuda:0 (NCCL refuses two ranks on one device), runs the
+    paper-1 step data-parallel (configs/train.yaml's ResNet-50 at 150x750,
+    2 x 10 of a global batch of 20, BatchNorm over the global batch), then
+    at model=2 int8 spotting over the 100-keyword catalog sharded by chunks
+    (K2 split between the ranks), the tensor-parallel whisper-medium
+    encoder (8 of 16 heads a rank) on K1's mels and the TP longform decode
+    of phase B's four utterances, and saves the step's state with Adam's
+    moments sharded (``runtime/sharded_checkpoint.py``); a world of 1 on
+    NCCL then runs every reference (loss within rtol 1e-5, the classifier
+    kernel 1e-4 / 1e-6, equal keywords and K2 total, the encoder within
+    2e-4 / 2e-5, identical transcripts), restores the checkpoint (equal
+    bytes) and profiles 32 beam-5 decode steps with ``runtime/profiler.py``
+    (the busy share, within 1 % of ``key_averages()``); it prints gloo's
+    reduce time per TP decode step.  The kernel line's
+    ``scale_out_launches`` count the world of 2's launches.  More than one
+    rank on the one card is a correctness run, not a scaling figure;
 C.  times K1 and K2 and their plain versions on the card, each by the
     median of CUDA-event timings of CUDA-graph replays (device time
     without host gaps) and of eager calls: K1 at [1, 480000], [8, 480000]
@@ -2664,9 +2683,10 @@ def phase_h2(device) -> None:
     """paper-1 training at full width from files through ``run_cli(["fit",
     ...])`` on configs/train.yaml (the 12-channel ResNet-50 at 150x750,
     batch 20, large heads): the host collator (one epoch of two batches),
-    device_features (two epochs of ten batches), adversarial training with
-    8 x 20 accumulated examples a step (two steps) and one DANNCE step,
-    then a resume from the written checkpoint and ``test`` on it."""
+    device_features (two epochs of two batches; ten before phase Q took
+    the time), bf16 (two batches), adversarial training with 8 x 20
+    accumulated examples a step (one step) and one DANNCE step, then a
+    resume from the written checkpoint (one batch) and ``test`` on it."""
     import shutil
 
     from enhance_cb_whisper_tpu_torch.cli import run_cli
@@ -2690,20 +2710,21 @@ def phase_h2(device) -> None:
         _step_breakdown("phase H2 host collator", rec)
         _moved("phase H2 host collator", state, rec, PHASE_H_DIR / "host" / "checkpoints")
         state, rec = _h_fit("phase H2 device_features", device,
-                            _h_argv(main_root, "device", "--data.init_args.device_features", "true"))
+                            _h_argv(main_root, "device", "--data.init_args.device_features", "true",
+                                    "--trainer.limit_train_batches", "2"))
         _step_breakdown("phase H2 device_features", rec)
         _moved("phase H2 device_features", state, rec, PHASE_H_DIR / "device" / "checkpoints")
         # the bf16 lever (bf16 activations and convolutions, f32 weights)
         state, rec = _h_fit("phase H2 device_features bf16", device,
                             _h_argv(main_root, "bf16", "--data.init_args.device_features", "true",
                                     "--model.init_args.compute_dtype", "bfloat16",
-                                    "--trainer.max_epochs", "1", "--trainer.limit_train_batches", "4"))
+                                    "--trainer.max_epochs", "1", "--trainer.limit_train_batches", "2"))
         _step_breakdown("phase H2 device_features bf16", rec, peak_rate=BF16_RATE)
         adv = ("--model.init_args.adversarial_training", "true", "--data.init_args.device_features",
                "true", "--trainer.max_epochs", "1")
         state, rec = _h_fit("phase H2 adversarial", device,
                             _h_argv(short_root, "adversarial", *adv,
-                                    "--trainer.limit_train_batches", "2"))
+                                    "--trainer.limit_train_batches", "1"))
         _step_breakdown("phase H2 adversarial", rec)
         _moved("phase H2 adversarial", state, rec, PHASE_H_DIR / "adversarial" / "checkpoints")
         state, rec = _h_fit("phase H2 DANNCE", device,
@@ -2713,7 +2734,7 @@ def phase_h2(device) -> None:
         final = PHASE_H_DIR / "device" / "checkpoints" / "final"
         state, rec = _h_fit("phase H2 resume", device,
                             _h_argv(main_root, "device", "--data.init_args.device_features", "true",
-                                    "--trainer.max_epochs", "3", "--trainer.limit_train_batches", "2",
+                                    "--trainer.max_epochs", "3", "--trainer.limit_train_batches", "1",
                                     "--ckpt_path", str(final)))
         if state.epoch != 2:
             raise RuntimeError(f"phase H2 resume: trained epoch {state.epoch}, expected 2")
@@ -4025,6 +4046,488 @@ def phase_p(device) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase Q: scale-out
+
+PHASE_Q_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke" / "phase_q"
+Q_TIMEOUT = 600.0  # seconds for one launch of ranks; a hung rank fails the run
+Q_DP_BATCH = 20  # configs/train.yaml's batch
+Q_WINDOW = (32, 48)  # the profiled decode steps of the 1-rank beam-5 decode of phase B's 5.5 s utterance
+# decode cap of phase Q's TP longform runs: two ranks time-share the one card
+# and every row-parallel linear's sum crosses the host (1.4 ms a gloo call,
+# ~76 a step: ~350 ms a TP step against ~33 ms on one rank), so phase Q
+# decodes a fifth of MEDIUM_DECODE's depth
+Q_DECODE = 24
+Q_THREADS = 4  # torch threads of a phase Q rank (its CPU-side init), of the machine's 8 cores
+
+
+def _q_train_config():
+    """configs/train.yaml's paper-1 step (large heads, plain CE; no
+    adversary, so one minibatch)."""
+    from enhance_cb_whisper_tpu_torch.train import kws_train as kt
+
+    return kt.KWSTrainConfig(large_heads=True, num_domains=2, learning_rate=5e-5, features_lr=5e-5,
+                             classifier_lr=5e-5, discriminator_lr=5e-5, lr_step=7, beta_2=0.99)
+
+
+def _q_batch(device):
+    """The global batch of 20 12-layer 150x750 similarity maps (seeded)."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 60)
+    return {"features": torch.from_numpy(rng.standard_normal((Q_DP_BATCH, 12, *KWS_SIZE), dtype=np.float32)
+                                         ).to(device),
+            "labels": torch.from_numpy(rng.integers(0, 2, Q_DP_BATCH)).to(device),
+            "domain": torch.from_numpy(rng.integers(0, 2, Q_DP_BATCH)).to(device)}
+
+
+def _q_digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _q_flat_moments(state):
+    """Adam's first moments, flattened in parameter order and padded to an
+    even length (the sharded leaf of the checkpoint)."""
+    import torch
+
+    opt = state.optimizer
+    flat = torch.cat([opt.state[p]["exp_avg"].flatten() for g in opt.param_groups for p in g["params"]])
+    return torch.cat([flat, flat.new_zeros(flat.numel() % 2)])
+
+
+def _q_dp(device, mesh):
+    """One train step of the 12-channel ResNet-50 at 150x750 on the global
+    batch of 20: data-parallel over ``mesh``'s ``data`` ranks, or one rank's
+    step without a mesh.  Returns (state, metrics, ms)."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
+    from enhance_cb_whisper_tpu_torch.parallel.sharding import make_sharded_train_step
+    from enhance_cb_whisper_tpu_torch.train import kws_train as kt
+
+    config = _q_train_config()
+    state = kt.init_train_state(config, ResNetConfig.from_version("resnet-50", num_channels=12),
+                                seed=SEED, device=device)
+    step = kt.make_train_step(config, state) if mesh is None else make_sharded_train_step(config, state, mesh)
+    batch = _q_batch(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = step(batch, kt.StepNoise(SEED, device=device), 0.0, 0.0)
+    torch.cuda.synchronize()
+    return state, {k: float(v) for k, v in metrics.items()}, (time.perf_counter() - t0) * 1e3
+
+
+def _q_cb(device, params, kws_state, stacks, positions=Q_DECODE):
+    """Phase B's pipeline (whisper-medium, the ResNet-50 scorer, the
+    100-keyword catalog, beam 5 capped at ``positions``) on ``params``."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.catalog.database import KeywordCatalog
+    from enhance_cb_whisper_tpu_torch.decoding.generate import GenerationOptions
+    from enhance_cb_whisper_tpu_torch.models.cb_whisper import CBWhisper, CBWhisperConfig
+    from enhance_cb_whisper_tpu_torch.models.kws import KWSModel
+    from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
+    from enhance_cb_whisper_tpu_torch.models.whisper import WhisperConfig
+
+    kws = KWSModel(ResNetConfig.from_version("resnet-50", num_channels=12)).load_converted(
+        {k: torch.as_tensor(v) for k, v in kws_state.items()})
+    opts = GenerationOptions(
+        num_beams=5, return_timestamps=True, condition_on_prev_tokens=True,
+        language_token_id=50259, task_token_id=50359, begin_suppress_tokens=(220, 50257),
+        max_target_positions=positions,
+    )
+    return CBWhisper(
+        config=CBWhisperConfig(), whisper_config=WhisperConfig(), whisper_params=params, kws_model=kws,
+        catalog=KeywordCatalog.from_arrays([f"kw{i}" for i in range(N_KW)], stacks),
+        generation_options=opts,
+        prompt_ids_fn=lambda text: [50361] + [100 + (ord(c) % 1000) for c in text][:8],
+        decode_fn=lambda toks: " ".join(map(str, toks)),
+        kws_layer_slice=(10, 22), device=device,
+    )
+
+
+def _q_features(device, audio):
+    """Each utterance's mels through K1, and its attention mask."""
+    from enhance_cb_whisper_tpu_torch.audio.io import prepare_features
+
+    return [prepare_features(a, n_mels=80, device=device) for a in audio]
+
+
+def _q_spot(cb, feats, mesh):
+    """int8 spotting (stages 1-3 on K2, calibrated on the first window)
+    over each utterance's first window, the catalog sharded over ``mesh``'s
+    ``model`` ranks or whole; returns (keywords, K2 launches)."""
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda
+    from enhance_cb_whisper_tpu_torch.parallel.sharding import shard_catalog
+
+    cb._ensure_catalog()
+    if mesh is not None:
+        cb._catalog_dev = shard_catalog(cb._catalog_dev, mesh)
+    cb.enable_int8_spotting(calibration_batches=1, s8_1x1=S8_STAGES)
+    before = matmul_s8_cuda.launches
+    keywords = [cb.spot_keywords(cb.generator._pad_segment(f[:, :, :3000]))[0] for f, _ in feats]
+    return keywords, matmul_s8_cuda.launches - before
+
+
+@contextlib.contextmanager
+def _q_counted_reduces():
+    """The number of ``all_reduce`` calls in the block."""
+    import torch.distributed as dist
+
+    real = dist.all_reduce
+    rec = {"calls": 0}
+
+    def counted(*args, **kwargs):
+        rec["calls"] += 1
+        return real(*args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        yield rec
+    finally:
+        dist.all_reduce = real
+
+
+def _q_reduce_ms(device, group, calls: int = 200) -> float:
+    """ms per gloo ``all_reduce`` of a beam-5 decode step's [5, 1, 1024]
+    f32 activation over ``group`` (every rank of it calls this), from
+    device to device: what each row-parallel linear of a TP decode step
+    pays on top of its GEMM."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.randn(5, 1, 1024, device=device)
+    for _ in range(10):
+        dist.all_reduce(x, group=group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        dist.all_reduce(x, group=group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def _q_decode(cb, feats):
+    """Each utterance through ``CBWhisper.forward`` (spotting, prompt, beam
+    search, seek): (texts, decode steps, seconds)."""
+    import torch
+
+    steps = {"n": 0}
+    step = cb.generator._decode_step
+
+    def counted(*args, **kwargs):
+        steps["n"] += 1
+        return step(*args, **kwargs)
+
+    cb.generator._decode_step = counted
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts = [cb.forward(f, attention_mask=m) for f, m in feats]
+    torch.cuda.synchronize()
+    cb.generator._decode_step = step
+    return texts, steps["n"], time.perf_counter() - t0
+
+
+def _q_mesh_rank(params, kws_state, stacks, audio, ckpt_dir):
+    """A rank of the world of 2 (gloo, both on cuda:0): the data-parallel
+    step (data=2), then at model=2 the sharded int8 catalog, the TP encoder
+    and the TP longform decode; saves the step's state sharded."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from enhance_cb_whisper_tpu_torch.models.whisper import WhisperConfig, encoder_forward
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, mel_cuda
+    from enhance_cb_whisper_tpu_torch.parallel.mesh import make_mesh, rank_device
+    from enhance_cb_whisper_tpu_torch.parallel.sharding import shard_catalog, whisper_param_sharding
+    from enhance_cb_whisper_tpu_torch.runtime.sharded_checkpoint import save_sharded
+
+    device = rank_device()
+    torch.set_num_threads(Q_THREADS)
+    mel_cuda.launches = matmul_s8_cuda.launches = 0
+    rank = dist.get_rank()
+    out = {"rank": rank, "device": str(device)}
+    t0 = time.perf_counter()
+    marks = out["marks"] = {}
+    dp_mesh = make_mesh({"data": 2, "model": 1})
+    state, out["dp_metrics"], out["dp_ms"] = _q_dp(device, dp_mesh)
+    out["dp_kernel"] = state.kws.model.classifier.weight.detach().cpu().numpy()
+    out["dp_digest"] = _q_digest(state.kws.state_dict().values())
+    flat = _q_flat_moments(state)
+    half = flat.numel() // 2
+    moments = DTensor.from_local(flat[rank * half:(rank + 1) * half], dp_mesh["data"], [Shard(0)],
+                                 run_check=False)
+    t1 = time.perf_counter()
+    save_sharded(ckpt_dir, {"kws": dict(state.kws.state_dict()), "exp_avg": moments, "step": 1})
+    out["save_s"] = time.perf_counter() - t1
+    out["moments_digest"] = _q_digest([flat])
+    del state, flat, moments
+    torch.cuda.empty_cache()
+    marks["dp_and_save"] = time.perf_counter() - t0
+
+    tp_mesh = make_mesh({"data": 1, "model": 2})
+    feats = _q_features(device, audio)
+    out["keywords"], out["k2_spot"] = _q_spot(_q_cb(device, params, kws_state, stacks), feats, tp_mesh)
+    marks["spot"] = time.perf_counter() - t0 - sum(marks.values())
+
+    config = WhisperConfig()
+    params_tp = whisper_param_sharding(params, tp_mesh, config)
+    seg = feats[2][0][:, :, :3000]
+    with torch.no_grad():
+        out["encoder"] = encoder_forward(params_tp, seg, config)[0].cpu().numpy()
+    marks["encoder"] = time.perf_counter() - t0 - sum(marks.values())
+
+    cb = _q_cb(device, params, kws_state, stacks)
+    cb._ensure_catalog()
+    cb._catalog_dev = shard_catalog(cb._catalog_dev, tp_mesh)
+    cb.generator.params = cb.encoder_params = params_tp
+    with _q_counted_reduces() as rec:
+        out["texts"], out["steps"], out["decode_s"] = _q_decode(cb, feats)
+    out["reduce_calls"] = rec["calls"]
+    marks["decode"] = time.perf_counter() - t0 - sum(marks.values())
+    out["reduce_ms"] = _q_reduce_ms(device, tp_mesh.get_group("model"))
+    out["launches"] = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _q_window(cb, feat, mask, prof_dir=None):
+    """Decode one utterance, timing steps ``Q_WINDOW`` (synchronised at
+    both ends) and, with ``prof_dir``, tracing them
+    (``runtime/profiler.py:trace``); returns (wall s, profile or None)."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.runtime.profiler import trace
+
+    window = {"step": 0, "t0": None, "t1": None, "prof": None}
+    stack = contextlib.ExitStack()
+    step = cb.generator._decode_step
+
+    class WindowDone(Exception):
+        """Ends the decode after the window: its later steps time nothing."""
+
+    def windowed(*args, **kwargs):
+        if window["step"] == Q_WINDOW[0]:
+            torch.cuda.synchronize()
+            if prof_dir is not None:
+                window["prof"] = stack.enter_context(trace(prof_dir))
+            window["t0"] = time.perf_counter()
+        result = step(*args, **kwargs)
+        window["step"] += 1
+        if window["step"] == Q_WINDOW[1]:
+            torch.cuda.synchronize()
+            window["t1"] = time.perf_counter()
+            stack.close()
+            raise WindowDone
+        return result
+
+    cb.generator._decode_step = windowed
+    try:
+        cb.forward(feat, attention_mask=mask)
+    except WindowDone:
+        pass
+    finally:
+        cb.generator._decode_step = step
+        stack.close()
+    if window["t1"] is None:
+        raise RuntimeError(f"phase Q: the decode took {window['step']} steps, fewer than {Q_WINDOW[1]}")
+    return window["t1"] - window["t0"], window["prof"]
+
+
+def _q_ref_rank(params, kws_state, stacks, audio, ckpt_dir):
+    """The world of 1 (NCCL): every reference of the mesh rank's checks on
+    one rank, the TP encoder over a 1-rank model group (NCCL's reduce), the
+    2-rank checkpoint restored, and a profiled window of beam-5 decode
+    steps beside the same steps unprofiled."""
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from enhance_cb_whisper_tpu_torch.models.whisper import WhisperConfig, encoder_forward
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, mel_cuda
+    from enhance_cb_whisper_tpu_torch.parallel.mesh import make_mesh, rank_device
+    from enhance_cb_whisper_tpu_torch.parallel.sharding import whisper_param_sharding
+    from enhance_cb_whisper_tpu_torch.runtime.profiler import device_op_breakdown
+    from enhance_cb_whisper_tpu_torch.runtime.sharded_checkpoint import restore_sharded
+
+    device = rank_device()
+    torch.set_num_threads(Q_THREADS)
+    mel_cuda.launches = matmul_s8_cuda.launches = 0
+    out = {}
+    t0 = time.perf_counter()
+    marks = out["marks"] = {}
+    state, out["dp_metrics"], out["dp_ms"] = _q_dp(device, None)
+    out["dp_kernel"] = state.kws.model.classifier.weight.detach().cpu().numpy()
+    template = {"kws": {k: torch.zeros_like(v) for k, v in state.kws.state_dict().items()},
+                "exp_avg": torch.zeros_like(_q_flat_moments(state)), "step": 0}
+    del state
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    restored = restore_sharded(ckpt_dir, template)
+    out["restore_s"] = time.perf_counter() - t1
+    out["restored_digest"] = _q_digest(restored["kws"].values())
+    out["restored_moments_digest"] = _q_digest([restored["exp_avg"]])
+    out["restored_step"] = restored["step"]
+    del restored, template
+    marks["dp_and_restore"] = time.perf_counter() - t0
+
+    feats = _q_features(device, audio)
+    out["keywords"], out["k2_spot"] = _q_spot(_q_cb(device, params, kws_state, stacks), feats, None)
+    marks["spot"] = time.perf_counter() - t0 - sum(marks.values())
+    config = WhisperConfig()
+    seg = feats[2][0][:, :, :3000]
+    mesh = make_mesh({"data": 1, "model": 1})
+    with torch.no_grad():
+        out["encoder"] = encoder_forward(params, seg, config)[0].cpu().numpy()
+        out["encoder_nccl"] = encoder_forward(whisper_param_sharding(params, mesh, config), seg, config)[0].cpu().numpy()
+    marks["encoder"] = time.perf_counter() - t0 - sum(marks.values())
+
+    out["texts"], out["steps"], out["decode_s"] = _q_decode(_q_cb(device, params, kws_state, stacks), feats)
+    marks["decode"] = time.perf_counter() - t0 - sum(marks.values())
+
+    # steps Q_WINDOW of the 5.5 s utterance's beam-5 decode at MEDIUM_DECODE,
+    # unprofiled, then under the profiler (the same tokens: the decode is
+    # deterministic)
+    cb = _q_cb(device, params, kws_state, stacks, positions=MEDIUM_DECODE)
+    wall, _ = _q_window(cb, *feats[0])
+    log_dir = tempfile.mkdtemp(prefix="phase_q_trace_")
+    t1 = time.perf_counter()
+    prof_wall, prof = _q_window(cb, *feats[0], prof_dir=log_dir)
+    marks["profiled_decode"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    total, ops = device_op_breakdown(log_dir)
+    marks["breakdown"] = time.perf_counter() - t1
+    events = prof.key_averages()
+
+    def self_device_s(kind):
+        return sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+                   for e in events if e.device_type == kind) / 1e6
+
+    out["window"] = {"steps": Q_WINDOW[1] - Q_WINDOW[0], "wall_s": wall, "profiled_wall_s": prof_wall,
+                     "device_s": total, "ops_self_s": self_device_s(DeviceType.CPU),
+                     "device_events_s": self_device_s(DeviceType.CUDA), "ops": ops[:6],
+                     "kernels": sum(o["count"] for o in ops)}
+    marks["profile_rest"] = time.perf_counter() - t0 - sum(marks.values())
+    out["launches"] = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_q(device, cb, stacks, dataset) -> dict:
+    """Phase Q: the scale-out paths on the card through
+    ``parallel/mesh.py:launch``.  A world of 2 ranks on gloo, both on
+    cuda:0 (NCCL refuses two ranks on one device; gloo reduces CUDA
+    tensors and the catalog's gathers stage through pinned host memory):
+    the data-parallel step at data=2 (10 + 10 of the global 20), then at
+    model=2 the int8-sharded 100-keyword catalog, the tensor-parallel
+    whisper-medium encoder (16 heads, 8 a rank) on K1's mels and the TP
+    longform decode of phase B's utterances; its DP state saved sharded.
+    Then a world of 1 on NCCL: every reference, the restore by one rank,
+    and a torch.profiler window of beam-5 decode steps (the busy share).
+    The whisper-medium weights reach the ranks as CUDA IPC handles of
+    phase B's tensors (no copy).  Returns the world of 2's K1 and K2
+    launches (the kernel line's ``scale_out_launches``)."""
+    import shutil
+
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.audio.io import load_audio_16k
+    from enhance_cb_whisper_tpu_torch.parallel.mesh import launch, shutdown
+
+    t0 = time.perf_counter()
+    shutil.rmtree(PHASE_Q_DIR, ignore_errors=True)
+    PHASE_Q_DIR.mkdir(parents=True)
+    audio = [item["audio"] if "audio" in item else load_audio_16k(str(item["path"])) for item in dataset]
+    kws_state = {k: v.detach().cpu().numpy() for k, v in cb.kws_model.state_dict().items()}
+    args = (cb.generator.params, kws_state, [np.asarray(s) for s in stacks], audio, str(PHASE_Q_DIR / "dp_ckpt"))
+    try:
+        t1 = time.perf_counter()
+        mesh = launch(_q_mesh_rank, 2, backend="gloo", device="cuda", timeout=Q_TIMEOUT, args=args)
+        t_mesh = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        ref = launch(_q_ref_rank, 1, backend="nccl", device="cuda", timeout=Q_TIMEOUT, args=args)[0]
+        t_ref = time.perf_counter() - t1
+    finally:
+        shutdown()  # the fork server and its resource tracker: no process outlives the phase
+        shutil.rmtree(PHASE_Q_DIR, ignore_errors=True)
+        torch.cuda.ipc_collect()  # the ranks' handles on phase B's weights
+    a, b = mesh
+
+    def split(marks):
+        return ", ".join(f"{k} {v:.1f}" for k, v in marks.items())
+
+    print(f"phase Q: world of 2 (gloo, {a['device']} and {b['device']}) {t_mesh:.1f} s "
+          f"(rank 0 {a['seconds']:.1f} s inside: {split(a['marks'])}), world of 1 (NCCL) {t_ref:.1f} s "
+          f"({ref['seconds']:.1f} s inside: {split(ref['marks'])})")
+
+    # 1. data parallelism: 2 x 10 = 1 x 20, and the two ranks' states equal
+    loss, want = a["dp_metrics"]["class_loss"], ref["dp_metrics"]["class_loss"]
+    kernel_err = float(np.abs(a["dp_kernel"] - ref["dp_kernel"]).max())
+    print(f"phase Q DP: class_loss {loss!r} at data=2 vs {want!r} on one rank; classifier kernel "
+          f"max diff {kernel_err!r}; the first step {a['dp_ms']:.1f} ms (2 ranks x {Q_DP_BATCH // 2} on one "
+          f"card, warm-up included) vs {ref['dp_ms']:.1f} ms (1 x {Q_DP_BATCH})")
+    np.testing.assert_allclose(loss, want, rtol=1e-5)
+    np.testing.assert_allclose(a["dp_kernel"], ref["dp_kernel"], rtol=1e-4, atol=1e-6)
+    if a["dp_digest"] != b["dp_digest"]:
+        raise RuntimeError("phase Q DP: the two ranks' states differ after the step")
+    # 5. the checkpoint: saved by 2 ranks, restored by 1, equal
+    if (ref["restored_digest"], ref["restored_moments_digest"], ref["restored_step"]) != (
+            a["dp_digest"], a["moments_digest"], 1):
+        raise RuntimeError("phase Q checkpoint: the restored state differs from the saved one")
+    print(f"phase Q checkpoint: ResNet-50 state + Adam's moments sharded over data saved by 2 ranks in "
+          f"{max(a['save_s'], b['save_s']):.2f} s, restored whole by 1 in {ref['restore_s']:.2f} s: equal")
+
+    # 2. the int8 catalog at model=2: the same keywords, K2 split between the ranks
+    if a["keywords"] != ref["keywords"] or b["keywords"] != ref["keywords"]:
+        raise RuntimeError(f"phase Q catalog: keywords {a['keywords']} / {b['keywords']} vs {ref['keywords']}")
+    if a["k2_spot"] + b["k2_spot"] != ref["k2_spot"] or not a["k2_spot"] or not b["k2_spot"]:
+        raise RuntimeError(f"phase Q catalog: K2 {a['k2_spot']} + {b['k2_spot']} vs {ref['k2_spot']} on one rank")
+    print(f"phase Q catalog (kws_int8, model=2): keywords equal ({[len(k) for k in ref['keywords']]} a window); "
+          f"K2 {a['k2_spot']} + {b['k2_spot']} launches = {ref['k2_spot']} on one rank")
+
+    # 3. the TP encoder
+    for name, got in (("model=2 (gloo)", a["encoder"]), ("model=1 (NCCL)", ref["encoder_nccl"])):
+        err = float(np.abs(got - ref["encoder"]).max())
+        print(f"phase Q TP encoder {name}: max abs diff {err!r} from the unsharded encoder")
+        np.testing.assert_allclose(got, ref["encoder"], rtol=2e-4, atol=2e-5)
+    np.testing.assert_array_equal(a["encoder"], b["encoder"])
+
+    # 4. the TP longform decode: token-identical, every rank the same
+    if a["texts"] != ref["texts"] or b["texts"] != ref["texts"]:
+        raise RuntimeError("phase Q TP decode: transcripts differ from the 1-rank decode")
+    per_step = a["reduce_calls"] / a["steps"]
+    print(f"phase Q TP decode ({Q_DECODE} positions): {len(ref['texts'])} utterances token-identical; "
+          f"{a['steps']} decode steps in {a['decode_s']:.2f} s ({a['decode_s'] / a['steps'] * 1e3:.1f} ms a step) "
+          f"vs 1 rank {ref['steps']} in {ref['decode_s']:.2f} s ({ref['decode_s'] / ref['steps'] * 1e3:.1f} ms); "
+          f"{a['reduce_calls']} all_reduce calls ({per_step:.1f} a step, the encoder's included) at "
+          f"{a['reduce_ms']:.3f} ms a gloo call on [5, 1, 1024] f32: {per_step * a['reduce_ms']:.1f} ms a step")
+
+    # 6. the profiled window
+    w = ref["window"]
+    busy = w["device_s"] / w["wall_s"]
+    agree = abs(w["device_s"] - w["ops_self_s"]) / w["ops_self_s"]
+    print(f"phase Q profile: {w['steps']} beam-5 decode steps of whisper-medium (1 rank, {MEDIUM_DECODE} "
+          f"positions): {w['wall_s'] * 1e3:.1f} ms unprofiled ({w['profiled_wall_s'] * 1e3:.1f} ms profiled), "
+          f"device {w['device_s'] * 1e3:.1f} ms in {w['kernels']} kernels and copies: busy {busy:.1%}, idle "
+          f"{1 - busy:.1%} of the unprofiled wall; key_averages: the ops' self CUDA time "
+          f"{w['ops_self_s'] * 1e3:.1f} ms ({agree:.2%} apart), the device events' {w['device_events_s'] * 1e3:.1f} ms; "
+          f"top {[(o['name'][:40], o['seconds'], o['count']) for o in w['ops'][:4]]}")
+    if agree > 0.01:
+        raise RuntimeError(f"phase Q profile: device_op_breakdown and key_averages disagree by {agree:.2%}")
+
+    launches = {k: a["launches"][k] + b["launches"][k] for k in ("mel", "k2")}
+    if not launches["mel"] or not launches["k2"]:
+        raise RuntimeError(f"phase Q: the ranks launched K1/K2 {launches}")
+    print(f"phase Q: {time.perf_counter() - t0:.1f} s; the world of 2's launches {launches} "
+          f"(per rank {a['launches']} and {b['launches']}; the world of 1 {ref['launches']})")
+    return launches
+
+
 def _median_ms(fn, reps: int = 25) -> float:
     import torch
 
@@ -4260,7 +4763,7 @@ def main(argv) -> int:
     import torch
 
     if argv not in ([], ["--k1"], ["--serving"], ["--levers"], ["--train"], ["--paper2"],
-                    ["--paper2-train"], ["--pipeline"]):
+                    ["--paper2-train"], ["--pipeline"], ["--scale-out"]):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4321,6 +4824,17 @@ def main(argv) -> int:
         print(f"chip_smoke --serving: passed in {time.perf_counter() - t_start:.1f} s")
         print(_card())
         return 0
+    if argv == ["--scale-out"]:  # phase Q alone, on phase B's model and utterances
+        cb, _, _, kws, stacks = _medium_pipeline(device)
+        _unzero_residual_bn(kws)
+        dataset = _slice_dataset()
+        from enhance_cb_whisper_tpu_torch.audio.io import prepare_features
+
+        _centre_class1(cb, cb.generator._pad_segment(prepare_features(dataset[0]["audio"], device=device)[0]))
+        phase_q(device, cb, stacks, dataset)
+        print(f"chip_smoke --scale-out: passed in {time.perf_counter() - t_start:.1f} s")
+        print(_card())
+        return 0
     if argv == ["--levers"]:  # phase A2 and the serving levers' phase G alone
         phase_a2(device, shapes)
         phase_g1(device)
@@ -4343,6 +4857,7 @@ def main(argv) -> int:
     phase_b_longform_reference(device)
     fp32_launches, int8_launches, cb, dataset, stacks = phase_b_slice(device, shapes)
     phase_d(device, cb.kws_model, stacks, shapes)
+    scale_out_launches = phase_q(device, cb, stacks, dataset)
     cli_launches = phase_e(cb.whisper_config, cb.generator.params, cb.kws_model, stacks, shapes)
     phase_f1(device)
     packed_launches = phase_f2(device, cb, dataset, shapes)
@@ -4368,13 +4883,14 @@ def main(argv) -> int:
          "packed_launches": packed_launches["mel"], "levers_launches": levers_launches["mel"],
          "train_launches": train_launches["mel"], "paper2_launches": paper2_launches["mel"],
          "paper2_train_launches": paper2_train_launches["mel"], "pipeline_launches": pipeline_launches["mel"],
-         "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+         "scale_out_launches": scale_out_launches["mel"], "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": k1["ms"], "bound_by": k1["by"], "library_ms": None},
         {"name": "matmul_s8_requant", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
          "launches": int8_launches["k2"], "cli_launches": cli_launches["k2"],
          "packed_launches": packed_launches["k2"], "levers_launches": levers_launches["k2"],
          "train_launches": train_launches["k2"], "paper2_launches": paper2_launches["k2"],
-         "paper2_train_launches": paper2_train_launches["k2"], "max_abs_err": k2_err, "mismatches": mismatches,
+         "paper2_train_launches": paper2_train_launches["k2"], "scale_out_launches": scale_out_launches["k2"],
+         "max_abs_err": k2_err, "mismatches": mismatches,
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
     ]}))

@@ -177,7 +177,10 @@ def make_catalog_score_fn(
     height-resize the keyword stacks with their per-keyword matrices (or,
     when T_k_max < out_h, contract D first at the native keyword length —
     the resize is linear, so both orders give the same map), cosine-
-    similarity einsum → [chunk, L, out_h, out_w], ResNet, softmax."""
+    similarity einsum → [chunk, L, out_h, out_w], ResNet, softmax.  A
+    catalog sharded over the mesh's ``model`` ranks
+    (:func:`..parallel.sharding.shard_catalog`) is scored rank by rank
+    and its rows gathered, so every rank returns the whole ``[N_pad]``."""
     out_h, _ = out_size
 
     def score(catalog_dev, utt_stack, utt_w):
@@ -196,6 +199,12 @@ def make_catalog_score_fn(
             chunk_logits = kws_apply(sim)
             probs.append(torch.softmax(chunk_logits, dim=-1)[:, 1])
             logits.append(chunk_logits)
-        return torch.cat(probs) * catalog_dev["mask"], torch.cat(logits)
+        probs, logits = torch.cat(probs) * catalog_dev["mask"], torch.cat(logits)
+        if "shard" in catalog_dev:
+            # a model-sharded catalog (parallel/sharding.py:shard_catalog):
+            # this rank scored its rows; every rank gets all of them
+            shard = catalog_dev["shard"]
+            probs, logits = shard.gather(probs), shard.gather(logits)
+        return probs, logits
 
     return score

@@ -59,6 +59,7 @@ import torch.nn.functional as F
 from ..models.whisper import (
     WhisperConfig,
     decoder_forward,
+    decoder_heads,
     encoder_forward,
     init_cache,
     precompute_cross_kv,
@@ -314,7 +315,8 @@ class WhisperGenerator:
         prefill would give a row other bits beside other segments."""
         cache = init_cache(self.config, prompt.shape[0], max_length, self.device,
                            dtype=self.dtype, kv_int8=self._kv_cache_int8,
-                           staging_window=self._kv_staging)
+                           staging_window=self._kv_staging,
+                           num_heads=decoder_heads(self.params, self.config))
         logits = self._by_segment(prompt, cache, ctx, prefill=True)
         cache["index"] = prompt.shape[1] - 1
         if "base" in cache:

@@ -24,8 +24,11 @@ convolutions of the stages in ``s8_1x1`` on the fused kernel K2.  The
 projection and the similarity stay float either way.  Each entry point
 holds :func:`..runtime.precision.reference_precision` when the model is on
 the card, so its fp32 products run at full FP32 as the JAX package's
-``precision="highest"`` ones do.  Sharding a catalog
-over several cards is ROADMAP.md §1 item 8.
+``precision="highest"`` ones do.  A catalog whose rows are sharded over
+the mesh's ``model`` ranks (:func:`..parallel.sharding.shard_catalog`) is
+scored rank by rank: the full scorer gathers its rows' probabilities; the
+cascade gathers the proxy, takes the same shortlist on every rank, scores
+the shortlisted rows each rank holds and gathers the result.
 """
 
 from __future__ import annotations
@@ -95,10 +98,18 @@ def _make_chunk_classifier(model: EfficientKWSModel, quantized_params=None, act_
 
 
 def _chunked_probs(chunk_logits, kwd, kwd_mask, chunk: int) -> torch.Tensor:
+    if kwd.shape[0] == 0:
+        return kwd.new_zeros((0,), dtype=torch.float32)
     return torch.cat([
         torch.softmax(chunk_logits(kwd[i:i + chunk], kwd_mask[i:i + chunk]), -1)[:, 1]
         for i in range(0, kwd.shape[0], chunk)
     ])
+
+
+def _gathered(catalog, x: torch.Tensor) -> torch.Tensor:
+    """``x`` over this rank's catalog rows → over all rows (a sharded
+    catalog), or ``x`` itself."""
+    return catalog["shard"].gather(x) if "shard" in catalog else x
 
 
 def _check_rows(catalog, chunk: int) -> int:
@@ -127,7 +138,7 @@ def make_projected_score_fn(model: EfficientKWSModel, chunk: int = 128, quantize
         _check_rows(catalog, chunk)
         utt_p, utt_mask_p = _project_utterance(model, utt, utt_mask)
         probs = _chunked_probs(bind(utt_p, utt_mask_p), catalog["kwd"], catalog["kwd_mask"], chunk)
-        return probs * catalog["mask"]
+        return _gathered(catalog, probs * catalog["mask"])
 
     return score
 
@@ -203,7 +214,9 @@ def make_cascade_score_fn(model: EfficientKWSModel, chunk: int = 128, shortlist:
     @torch.no_grad()
     def score(catalog, utt, utt_mask):
         n_pad = _check_rows(catalog, chunk)
-        assert shortlist <= n_pad, f"shortlist ({shortlist}) exceeds catalog rows ({n_pad})"
+        shard = catalog.get("shard")
+        total = shard.total if shard is not None else n_pad
+        assert shortlist <= total, f"shortlist ({shortlist}) exceeds catalog rows ({total})"
         utt_p, utt_mask_p = _project_utterance(model, utt, utt_mask)
         kwd, kwd_mask = catalog["kwd"], catalog["kwd_mask"]
         if proxy_dtype == "float32":
@@ -214,12 +227,15 @@ def make_cascade_score_fn(model: EfficientKWSModel, chunk: int = 128, shortlist:
             dtype = getattr(torch, proxy_dtype)
             parts = [maxsim_proxy_fast(kwd[i:i + chunk], utt_n, kwd_mask[i:i + chunk], utt_mask_p, dtype)
                      for i in range(0, n_pad, chunk)]
-        proxy = torch.where(catalog["mask"] > 0, torch.cat(parts), float("-inf"))
+        proxy = _gathered(catalog, torch.where(catalog["mask"] > 0, torch.cat(parts), float("-inf")))
         idx = shortlist_rows(proxy, shortlist)
+        if shard is not None:
+            # every rank took the same shortlist; each scores the rows it holds
+            idx = idx[(idx >= shard.lo) & (idx < shard.hi)] - shard.lo
         probs_s = _chunked_probs(bind(utt_p, utt_mask_p), kwd[idx], kwd_mask[idx], chunk)
         probs = torch.zeros(n_pad, dtype=probs_s.dtype, device=probs_s.device)
         probs[idx] = probs_s
-        return probs * catalog["mask"]
+        return _gathered(catalog, probs * catalog["mask"])
 
     return score
 

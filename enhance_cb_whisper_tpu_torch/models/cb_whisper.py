@@ -215,6 +215,9 @@ class CBWhisper:
         scales = calibrate_act_scales(rcfg, qparams, maps)["act_scales"]
         q_apply = make_quantized_kws_apply(rcfg, act_scales=scales, s8_1x1=self._int8_s8_1x1)
         self.kws_qparams = qparams
+        # from the host catalog, whole: a model-sharded device catalog
+        # (parallel/sharding.py) gives every rank the same scales
+        self.kws_act_scales = scales
         self._score_fn = make_catalog_score_fn(
             lambda images: q_apply(qparams, images), out_size=self.config.kws_features_size
         )

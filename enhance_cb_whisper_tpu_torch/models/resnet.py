@@ -39,6 +39,7 @@ import dataclasses
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -72,14 +73,24 @@ class BatchNorm(nn.BatchNorm2d):
     the running variance toward the unbiased one, ``n / (n - 1)`` larger
     (n = batch × H × W).  The running update here is torch's own (one fused
     pass) with that factor taken back out.  ``frozen`` skips the update:
-    a rematerialized block's second forward must not count twice."""
+    a rematerialized block's second forward must not count twice.
+
+    ``group`` (a data-parallel process group, set by the data-parallel
+    train step through :func:`sync_batch_norm`) takes the statistics over
+    the global batch: every rank's per-channel sum and sum of squares are
+    all-reduced (with autograd through the reduce), the variance is flax's
+    ``E[x²] - E[x]²``, and the running update uses the global statistics.
+    Without a group nothing changes."""
 
     frozen = False
+    group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
+        if self.group is not None:
+            return self._forward_synced(x)
         n = x.numel() // x.shape[1]
         # update copies: autograd keeps the statistics it was handed, and a
         # frozen (recomputing) forward must save the same tensors as the first
@@ -93,6 +104,55 @@ class BatchNorm(nn.BatchNorm2d):
                 self.running_mean.copy_(mean)
                 self.running_var.copy_(0.9 * old + added)
         return y
+
+    def _forward_synced(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[1]
+        xf = x.to(torch.float32)
+        local = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                           xf.new_tensor([x.numel() // c])])
+        stats = _AllReduce.apply(local, self.group)
+        n = stats[-1]
+        mean = stats[:c] / n
+        var = torch.clamp_min(stats[c : 2 * c] / n - mean * mean, 0.0)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = (xf - mean[None, :, None, None]) * scale[None, :, None, None] + self.bias[None, :, None, None]
+        if not self.frozen:
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * var)
+        return y.to(x.dtype)
+
+
+class _AllReduce(torch.autograd.Function):
+    """A sum over a process group whose gradient is the sum of the ranks'
+    gradients (every rank's output depends on every rank's input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+@contextlib.contextmanager
+def sync_batch_norm(module: nn.Module, group):
+    """Every :class:`BatchNorm` of ``module`` takes its training statistics
+    over ``group``'s global batch inside the block (``None``: no change)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.group = None
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,13 @@ The serving levers of the JAX package, with its casts one for one:
   out of the attention contractions exactly;
 * the s8 encoder (:func:`quantize_encoder`): s8 x s8 -> s32 products
   (``torch._int_mm``) with calibrated static activation scales.
+
+Tensor parallelism (``parallel/sharding.py:whisper_param_sharding``) hands
+the same functions a rank's share of the params: its heads and MLP units.
+Heads are split by ``head_dim`` (the config's ``d_model / heads``), so a
+projection holds as many as its width; a row-split linear's dict names its
+process group under ``"reduce"`` and :func:`_linear` sums its partial
+products over it before adding the bias once.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..ops.sim import l2_normalize
@@ -124,6 +132,13 @@ def _layer_norm(p: Dict[str, Any], x: torch.Tensor, eps: float = 1e-5) -> torch.
 
 
 def _linear(p: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    if "reduce" in p:
+        # a row-parallel shard (tensor parallelism): this rank's partial
+        # product without the bias, summed over the group, the bias once
+        y = _matmul_f32(x, p["weight"].to(x.dtype).t())
+        dist.all_reduce(y, group=p["reduce"])
+        y = y.to(x.dtype)
+        return y + p["bias"].to(x.dtype) if "bias" in p else y
     if "qweight" in p:
         # weight-only int8: compute-dtype operands, f32 accumulation, then
         # the per-output-channel scale and the bias in f32
@@ -159,9 +174,11 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return (0.5 * xf * erfc).to(x.dtype)
 
 
-def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
-    b, t, d = x.shape
-    return x.reshape(b, t, num_heads, d // num_heads)
+def _split_heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """[B, T, H·Dh] -> [B, T, H, Dh]: as many heads as the projection's
+    width holds (all of them, or a tensor-parallel rank's share)."""
+    b, t, _ = x.shape
+    return x.reshape(b, t, -1, head_dim)
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -242,9 +259,9 @@ def _attention_step(
 def _mha(p: Dict[str, Any], x: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Unmasked self-attention (the encoder's)."""
     head_dim = x.shape[-1] // num_heads
-    q = _split_heads(_linear(p["q_proj"], x), num_heads) * (head_dim**-0.5)
-    k = _split_heads(_linear(p["k_proj"], x), num_heads)
-    v = _split_heads(_linear(p["v_proj"], x), num_heads)
+    q = _split_heads(_linear(p["q_proj"], x), head_dim) * (head_dim**-0.5)
+    k = _split_heads(_linear(p["k_proj"], x), head_dim)
+    v = _split_heads(_linear(p["v_proj"], x), head_dim)
     o = _attention(q, k, v)
     return _linear(p["out_proj"], o.reshape(*o.shape[:2], -1))
 
@@ -458,10 +475,10 @@ def encoder_layer_int8(p: Dict[str, Any], x: torch.Tensor, num_heads: int) -> to
     head_dim = x.shape[-1] // num_heads
     h = _layer_norm(p["self_attn_layer_norm"], x)
     hq = _quantize_act(h, sc["attn_in"])
-    q = _split_heads(_qlinear(p["self_attn"]["q_proj"], hq, sc["attn_in"]).to(x.dtype), num_heads) * (
+    q = _split_heads(_qlinear(p["self_attn"]["q_proj"], hq, sc["attn_in"]).to(x.dtype), head_dim) * (
         head_dim**-0.5)
-    k = _split_heads(_qlinear(p["self_attn"]["k_proj"], hq, sc["attn_in"]).to(x.dtype), num_heads)
-    v = _split_heads(_qlinear(p["self_attn"]["v_proj"], hq, sc["attn_in"]).to(x.dtype), num_heads)
+    k = _split_heads(_qlinear(p["self_attn"]["k_proj"], hq, sc["attn_in"]).to(x.dtype), head_dim)
+    v = _split_heads(_qlinear(p["self_attn"]["v_proj"], hq, sc["attn_in"]).to(x.dtype), head_dim)
     o = _attention(q, k, v)
     o = o.reshape(*o.shape[:2], -1)
     oq = _quantize_act(o, sc["attn_out"])
@@ -480,9 +497,9 @@ def _encoder_layer_record_maxes(p: Dict[str, Any], x: torch.Tensor,
     h = _layer_norm(p["self_attn_layer_norm"], x)
     m_attn_in = h.to(torch.float32).abs().amax()
     head_dim = x.shape[-1] // num_heads
-    q = _split_heads(_linear(p["self_attn"]["q_proj"], h), num_heads) * (head_dim**-0.5)
-    k = _split_heads(_linear(p["self_attn"]["k_proj"], h), num_heads)
-    v = _split_heads(_linear(p["self_attn"]["v_proj"], h), num_heads)
+    q = _split_heads(_linear(p["self_attn"]["q_proj"], h), head_dim) * (head_dim**-0.5)
+    k = _split_heads(_linear(p["self_attn"]["k_proj"], h), head_dim)
+    v = _split_heads(_linear(p["self_attn"]["v_proj"], h), head_dim)
     o = _attention(q, k, v).reshape(*x.shape[:2], -1)
     m_attn_out = o.to(torch.float32).abs().amax()
     x = x + _linear(p["self_attn"]["out_proj"], o)
@@ -634,10 +651,20 @@ def encoder_kws_stack(
 # decoder
 
 
+def decoder_heads(params: Dict[str, Any], config: WhisperConfig) -> int:
+    """The decoder attention heads that ``params`` hold: all of them, or a
+    tensor-parallel rank's share (``parallel/sharding.py``)."""
+    k = params["decoder"]["layers"][0]["self_attn"]["k_proj"]
+    width = (k["weight"] if "weight" in k else k["qweight"]).shape[0]
+    return width // (config.d_model // config.decoder_attention_heads)
+
+
 def init_cache(config: WhisperConfig, batch: int, max_len: int, device: torch.device,
                dtype: torch.dtype = torch.float32, kv_int8: bool = False,
-               staging_window: int = 0) -> Dict[str, Any]:
-    """Per layer ``{"k", "v"}`` [batch, max_len, H, Dh] slabs in ``dtype``;
+               staging_window: int = 0, num_heads: Optional[int] = None) -> Dict[str, Any]:
+    """Per layer ``{"k", "v"}`` [batch, max_len, H, Dh] slabs in ``dtype``
+    (H: ``num_heads``, by default the config's; a tensor-parallel rank
+    holds its share, :func:`decoder_heads`);
     with ``kv_int8`` int8 slabs and f32 ``k_scale``/``v_scale`` [batch,
     max_len] (per-token scales, :func:`_quantize_kv`).
 
@@ -648,7 +675,7 @@ def init_cache(config: WhisperConfig, batch: int, max_len: int, device: torch.de
     and its own token, then writes its K/V into the window; the decode loop
     calls :func:`flush_staging` every W steps."""
     head_dim = config.d_model // config.decoder_attention_heads
-    shape = (batch, max_len, config.decoder_attention_heads, head_dim)
+    shape = (batch, max_len, num_heads or config.decoder_attention_heads, head_dim)
     if staging_window and not kv_int8:
         raise ValueError("staging_window applies to an int8 cache: a float cache's results do not change")
     if staging_window and not 0 < staging_window < max_len:
@@ -710,11 +737,11 @@ def precompute_cross_kv(params: Dict[str, Any], encoder_out: torch.Tensor,
     f32 ``k_scale``/``v_scale`` [B, T_enc].  Each segment is projected on
     its own, so its bits do not depend on the batch (see
     :func:`encoder_forward`)."""
-    h = config.decoder_attention_heads
+    head_dim = config.d_model // config.decoder_attention_heads
     out = []
     for layer in params["decoder"]["layers"]:
         kv = {
-            name: torch.cat([_split_heads(_linear(layer["encoder_attn"][proj], encoder_out[i : i + 1]), h)
+            name: torch.cat([_split_heads(_linear(layer["encoder_attn"][proj], encoder_out[i : i + 1]), head_dim)
                              for i in range(encoder_out.shape[0])])
             for name, proj in (("k", "k_proj"), ("v", "v_proj"))
         }
@@ -782,9 +809,9 @@ def _decoder_layer(
     t = x.shape[1]
 
     h = _layer_norm(p["self_attn_layer_norm"], x)
-    q = _split_heads(_linear(p["self_attn"]["q_proj"], h), num_heads) * (head_dim**-0.5)
-    k = _split_heads(_linear(p["self_attn"]["k_proj"], h), num_heads)
-    v = _split_heads(_linear(p["self_attn"]["v_proj"], h), num_heads)
+    q = _split_heads(_linear(p["self_attn"]["q_proj"], h), head_dim) * (head_dim**-0.5)
+    k = _split_heads(_linear(p["self_attn"]["k_proj"], h), head_dim)
+    v = _split_heads(_linear(p["self_attn"]["v_proj"], h), head_dim)
     if cache_layer is not None and "k_scale" in cache_layer:
         attn = _self_attention_int8(q, k, v, cache_layer, offset, self_mask, step, base)
     else:
@@ -803,7 +830,7 @@ def _decoder_layer(
     # the K/V stay at batch size and the beam rows fold into the query axis
     # (exact — cross attention has no positional structure over queries)
     h = _layer_norm(p["encoder_attn_layer_norm"], x)
-    q = _split_heads(_linear(p["encoder_attn"]["q_proj"], h), num_heads) * (head_dim**-0.5)
+    q = _split_heads(_linear(p["encoder_attn"]["q_proj"], h), head_dim) * (head_dim**-0.5)
     k_c, v_c = cross_kv["k"], cross_kv["v"]
     scales = {"k_scale": cross_kv.get("k_scale"), "v_scale": cross_kv.get("v_scale")}
     if scales["k_scale"] is None:

@@ -37,11 +37,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..convert import flax_entry, from_flax_resnet_variables, to_flax_variables
 from ..models.kws import Discriminator, KWSModel, cross_entropy, entropy_loss
-from ..models.resnet import ResNetConfig
+from ..models.resnet import ResNetConfig, sync_batch_norm
 from ..ops.resize import features_from_hidden_states
 from .optim import make_adam, set_learning_rate, step_lr
 
@@ -355,20 +356,44 @@ def restore_train_state(state: KWSTrainState, tree: Dict[str, Any]) -> None:
         load_adam_tree(state.optimizer, _modules(state), tree["opt_state"])
 
 
-def make_grad_fn(config: KWSTrainConfig, kws: KWSModel, disc: Optional[Discriminator]):
+def _valid_share(local: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+    """The factor that turns a mean over ``local``'s valid labels into its
+    part of the mean over ``whole``'s (:func:`..models.kws.cross_entropy`
+    divides by the valid count, at least 1)."""
+    def count(labels):
+        return (labels != -100).sum().clamp(min=1).to(torch.float32)
+
+    return count(local) / count(whole)
+
+
+def make_grad_fn(config: KWSTrainConfig, kws: KWSModel, disc: Optional[Discriminator],
+                 data_group=None):
     """The backward half of a step.
 
     Returns ``grads(batch, noise, beta, suppression) -> (metric_sums,
     n_examples)``: ``batch`` is a dict of tensors on the models' device;
     the gradients are *summed* over the minibatches into each parameter's
     ``.grad`` (which the caller zeroes), the BatchNorm running statistics
-    move minibatch by minibatch, and ``metric_sums`` holds 0-d tensors."""
+    move minibatch by minibatch, and ``metric_sums`` holds 0-d tensors.
+
+    With ``data_group`` (data parallelism over its ranks) ``batch`` is the
+    global batch on every rank and the noise is drawn for it.  Each rank
+    takes its contiguous share of every minibatch (rows ``i·mb + r·s`` to
+    ``i·mb + (r+1)·s``, ``s = mb / ranks``), scales each loss to its part
+    of the global minibatch's mean, and returns the metric sums reduced
+    over the group; the BatchNorm statistics are the global batch's
+    (:func:`..models.resnet.sync_batch_norm`).  The gradients stay the
+    rank's own part: the caller sums them over the group."""
 
     n_mb = config.accumulate_grad_batches if config.adversarial_training else 1
+    world = dist.get_world_size(data_group) if data_group is not None else 1
+    rank = dist.get_rank(data_group) if data_group is not None else 0
 
-    def dannce_update(x, d_labels, keep, beta):
+    def dannce_update(x, d_labels, keep, beta, shares=None):
         """Rewrite the inputs ``keep`` marks by an inner Adam maximizing
-        the discriminator's loss, anchored to the class distribution."""
+        the discriminator's loss, anchored to the class distribution.
+        ``shares`` scale a rank's local means to its part of the global
+        minibatch's (data parallelism); the rows stay independent."""
         kws.eval()  # the running statistics, and no update of them
         try:
             with torch.no_grad():
@@ -383,6 +408,8 @@ def make_grad_fn(config: KWSTrainConfig, kws: KWSModel, disc: Optional[Discrimin
                 # torch kl_div(input=old_logp, target=new_logp, log_target=True),
                 # reduction 'mean' over all elements
                 kl = torch.mean(torch.exp(new_logp) * (new_logp - old_logp))
+                if shares is not None:
+                    d_loss, kl = d_loss * shares["domain"], kl / world
                 loss = d_loss * config.domain_adversary_weight + config.adv_kl_weight * kl
                 (x_adv.grad,) = torch.autograd.grad(loss, x_adv)
                 inner.step()
@@ -390,22 +417,35 @@ def make_grad_fn(config: KWSTrainConfig, kws: KWSModel, disc: Optional[Discrimin
             kws.train()
         return torch.where(keep[:, None, None, None], x_adv.detach(), x)
 
-    def minibatch_loss(x, c_labels, d_labels, minibatch, noise, beta, suppression):
+    def local_rows(v: torch.Tensor) -> torch.Tensor:
+        """This rank's share of a minibatch's global draw (all of it
+        without data parallelism)."""
+        share = v.shape[0] // world
+        return v[rank * share:(rank + 1) * share]
+
+    def minibatch_loss(x, c_labels, d_labels, minibatch, noise, beta, suppression, shares=None):
         out = kws(x)
         c_loss = cross_entropy(out.logits, c_labels)
+        if shares is not None:
+            c_loss = c_loss * shares["class"]
         loss = c_loss
         metrics = {"class_loss": c_loss.detach()}
         if config.adversarial_training:
             keep = None
             if config.large_heads:
-                keep = noise.dropout_keep(minibatch, x.shape[0], out.features.shape[-1] // 2)
+                keep = noise.dropout_keep(minibatch, x.shape[0] * world, out.features.shape[-1] // 2)
+                keep = tuple(local_rows(k) for k in keep)
             d_logits, d_loss = disc(out.features, d_labels, beta=beta, use_grad_reverse=True,
                                     keep=keep)
+            if shares is not None:
+                d_loss = d_loss * shares["domain"]
             loss = loss + d_loss
             metrics["domain_loss"] = d_loss.detach()
             metrics["disc_correct"] = (d_logits.argmax(-1) == d_labels).sum().to(torch.float32)
         if config.entropy:
             e_loss = entropy_loss(out.logits)
+            if shares is not None:  # a mean over this rank's 1 / world of the rows
+                e_loss = e_loss / world
             if config.early_adversary_supression:
                 e_loss = e_loss * (suppression * config.entropy_weight)
             # without suppression the reference adds the entropy term
@@ -423,6 +463,18 @@ def make_grad_fn(config: KWSTrainConfig, kws: KWSModel, disc: Optional[Discrimin
             sel = 2 * torch.arange(half, device=pick_tts.device) + (~pick_tts).long()
             batch = {k: v[sel] for k, v in batch.items()}
 
+        n_global = batch["labels"].shape[0]
+        mb_global = n_global // n_mb
+        whole = None
+        if world > 1:
+            assert mb_global % world == 0, (
+                f"a minibatch of {mb_global} examples does not divide over {world} ranks")
+            share = mb_global // world
+            whole = {k: batch[k] for k in ("labels", "domain") if k in batch}
+            rows = torch.cat([torch.arange(i * mb_global + rank * share, i * mb_global + (rank + 1) * share)
+                              for i in range(n_mb)])
+            batch = {k: v[rows.to(v.device)] for k, v in batch.items()}
+
         if config.device_features is not None and "utt_hs" in batch:
             feats = features_from_hidden_states(batch["kwd_hs"], batch["utt_hs"], batch["kwd_len"],
                                                 batch["utt_len"], tuple(config.device_features))
@@ -433,11 +485,20 @@ def make_grad_fn(config: KWSTrainConfig, kws: KWSModel, disc: Optional[Discrimin
         if d_labels is None:
             d_labels = torch.zeros_like(c_labels)
         mb = features.shape[0] // n_mb
+        shares = [None] * n_mb
+        if whole is not None:
+            w_domain = whole.get("domain", torch.zeros_like(whole["labels"]))
+            shares = [{"class": _valid_share(c_labels[i * mb:(i + 1) * mb],
+                                             whole["labels"][i * mb_global:(i + 1) * mb_global]),
+                       "domain": _valid_share(d_labels[i * mb:(i + 1) * mb],
+                                              w_domain[i * mb_global:(i + 1) * mb_global])}
+                      for i in range(n_mb)]
 
         if config.dannce and config.adversarial_training:
             features = torch.cat([
                 dannce_update(features[i * mb:(i + 1) * mb], d_labels[i * mb:(i + 1) * mb],
-                              noise.adversarial_mask(i, mb, config.adversarial_examples_ratio), beta)
+                              local_rows(noise.adversarial_mask(i, mb_global, config.adversarial_examples_ratio)),
+                              beta, shares[i])
                 for i in range(n_mb)
             ])
 
@@ -445,32 +506,50 @@ def make_grad_fn(config: KWSTrainConfig, kws: KWSModel, disc: Optional[Discrimin
         for i in range(n_mb):
             rows = slice(i * mb, (i + 1) * mb)
             loss, metrics = minibatch_loss(features[rows], c_labels[rows], d_labels[rows], i,
-                                           noise, beta, suppression)
+                                           noise, beta, suppression, shares[i])
             loss.backward()
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v
-        return sums, features.shape[0]
+        if world > 1:
+            names = sorted(sums)
+            total = torch.stack([sums[k] for k in names])
+            dist.all_reduce(total, group=data_group)
+            sums = dict(zip(names, total.unbind()))
+        return sums, n_global
 
     return accumulate
 
 
-def make_train_step(config: KWSTrainConfig, state: KWSTrainState):
+def make_train_step(config: KWSTrainConfig, state: KWSTrainState, data_group=None):
     """``step(batch, noise, beta, suppression) -> metrics``: gradient
     accumulation (:func:`make_grad_fn`) then the optimizer update.  The
     metrics are 0-d tensors on the device: the losses averaged over the
-    minibatches, ``disc_correct`` over the examples."""
+    minibatches, ``disc_correct`` over the examples.
 
-    accumulate = make_grad_fn(config, state.kws, state.disc)
+    With ``data_group`` the step is data-parallel over its ranks
+    (``parallel/sharding.py:make_sharded_train_step``): each rank passes the
+    global batch and its noise, computes its share, and the gradients are
+    summed over the group once, before the optimizer's update.  Parameters
+    and optimizer state stay replicated: every rank applies the same
+    update to the same values."""
+
+    accumulate = make_grad_fn(config, state.kws, state.disc, data_group)
     n_mb = config.accumulate_grad_batches if config.adversarial_training else 1
     params = [p for group in state.optimizer.param_groups for p in group["params"]]
 
     def step(batch, noise, beta: float, suppression: float) -> Dict[str, torch.Tensor]:
         for p in params:
             p.grad = None
-        sums, n_examples = accumulate(batch, noise, beta, suppression)
+        with sync_batch_norm(state.kws, data_group):
+            sums, n_examples = accumulate(batch, noise, beta, suppression)
         for p in params:  # optax updates every parameter, zero gradients too
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if data_group is not None:  # one reduce of every gradient
+            flat = torch.cat([p.grad.flatten() for p in params])
+            dist.all_reduce(flat, group=data_group)
+            for p, g in zip(params, flat.split([p.numel() for p in params])):
+                p.grad.copy_(g.view_as(p))
         state.optimizer.step()
         return {k: v / (n_examples if k == "disc_correct" else n_mb) for k, v in sums.items()}
 

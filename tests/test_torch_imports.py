@@ -36,7 +36,8 @@ def test_port_imports_no_jax():
     for name in ("train.kws_train", "train.optim", "data.samplers", "data.collators",
                  "runtime.logging", "efficient_kws", "efficient_kws.model", "efficient_kws.catalog",
                  "efficient_kws.data", "efficient_kws.engine", "efficient_kws.torch_compat",
-                 "pipeline"):
+                 "pipeline", "parallel", "parallel.mesh", "parallel.sharding", "parallel.dryrun",
+                 "runtime.sharded_checkpoint", "runtime.profiler"):
         assert f"enhance_cb_whisper_tpu_torch.{name}" in modules, name
     code = (
         "import importlib, sys\n"
@@ -138,3 +139,17 @@ def test_entry_points_default_to_the_card():
                 call()
     # the CPU when the caller asks for it
     assert prepare_features(np.zeros(1600, np.float32), device="cpu")[0].device.type == "cpu"
+
+
+def test_scale_out_entry_points_default_to_the_card():
+    """The ranks of ``launch`` and the dry run sit on the card unless the
+    caller passes ``device="cpu"``; without a card the dry run refuses."""
+    from enhance_cb_whisper_tpu_torch.parallel import dryrun
+    from enhance_cb_whisper_tpu_torch.parallel.mesh import launch
+
+    assert inspect.signature(launch).parameters["device"].default == "cuda"
+    assert inspect.signature(dryrun.main).parameters["device"].default == "cuda"
+    assert dryrun._parse(["2"]).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dryrun.main(1)
