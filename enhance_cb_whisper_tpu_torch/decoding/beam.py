@@ -21,6 +21,10 @@ final prompt token; a staged int8 cache is flushed after every W-th step
 nothing but the cache, which the port skips).  The self-attention cache
 is reordered by beam index each step (``index_select`` over its written
 prefix) instead of the JAX package's ancestry map.
+
+Each step, its stop test included, is an ``ecw.decode.step`` span
+(:mod:`..runtime.profiler`); the stop test's read of the device, the one
+place a step waits for the card, is its child ``ecw.decode.sync``.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from ..models.whisper import flush_staging
+from ..runtime import profiler
 from .logits_process import NEG_INF, LogitsProcessorConfig, apply_logits_processors
 from .topk import exact_top_k
 
@@ -106,69 +111,73 @@ def beam_search(
         return scores / denom
 
     cur_len = prompt_len
-    while cur_len < max_length and not bool(done.all()):
-        last = tokens[:, :, cur_len - 1].reshape(batch * K, 1)
-        logits, cache = decode_fn(last, cache, ctx)
-        logprobs = torch.log_softmax(logits.to(torch.float32), dim=-1)
-        logprobs = apply_logits_processors(
-            processors, logprobs, tokens.reshape(batch * K, max_length), cur_len, prompt_len,
-        ).reshape(batch, K, V)
-        if do_sample:
-            logprobs = logprobs / temperature
-        total = logprobs + running_scores[:, :, None]  # [B, K, V]
-        ranked = total
-        if do_sample:
-            ranked = total + noise(cur_len, (batch, K, V)).to(device, torch.float32)
+    running = cur_len < max_length and not bool(done.all())
+    while running:
+        with profiler.span("ecw.decode.step", rows=batch * K):
+            last = tokens[:, :, cur_len - 1].reshape(batch * K, 1)
+            logits, cache = decode_fn(last, cache, ctx)
+            logprobs = torch.log_softmax(logits.to(torch.float32), dim=-1)
+            logprobs = apply_logits_processors(
+                processors, logprobs, tokens.reshape(batch * K, max_length), cur_len, prompt_len,
+            ).reshape(batch, K, V)
+            if do_sample:
+                logprobs = logprobs / temperature
+            total = logprobs + running_scores[:, :, None]  # [B, K, V]
+            ranked = total
+            if do_sample:
+                ranked = total + noise(cur_len, (batch, K, V)).to(device, torch.float32)
 
-        # per-beam top-2K, then top-2K of the K*2K pool: the global top-2K
-        # of the flattened [K*V] axis with the same (beam-major) tie order
-        per_ranked, per_token = exact_top_k(ranked.reshape(batch * K, V), 2 * K)
-        pool_ranked = per_ranked.reshape(batch, K * 2 * K)
-        pool_token = per_token.reshape(batch, K * 2 * K)
-        cand_scores, pool_sel = exact_top_k(pool_ranked, 2 * K)  # [B, 2K]
-        cand_beam = pool_sel // (2 * K)
-        cand_token = torch.gather(pool_token, 1, pool_sel)
-        if do_sample:
-            pool_scores = torch.gather(total.reshape(batch * K, V), 1, per_token).reshape(batch, K * 2 * K)
-            cand_scores = torch.gather(pool_scores, 1, pool_sel)
-        is_eos = cand_token == eos_token_id
+            # per-beam top-2K, then top-2K of the K*2K pool: the global top-2K
+            # of the flattened [K*V] axis with the same (beam-major) tie order
+            per_ranked, per_token = exact_top_k(ranked.reshape(batch * K, V), 2 * K)
+            pool_ranked = per_ranked.reshape(batch, K * 2 * K)
+            pool_token = per_token.reshape(batch, K * 2 * K)
+            cand_scores, pool_sel = exact_top_k(pool_ranked, 2 * K)  # [B, 2K]
+            cand_beam = pool_sel // (2 * K)
+            cand_token = torch.gather(pool_token, 1, pool_sel)
+            if do_sample:
+                pool_scores = torch.gather(total.reshape(batch * K, V), 1, per_token).reshape(batch, K * 2 * K)
+                cand_scores = torch.gather(pool_scores, 1, pool_sel)
+            is_eos = cand_token == eos_token_id
 
-        # retire eos candidates (rank < K) into the finished set
-        gen_len = cur_len + 1 - prompt_len
-        eligible = is_eos & (rank < K) & ~done[:, None]
-        cand_fin_score = torch.where(
-            eligible, normalize(cand_scores, gen_len), torch.full_like(cand_scores, NEG_INF)
-        )
-        cand_sequences = torch.gather(
-            tokens, 1, cand_beam[:, :, None].expand(batch, 2 * K, max_length)
-        ).clone()
-        cand_sequences[:, :, cur_len] = eos_token_id
+            # retire eos candidates (rank < K) into the finished set
+            gen_len = cur_len + 1 - prompt_len
+            eligible = is_eos & (rank < K) & ~done[:, None]
+            cand_fin_score = torch.where(
+                eligible, normalize(cand_scores, gen_len), torch.full_like(cand_scores, NEG_INF)
+            )
+            cand_sequences = torch.gather(
+                tokens, 1, cand_beam[:, :, None].expand(batch, 2 * K, max_length)
+            ).clone()
+            cand_sequences[:, :, cur_len] = eos_token_id
 
-        merged_scores = torch.cat([fin_scores, cand_fin_score], dim=1)  # [B, 3K]
-        merged_tokens = torch.cat([fin_tokens, cand_sequences], dim=1)
-        merged_flags = torch.cat([fin_flags, eligible], dim=1)
-        fin_scores, top_idx = exact_top_k(merged_scores, K)
-        fin_tokens = torch.gather(merged_tokens, 1, top_idx[:, :, None].expand(batch, K, max_length))
-        fin_flags = torch.gather(merged_flags, 1, top_idx)
+            merged_scores = torch.cat([fin_scores, cand_fin_score], dim=1)  # [B, 3K]
+            merged_tokens = torch.cat([fin_tokens, cand_sequences], dim=1)
+            merged_flags = torch.cat([fin_flags, eligible], dim=1)
+            fin_scores, top_idx = exact_top_k(merged_scores, K)
+            fin_tokens = torch.gather(merged_tokens, 1, top_idx[:, :, None].expand(batch, K, max_length))
+            fin_flags = torch.gather(merged_flags, 1, top_idx)
 
-        # the next K running beams: best non-eos candidates in rank order
-        running_eligible = torch.where(is_eos, torch.full_like(cand_scores, NEG_INF), cand_scores)
-        new_running, sel = exact_top_k(running_eligible, K)
-        sel_beam = torch.gather(cand_beam, 1, sel)  # [B, K]
-        sel_token = torch.gather(cand_token, 1, sel)
-        new_tokens = torch.gather(tokens, 1, sel_beam[:, :, None].expand(batch, K, max_length)).clone()
-        new_tokens[:, :, cur_len] = sel_token
-        _gather_beams(cache, (row_base + sel_beam).reshape(-1), cur_len)
-        _flush_full_window(cache)
+            # the next K running beams: best non-eos candidates in rank order
+            running_eligible = torch.where(is_eos, torch.full_like(cand_scores, NEG_INF), cand_scores)
+            new_running, sel = exact_top_k(running_eligible, K)
+            sel_beam = torch.gather(cand_beam, 1, sel)  # [B, K]
+            sel_token = torch.gather(cand_token, 1, sel)
+            new_tokens = torch.gather(tokens, 1, sel_beam[:, :, None].expand(batch, K, max_length)).clone()
+            new_tokens[:, :, cur_len] = sel_token
+            _gather_beams(cache, (row_base + sel_beam).reshape(-1), cur_len)
+            _flush_full_window(cache)
 
-        # frozen batches keep their previous state
-        tokens = torch.where(done[:, None, None], tokens, new_tokens)
-        running_scores = torch.where(done[:, None], running_scores, new_running)
+            # frozen batches keep their previous state
+            tokens = torch.where(done[:, None, None], tokens, new_tokens)
+            running_scores = torch.where(done[:, None], running_scores, new_running)
 
-        best_possible = normalize(running_scores[:, 0], gen_len)
-        worst_finished = fin_scores.amin(dim=1)
-        done = done | ((fin_flags.sum(dim=1) >= K) & (worst_finished >= best_possible))
-        cur_len += 1
+            best_possible = normalize(running_scores[:, 0], gen_len)
+            worst_finished = fin_scores.amin(dim=1)
+            done = done | ((fin_flags.sum(dim=1) >= K) & (worst_finished >= best_possible))
+            cur_len += 1
+            with profiler.span("ecw.decode.sync"):
+                running = cur_len < max_length and not bool(done.all())
 
     # finalize: running beams retire through the same normalization and
     # compete with the finished hypotheses; done batches keep finished only
@@ -217,21 +226,25 @@ def greedy_search(
     finished = torch.zeros((batch,), dtype=torch.bool, device=device)
 
     cur_len = prompt_len
-    while cur_len < max_length and not bool(finished.all()):
-        logits, cache = decode_fn(tokens[:, cur_len - 1 : cur_len], cache, ctx)
-        _flush_full_window(cache)
-        processed = apply_logits_processors(
-            processors, logits.to(torch.float32), tokens, cur_len, prompt_len
-        )
-        if do_sample:
-            gumbel = noise(cur_len, tuple(processed.shape)).to(device, torch.float32)
-            next_tok = torch.argmax(processed / temperature + gumbel, dim=-1)
-        else:
-            next_tok = torch.argmax(processed, dim=-1)
-        tok_lp = torch.gather(torch.log_softmax(processed, dim=-1), 1, next_tok[:, None])[:, 0]
-        next_tok = torch.where(finished, torch.full_like(next_tok, pad_token_id), next_tok)
-        sum_lp = sum_lp + torch.where(finished, torch.zeros_like(tok_lp), tok_lp)
-        tokens[:, cur_len] = next_tok
-        finished = finished | (next_tok == eos_token_id)
-        cur_len += 1
+    running = cur_len < max_length and not bool(finished.all())
+    while running:
+        with profiler.span("ecw.decode.step", rows=batch):
+            logits, cache = decode_fn(tokens[:, cur_len - 1 : cur_len], cache, ctx)
+            _flush_full_window(cache)
+            processed = apply_logits_processors(
+                processors, logits.to(torch.float32), tokens, cur_len, prompt_len
+            )
+            if do_sample:
+                gumbel = noise(cur_len, tuple(processed.shape)).to(device, torch.float32)
+                next_tok = torch.argmax(processed / temperature + gumbel, dim=-1)
+            else:
+                next_tok = torch.argmax(processed, dim=-1)
+            tok_lp = torch.gather(torch.log_softmax(processed, dim=-1), 1, next_tok[:, None])[:, 0]
+            next_tok = torch.where(finished, torch.full_like(next_tok, pad_token_id), next_tok)
+            sum_lp = sum_lp + torch.where(finished, torch.zeros_like(tok_lp), tok_lp)
+            tokens[:, cur_len] = next_tok
+            finished = finished | (next_tok == eos_token_id)
+            cur_len += 1
+            with profiler.span("ecw.decode.sync"):
+                running = cur_len < max_length and not bool(finished.all())
     return tokens, sum_lp

@@ -29,7 +29,9 @@ calibration (the ``real_rows`` hook argument), and its output is dropped.
 Each row conditions on its own history and takes the fixed-width prompt
 layout, so an utterance's tokens do not depend on what shares its launch.
 :meth:`WhisperGenerator.swap_params` replaces the weights in place (the
-serving layer's hot swap).
+serving layer's hot swap).  Each launch is recorded as an
+``ecw.scheduler.window`` span (:mod:`..runtime.profiler`; id: the stream
+orders of the occupied slots).
 
 The serving levers (``dtype``, ``vocab_int8``, ``decoder_int8``,
 ``kv_cache_int8``, ``cross_kv_int8``; :mod:`..models.whisper`) reach every
@@ -67,6 +69,7 @@ from ..models.whisper import (
     quantize_vocab_projection,
     to_compute_dtype,
 )
+from ..runtime import profiler
 from ..runtime.precision import reference_precision
 from .beam import beam_search, greedy_search
 from .logits_process import LogitsProcessorConfig
@@ -742,7 +745,8 @@ class WhisperGenerator:
             # grad mode is per thread and this generator may be resumed from
             # any thread: no_grad is entered around each window, never held
             # across a yield
-            with torch.no_grad():
+            orders = tuple(r.order for r in occupied if r is not None)
+            with torch.no_grad(), profiler.span("ecw.scheduler.window", id=orders, slots=slots):
                 self._run_longform_window(
                     occupied, opts, keyword_spotting, encode_spot,
                     prev_enabled=True,

@@ -15,7 +15,10 @@ also halves its frames), ~40x smaller.
   or the bf16 :func:`maxsim_proxy_fast`) ranks every keyword and the exact
   chunked classifier scores only the top ``shortlist``.  The shortlist is
   taken by a stable descending sort, so equal proxies keep the lower row
-  first, as ``lax.top_k`` does (padded rows are -inf and tie).
+  first, as ``lax.top_k`` does (padded rows are -inf and tie).  Stage 1
+  (every chunk's proxy and the mask) is recorded as an
+  ``ecw.catalog.proxy`` span (:mod:`..runtime.profiler`), device-timed on
+  the card.
 
 The float classifier is the model's own; with ``quantized_params``
 (:func:`..models.quant.quantize_efficient_classifier`) and calibrated
@@ -38,6 +41,7 @@ from typing import Any, Dict
 import torch
 
 from ..models.quant import make_quantized_kws_apply
+from ..runtime import profiler
 from ..runtime.precision import reference_precision
 from .model import EfficientKWSModel, _safe_normalize, masked_sims
 
@@ -219,15 +223,17 @@ def make_cascade_score_fn(model: EfficientKWSModel, chunk: int = 128, shortlist:
         assert shortlist <= total, f"shortlist ({shortlist}) exceeds catalog rows ({total})"
         utt_p, utt_mask_p = _project_utterance(model, utt, utt_mask)
         kwd, kwd_mask = catalog["kwd"], catalog["kwd_mask"]
-        if proxy_dtype == "float32":
-            parts = [maxsim_proxy(kwd[i:i + chunk], utt_p, kwd_mask[i:i + chunk], utt_mask_p)
-                     for i in range(0, n_pad, chunk)]
-        else:
-            utt_n = _safe_normalize(utt_p, 1e-6)[0]  # once per utterance
-            dtype = getattr(torch, proxy_dtype)
-            parts = [maxsim_proxy_fast(kwd[i:i + chunk], utt_n, kwd_mask[i:i + chunk], utt_mask_p, dtype)
-                     for i in range(0, n_pad, chunk)]
-        proxy = _gathered(catalog, torch.where(catalog["mask"] > 0, torch.cat(parts), float("-inf")))
+        with profiler.span("ecw.catalog.proxy", device=utt_p.device.type == "cuda", chunks=n_pad // chunk):
+            if proxy_dtype == "float32":
+                parts = [maxsim_proxy(kwd[i:i + chunk], utt_p, kwd_mask[i:i + chunk], utt_mask_p)
+                         for i in range(0, n_pad, chunk)]
+            else:
+                utt_n = _safe_normalize(utt_p, 1e-6)[0]  # once per utterance
+                dtype = getattr(torch, proxy_dtype)
+                parts = [maxsim_proxy_fast(kwd[i:i + chunk], utt_n, kwd_mask[i:i + chunk], utt_mask_p, dtype)
+                         for i in range(0, n_pad, chunk)]
+            proxy = torch.where(catalog["mask"] > 0, torch.cat(parts), float("-inf"))
+        proxy = _gathered(catalog, proxy)
         idx = shortlist_rows(proxy, shortlist)
         if shard is not None:
             # every rank took the same shortlist; each scores the rows it holds

@@ -24,6 +24,10 @@ Deviation from the JAX package: spotting has NO broad ``except Exception``
 (JAX cb_whisper.py:333-336, :350-352).  A failing encoder, scorer or kernel
 raises instead of silently yielding an empty prompt, so a broken run cannot
 pass.  Tokenization is injected (``prompt_ids_fn`` / ``decode_fn``).
+
+Spotting records two spans (:mod:`..runtime.profiler`), device-timed on
+the card: ``ecw.cbw.encoder`` around the encoder forward and
+``ecw.cbw.spotter`` around the catalog scoring to keywords.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from ..catalog.database import (
 from ..decoding.generate import GenerationOptions, WhisperGenerator
 from ..metrics import entity_recall, evaluate_with_conf_int
 from ..ops.resize import resize_matrix
+from ..runtime import profiler
 from ..runtime.precision import reference_precision
 from ..runtime.profiler import RTFxMeter
 from .kws import KWSModel
@@ -259,22 +264,29 @@ class CBWhisper:
         self._ensure_catalog()
         feats = self._features(input_features)
         self._maybe_calibrate_encoder_int8(feats, real_rows)
-        stacks = encoder_kws_stack(
-            self.encoder_params, feats, self.encoder_config,
-            layer_slice=self.kws_layer_slice, dtype=self._compute_dtype,
-        )
-        return self._score_to_keywords(stacks, real_rows)
+        timed = feats.device.type == "cuda"
+        with profiler.span("ecw.cbw.encoder", device=timed, rows=int(feats.shape[0])):
+            stacks = encoder_kws_stack(
+                self.encoder_params, feats, self.encoder_config,
+                layer_slice=self.kws_layer_slice, dtype=self._compute_dtype,
+            )
+        with profiler.span("ecw.cbw.spotter", device=timed, rows=int(stacks.shape[0])):
+            return self._score_to_keywords(stacks, real_rows)
 
     @torch.no_grad()
     def encode_and_spot(self, input_features, start_of_prev: bool = False, real_rows=None):
         """The generator's fused hook: (prompt token ids per segment,
         cross-attention encoding [n_seg, T_enc, D]) from one encoder forward."""
         self._ensure_catalog()
-        stacks, enc = encoder_kws_stack(
-            self.generator.params, self._features(input_features), self.whisper_config,
-            layer_slice=self.kws_layer_slice, return_encoding=True, dtype=self._compute_dtype,
-        )
-        keywords = self._score_to_keywords(stacks, real_rows)
+        feats = self._features(input_features)
+        timed = feats.device.type == "cuda"
+        with profiler.span("ecw.cbw.encoder", device=timed, rows=int(feats.shape[0])):
+            stacks, enc = encoder_kws_stack(
+                self.generator.params, feats, self.whisper_config,
+                layer_slice=self.kws_layer_slice, return_encoding=True, dtype=self._compute_dtype,
+            )
+        with profiler.span("ecw.cbw.spotter", device=timed, rows=int(stacks.shape[0])):
+            keywords = self._score_to_keywords(stacks, real_rows)
         return self._format_prompt_tokens(keywords, start_of_prev), enc
 
     def keyword_spotting(self, input_features, start_of_prev: bool = False,

@@ -19,16 +19,23 @@ whether the scheduler's stream blocks on the queue (idle) or answers
 "nothing right now" (keep decoding the rows in flight); only the worker
 touches it, so the decision is exact.  An error in the worker reaches the
 caller through ``result``, ``submit`` and ``close``.
+
+Each utterance's wait from ``submit`` to the scheduler taking it is
+recorded as an ``ecw.serving.queue_wait`` span (id: its ticket;
+:mod:`.profiler`).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from . import profiler
 
 _CLOSE = object()
 
@@ -90,7 +97,7 @@ class TranscriptionService:
             # enqueue UNDER the lock: ticket order must equal queue order (the
             # scheduler numbers results by stream position), and a ticket
             # issued before close() must land ahead of its sentinel
-            self._queue.put((features, attention_mask))
+            self._queue.put((features, attention_mask, ticket, time.perf_counter_ns()))
         return ticket
 
     def result(self, ticket: int, timeout: Optional[float] = None) -> str:
@@ -173,8 +180,10 @@ class TranscriptionService:
             if isinstance(item, _SwapCmd):
                 pending_swap = item.params
                 continue
+            features, attention_mask, ticket, t_submit = item
+            profiler.interval("ecw.serving.queue_wait", t_submit, id=ticket)
             self._inflight += 1
-            yield item
+            yield features, attention_mask
 
     def _run(self):
         try:

@@ -1,9 +1,11 @@
 """Port decoding vs the JAX package: logits processors, the top-k contract,
 and greedy / beam-5 search over a tiny random Whisper (one numpy seed,
 converted weights) — token-exact sequences and scores within 1e-4, over
-several seeds, with a batch whose prompts carry padding inside."""
+several seeds, with a batch whose prompts carry padding inside.  The
+decode's step spans, and that recording them changes no output."""
 
 import dataclasses
+import time
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +23,7 @@ from enhance_cb_whisper_tpu_torch.decoding import logits_process as tlp
 from enhance_cb_whisper_tpu_torch.decoding.generate import GenerationOptions, WhisperGenerator
 from enhance_cb_whisper_tpu_torch.decoding.topk import exact_top_k
 from enhance_cb_whisper_tpu_torch.models import whisper as tw
+from enhance_cb_whisper_tpu_torch.runtime import profiler
 
 VOCAB, NO_TS = 128, 100  # timestamps are ids 101..127
 CFG = dict(
@@ -160,3 +163,47 @@ def test_generate_shortform_matches_jax(generators, language):
     got = tgen.generate(torch.from_numpy(mel), topts)
     np.testing.assert_array_equal(got, np.asarray(want))
     assert got.shape[0] == 1 and (got != 0).sum() > 0
+
+
+@pytest.mark.parametrize("num_beams", [1, 5], ids=["greedy", "beam5"])
+def test_decode_step_spans_and_recording_change_nothing(generators, num_beams, monkeypatch):
+    """One ``ecw.decode.step`` span per step taken, each the parent of one
+    ``ecw.decode.sync`` span inside it; tokens and scores are the same bits
+    with recording on and off (eos boosted, so hypotheses finish)."""
+    jcfg, _, _, tgen = generators
+    params = jw.init_whisper_params(np.random.default_rng(3), jcfg)
+    params["decoder"]["embed_tokens"]["weight"][2] *= 5.0
+    tgen.params = from_jax_whisper_params(params, device="cpu")
+    opts = GenerationOptions(**OPTS, num_beams=num_beams, return_timestamps=True)
+    ids, attn = prepare_decoder_input_ids(
+        init_tokens=opts.init_tokens(), keywords_tokens=[[99, 20, 21, 22, 23], [99, 30]],
+        prev_tokens_per_batch=None, condition_on_prev=False, max_target_positions=40,
+        pad_token_id=0, prev_sot_token_id=99,
+    )
+    mel = np.random.default_rng(13).standard_normal((2, 80, 3000)).astype(np.float32)
+    xkv = tgen._cross_kv_fn(tgen._encode(torch.from_numpy(mel)))
+    calls = []
+    step = tgen._decode_step
+    monkeypatch.setattr(tgen, "_decode_step", lambda *a: calls.append(1) or step(*a))
+
+    t0 = time.perf_counter()
+    seqs_on, scores_on, _ = tgen._decode_prompted(xkv, ids, attn, opts, return_timestamps=True)
+    got = profiler.spans(since_s=t0)
+    previous = profiler.set_recording(False)
+    try:
+        t1 = time.perf_counter()
+        seqs_off, scores_off, _ = tgen._decode_prompted(xkv, ids, attn, opts, return_timestamps=True)
+        assert profiler.spans(since_s=t1) == []
+    finally:
+        profiler.set_recording(previous)
+    np.testing.assert_array_equal(seqs_on, seqs_off)
+    np.testing.assert_array_equal(scores_on, scores_off)
+
+    steps = {s["seq"]: s for s in got if s["name"] == "ecw.decode.step"}
+    syncs = [s for s in got if s["name"] == "ecw.decode.sync"]
+    assert 1 < len(steps) == len(calls) // 2 <= 40 - ids.shape[1]
+    assert sorted(s["parent"] for s in syncs) == sorted(steps)
+    for s in syncs:
+        parent = steps[s["parent"]]
+        assert parent["start_s"] <= s["start_s"] <= s["end_s"] <= parent["end_s"]
+    assert all(s["attrs"] == {"rows": 2 * num_beams} for s in steps.values())

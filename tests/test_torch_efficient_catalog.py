@@ -14,8 +14,12 @@ ResNet-18; chunks of 4 keywords).
 * ``maxsim_proxy_fast`` (bf16 operands, f32 sums) against the exact proxy
   within atol 2e-2 (the JAX test's tolerance) and against JAX's fast proxy
   within 1e-5; ``maxsim_proxy`` against JAX's within 1e-5;
-* unpadded catalogs and shortlists off the chunk raise.
+* unpadded catalogs and shortlists off the chunk raise;
+* the cascade records one ``ecw.catalog.proxy`` span a call, and its
+  probabilities do not depend on recording.
 """
+
+import time
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +35,7 @@ from enhance_cb_whisper_tpu_torch.convert import from_flax_efficient_variables
 from enhance_cb_whisper_tpu_torch.efficient_kws import catalog as pc
 from enhance_cb_whisper_tpu_torch.efficient_kws import model as pm
 from enhance_cb_whisper_tpu_torch.models.quant import calibrate_act_scales, quantize_efficient_classifier
+from enhance_cb_whisper_tpu_torch.runtime import profiler
 
 L, D, U, CHUNK = 2, 16, 8, 4
 RTOL, ATOL = 1e-4, 1e-5
@@ -206,3 +211,25 @@ def test_bad_catalog_and_shortlist_raise():
         pc.make_cascade_score_fn(port, chunk=CHUNK, shortlist=6)
     with pytest.raises(AssertionError, match="exceeds"):
         pc.make_cascade_score_fn(port, chunk=CHUNK, shortlist=32)(catalog, utt, utt_mask)
+
+
+@pytest.mark.parametrize("proxy_dtype", ["bfloat16", "float32"])
+def test_cascade_proxy_span_and_recording_change_nothing(proxy_dtype):
+    """One ``ecw.catalog.proxy`` span per cascade call, over every chunk;
+    the probabilities are the same bits with recording on and off."""
+    _, _, port, groups, utt, utt_mask = _fixture("LE")
+    catalog = pc.project_catalog(port, groups, chunk=CHUNK)
+    score = pc.make_cascade_score_fn(port, chunk=CHUNK, shortlist=8, proxy_dtype=proxy_dtype)
+    t0 = time.perf_counter()
+    on = [score(catalog, utt, utt_mask) for _ in range(2)]
+    got = [s for s in profiler.spans(since_s=t0) if s["name"] == "ecw.catalog.proxy"]
+    assert len(got) == 2
+    assert all(s["attrs"] == {"chunks": catalog["kwd"].shape[0] // CHUNK} and s["device_ms"] is None for s in got)
+    previous = profiler.set_recording(False)
+    try:
+        t1 = time.perf_counter()
+        off = score(catalog, utt, utt_mask)
+        assert profiler.spans(since_s=t1) == []
+    finally:
+        profiler.set_recording(previous)
+    assert torch.equal(on[0], off) and torch.equal(on[1], off)

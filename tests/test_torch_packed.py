@@ -15,6 +15,8 @@ launch with vacant slots against JAX ``_calib_rows``, and the fixed-width
 prompt layout of ``prepare_decoder_input_ids`` against JAX over prompt
 shapes."""
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -37,6 +39,7 @@ from enhance_cb_whisper_tpu_torch.models.cb_whisper import CBWhisper, CBWhisperC
 from enhance_cb_whisper_tpu_torch.models.kws import init_kws_model
 from enhance_cb_whisper_tpu_torch.models.resnet import ResNetConfig
 from enhance_cb_whisper_tpu_torch.models.whisper import WhisperConfig, encoder_kws_stack, precompute_cross_kv
+from enhance_cb_whisper_tpu_torch.runtime import profiler
 
 CFG = dict(
     vocab_size=128, num_mel_bins=8, d_model=32,
@@ -257,6 +260,24 @@ def test_generate_packed_matches_jax(jax_run, port_gen, case, monkeypatch):
         # sot + FULL prev budget + init without a spotter; sot + keyword
         # budget + the rest of the prev budget + init with one
         assert plens[0] == (1 + cut + 1 if case.startswith("no_") else 1 + w_kw + (cut - w_kw - 1) + 1)
+
+
+@pytest.mark.parametrize("case", ["refill_keeps_width", "more_slots_than_stream"])
+def test_window_span_per_launch(port_gen, case, monkeypatch):
+    """One ``ecw.scheduler.window`` span per launch, its id the stream
+    orders of the occupied slots (fewer than ``slots`` where some are
+    vacant) and ``slots`` the launch's width."""
+    lengths, seed, slots, overrides, kwargs = CASES[case]
+    launches = []
+    _spy(monkeypatch, port_gen, "_run_longform_window",
+         lambda rows, *a, **k: launches.append(tuple(r.order for r in rows if r is not None)))
+    t0 = time.perf_counter()
+    _packed(port_gen, _stream(lengths, seed), _options(GenerationOptions, overrides), slots, **kwargs)
+    windows = [s for s in profiler.spans(since_s=t0) if s["name"] == "ecw.scheduler.window"]
+    assert [s["id"] for s in windows] == launches and len(launches) > 1
+    assert all(s["attrs"] == {"slots": slots} for s in windows)
+    if case == "more_slots_than_stream":
+        assert all(len(ids) < slots for ids in launches), launches
 
 
 def test_zero_length_utterance(jax_run, port_gen):

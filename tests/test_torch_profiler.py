@@ -4,15 +4,25 @@ trace format (device tracks named by process, an "XLA Modules" track over
 the op track) and once as a Kineto trace (device work by category, a user
 annotation over the kernels, host ops beside them).  The port's
 ``device_op_breakdown`` on the Kineto one gives JAX's ``(total, ops)`` on
-its own, leaf ops only, with a nested event too."""
+its own, leaf ops only, with a nested event too.
 
+Then the span recorder: parents per thread, concurrent appends, the
+bounded ring, the switch, and spans lined up with their profiler
+events through the clock anchor."""
+
+import contextlib
 import gzip
 import json
+import sys
+import threading
+import time
+import types
 
 import pytest
 import torch
 
 from enhance_cb_whisper_tpu.runtime.profiler import device_op_breakdown as jax_breakdown
+from enhance_cb_whisper_tpu_torch.runtime import profiler
 from enhance_cb_whisper_tpu_torch.runtime.profiler import device_op_breakdown, trace
 
 # (name, ts, dur) on the device's op track, and one host event
@@ -89,3 +99,240 @@ def test_trace_of_a_cpu_forward_has_no_device_time(tmp_path):
     assert any(e.key for e in prof.key_averages())
     assert list(tmp_path.glob("*.trace.json.gz"))
     assert device_op_breakdown(str(tmp_path)) == (0.0, [])
+
+
+# ------------------------------------------------------------------- spans
+
+@pytest.fixture
+def recorder(monkeypatch):
+    """A fresh ring for the test, recording on."""
+    rec = profiler.Recorder()
+    monkeypatch.setattr(profiler, "RECORDER", rec)
+    return rec
+
+
+def _by_name(spans):
+    return {s["name"]: s for s in spans}
+
+
+def test_nested_spans_take_their_parents_per_thread(recorder):
+    """Each thread's spans nest under that thread's own open span, never
+    under another thread's."""
+    gate = threading.Barrier(2, timeout=10)
+
+    def work(tag):
+        with profiler.span(f"ecw.t.{tag}.outer", id=tag, rows=2):
+            gate.wait()  # both outer spans are open at once
+            with profiler.span(f"ecw.t.{tag}.inner"):
+                gate.wait()
+
+    threads = [threading.Thread(target=work, args=(tag,), name=f"worker-{tag}") for tag in "ab"]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(10)
+        assert not t.is_alive()
+    got = _by_name(profiler.spans())
+    assert len(got) == 4
+    for tag in "ab":
+        outer, inner = got[f"ecw.t.{tag}.outer"], got[f"ecw.t.{tag}.inner"]
+        assert outer["parent"] is None and inner["parent"] == outer["seq"]
+        assert outer["thread"] == inner["thread"] == f"worker-{tag}"
+        assert outer["id"] == tag and outer["attrs"] == {"rows": 2} and inner["attrs"] == {}
+        assert outer["start_s"] <= inner["start_s"] <= inner["end_s"] <= outer["end_s"]
+        assert outer["device_ms"] is None  # not device-timed, and no card here
+
+
+def test_two_threads_recording_at_once_lose_no_span(recorder):
+    """Appends race from several threads with a short switch interval:
+    every span is kept, each under its own thread's parent."""
+    n_threads, per_thread = 4, 2000
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work():
+            for _ in range(per_thread // 2):
+                with profiler.span("ecw.t.outer"):
+                    with profiler.span("ecw.t.inner"):
+                        pass
+
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(switch)
+    got = profiler.spans()
+    assert len(got) == n_threads * per_thread and profiler.dropped() == 0
+    assert len({s["seq"] for s in got}) == len(got)
+    outer = {s["seq"]: s["thread"] for s in got if s["name"] == "ecw.t.outer"}
+    assert all(outer[s["parent"]] == s["thread"] for s in got if s["name"] == "ecw.t.inner")
+
+
+def test_ring_drops_the_oldest_and_counts_them(monkeypatch):
+    monkeypatch.setattr(profiler, "RECORDER", profiler.Recorder(capacity=4))
+    for i in range(6):
+        with profiler.span("ecw.t.n", id=i):
+            pass
+    assert [s["id"] for s in profiler.spans()] == [2, 3, 4, 5]
+    assert profiler.dropped() == 2
+    profiler.reset()
+    assert profiler.spans() == [] and profiler.dropped() == 0
+
+
+def test_spans_filter_by_end_and_interval_takes_a_foreign_start(recorder):
+    """``spans(since_s, until_s)`` keeps the spans that END in
+    (since_s, until_s]; an interval's start may come from another thread
+    and its parent is this thread's open span."""
+    stamped = []
+    t = threading.Thread(target=lambda: stamped.append(time.perf_counter_ns()))
+    t.start()
+    t.join(10)
+    with profiler.span("ecw.t.first"):
+        pass
+    mid = time.perf_counter()
+    with profiler.span("ecw.t.outer"):
+        profiler.interval("ecw.t.wait", stamped[0], id=7)
+    got = profiler.spans(since_s=mid)
+    assert [s["name"] for s in got] == ["ecw.t.wait", "ecw.t.outer"]
+    wait, outer = got
+    assert wait["parent"] == outer["seq"] and wait["id"] == 7
+    assert wait["start_s"] == stamped[0] / 1e9 < mid < wait["end_s"]
+    first = profiler.spans(until_s=mid)
+    assert [s["name"] for s in first] == ["ecw.t.first"]
+    assert profiler.spans(since_s=first[0]["end_s"], until_s=first[0]["end_s"]) == []
+
+
+def test_recording_off_records_nothing_and_never_enters_record_function(recorder, monkeypatch):
+    """Off: nothing is kept, and no ``record_function`` even under a
+    profiler.  On: ``record_function`` only while a profiler records."""
+    entered = []
+
+    def fake_record_function(name):
+        entered.append(name)
+        return contextlib.nullcontext()
+
+    monkeypatch.setattr(torch.profiler, "record_function", fake_record_function)
+    with profiler.span("ecw.t.plain"):
+        pass
+    assert entered == [] and len(profiler.spans()) == 1
+    previous = profiler.set_recording(False)
+    try:
+        assert previous is True
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            with profiler.span("ecw.t.off", device=True):
+                profiler.interval("ecw.t.off_wait", time.perf_counter_ns())
+    finally:
+        profiler.set_recording(previous)
+    assert entered == [] and len(profiler.spans()) == 1
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiler.span("ecw.t.profiled"):
+            pass
+    assert entered == ["ecw.t.profiled"] and len(profiler.spans()) == 2
+
+
+def _offsets_from_their_events(tmp_path) -> list:
+    """One profiled block of nested spans; per span, how far (µs) its
+    start and end land from its ``user_annotation`` event's through
+    ``to_trace_us``."""
+    profiler.reset()
+    x = torch.randn(64, 64)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiler.span("ecw.t.warm"):  # a first record_function is slow
+            pass
+        with profiler.span("ecw.t.outer", id=1):
+            for _ in range(3):
+                with profiler.span("ecw.t.inner"):
+                    (x @ x).relu()
+            time.sleep(0.01)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace_json = json.loads(path.read_text())
+    base = trace_json["baseTimeNanoseconds"]
+    events = [e for e in trace_json["traceEvents"]
+              if e.get("cat") == "user_annotation" and str(e.get("name", "")).startswith("ecw.t.")]
+    got = profiler.spans()
+    assert sorted(s["name"] for s in got) == sorted(e["name"] for e in events)
+    assert [s["name"] for s in got].count("ecw.t.inner") == 3
+    out = []
+    for name in ("ecw.t.outer", "ecw.t.inner"):
+        mine = sorted((s for s in got if s["name"] == name), key=lambda s: s["start_s"])
+        theirs = sorted((e for e in events if e["name"] == name), key=lambda e: e["ts"])
+        for s, e in zip(mine, theirs):
+            start = profiler.to_trace_us(round(s["start_s"] * 1e9), base) - e["ts"]
+            end = profiler.to_trace_us(round(s["end_s"] * 1e9), base) - (e["ts"] + e["dur"])
+            out.append((name, start, end))
+    return out
+
+
+def test_spans_line_up_with_their_profiler_events(recorder, tmp_path):
+    """Under ``torch.profiler`` each span is a ``user_annotation`` event,
+    and ``to_trace_us`` puts its start and end within 1 ms of the event's
+    ``ts`` and ``ts + dur``.  A thread preempted between the profiler's
+    stamp and the span's own clock read can miss by more on a loaded host,
+    so the block is profiled again, up to three times."""
+    for _ in range(3):
+        offsets = _offsets_from_their_events(tmp_path)
+        if all(abs(start) < 1000 and abs(end) < 1000 for _, start, end in offsets):
+            return
+    pytest.fail(f"spans off their events by more than 1 ms (µs): {offsets}")
+
+
+_STREAM = types.SimpleNamespace(cuda_stream=7)  # a card's current stream
+
+
+class _FakeEvent:
+    """Stands in for ``torch.cuda.Event``: ``record`` stamps a counter that
+    advances 1 "ms" a call; ``synchronize`` counts the waits."""
+
+    clock = 0
+    waits = 0
+    made = 0
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        _FakeEvent.made += 1
+        self.t = None
+
+    def record(self, stream=None):
+        assert stream is _STREAM
+        _FakeEvent.clock += 1
+        self.t = _FakeEvent.clock
+
+    def synchronize(self):
+        _FakeEvent.waits += 1
+
+    def elapsed_time(self, end):
+        return float(end.t - self.t)
+
+
+def test_device_timing_is_read_lazily_from_reused_event_pairs(recorder, monkeypatch):
+    """``device=True`` on a card: a pair of timing events recorded at the
+    span's ends on the current stream, nothing synchronised until the spans
+    are read; the pairs come from a pool reused in turn, so a span whose
+    pair was taken again reads no device time."""
+    streams = []
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda card: streams.append(card) or _STREAM)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda card: 7, raising=False)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(_FakeEvent, "clock", 0)
+    monkeypatch.setattr(_FakeEvent, "waits", 0)
+    monkeypatch.setattr(_FakeEvent, "made", 0)
+    monkeypatch.setattr(recorder, "events", profiler._EventPairs(2))
+    with profiler.span("ecw.t.dev", device=True):
+        with profiler.span("ecw.t.host"):
+            _FakeEvent.clock += 5  # device work inside the span
+    assert _FakeEvent.waits == 0 and _FakeEvent.made == 2
+    dev, host = sorted(profiler.spans(), key=lambda s: s["name"])
+    assert dev["device_ms"] == 6.0 and host["device_ms"] is None and _FakeEvent.waits == 1
+    for _ in range(2):  # two more device-timed spans take both pairs again
+        with profiler.span("ecw.t.later", device=True):
+            pass
+    got = profiler.spans()
+    assert _FakeEvent.made == 4  # pairs are made once and reused
+    assert streams == [0]  # the stream object is kept while it stays current
+    assert [s["device_ms"] for s in got if s["name"] != "ecw.t.host"] == [None, 1.0, 1.0]

@@ -18,6 +18,7 @@ import torch
 
 from enhance_cb_whisper_tpu.runtime.serving import TranscriptionService as JaxService
 from enhance_cb_whisper_tpu_torch.convert import from_jax_whisper_params
+from enhance_cb_whisper_tpu_torch.runtime import profiler
 from enhance_cb_whisper_tpu_torch.runtime.serving import TranscriptionService
 
 from test_torch_packed import cb_pipelines, mels, whisper_params
@@ -247,3 +248,29 @@ def test_submit_is_safe_from_many_threads(port_cb, jax_texts):
             assert svc.result(ticket, timeout=TIMEOUT) == jax_texts[key]
     finally:
         _join(svc)
+
+
+def test_queue_wait_span_per_ticket(port_cb):
+    """Each ticket's wait from submit to the scheduler taking it is one
+    ``ecw.serving.queue_wait`` span on the worker thread, its id the
+    ticket; each launch's spotting nests in its ``ecw.scheduler.window``."""
+    keys = UTTERANCES["drain"]
+    t0 = time.perf_counter()
+    with TranscriptionService(port_cb, slots=2) as svc:
+        tickets = [svc.submit(_mel(*key)) for key in keys]
+        for ticket in tickets:
+            svc.result(ticket, timeout=TIMEOUT)
+    got = profiler.spans(since_s=t0)
+    waits = [s for s in got if s["name"] == "ecw.serving.queue_wait"]
+    assert sorted(s["id"] for s in waits) == tickets
+    assert all(t0 < s["start_s"] <= s["end_s"] and s["thread"] == "ecw-serving" for s in waits)
+    windows = {s["seq"]: s for s in got if s["name"] == "ecw.scheduler.window"}
+    assert windows and all(s["attrs"] == {"slots": 2} for s in windows.values())
+    # the occupied slots' orders (stream order is ticket order); a
+    # segment that takes a second window appears in two launches
+    assert {o for s in windows.values() for o in s["id"]} == set(tickets)
+    assert all(1 <= len(s["id"]) <= 2 for s in windows.values())
+    for name in ("ecw.cbw.encoder", "ecw.cbw.spotter"):
+        inner = [s for s in got if s["name"] == name]
+        assert len(inner) == len(windows) and all(s["parent"] in windows for s in inner), name
+        assert all(s["attrs"] == {"rows": 2} and s["device_ms"] is None for s in inner)
