@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # every phase
     python3 chip_smoke.py --k1     # K1 alone: its build, phase A and its phase C times
+    python3 chip_smoke.py --k3     # K3 alone: its build and phase A3 (checks and times)
     python3 chip_smoke.py --serving  # the kernels' build, phase A2 and phase F alone
     python3 chip_smoke.py --levers   # the kernels' build, phase A2 and phase G alone
     python3 chip_smoke.py --train    # phase H (paper-1 training) alone
@@ -32,6 +33,13 @@ A2. holds the fused s8 matmul + requant kernel K2 (csrc/matmul_s8.cu)
     launch and must launch exactly these; then the same at paper 2's
     shapes (the int8 ResNet-50 on 3 x 150 x 1500 and LEF's 3 x 75 x 750
     maps, chunks of 50: 22 launches each);
+A3. holds the fused MaxSim proxy kernel K3 (csrc/maxsim.cu) against its
+    plain version (the cascade's stage 1 as chunked torch calls of 128
+    rows) at the 100k-keyword LEF cell's shapes, LE's and L's (3,000 and
+    1,000 keywords at 150 x 1500), and ragged N, T_u and U (8, 96) with
+    partial masks, fp16 products and f32 and fp16 catalogs: max |diff| <= 1e-4 (the order
+    of f32 sums), two launches a call; prints its device time beside its
+    bound and the chunked path's time at the LEF cell and the L shape;
 B.  checks that building ``CBWhisper`` on the card turns TF32 off; checks
     the CUDA path against the CPU path on a tiny random CB-Whisper, in fp32
     and with int8 spotting on a K2-eligible ResNet (identical keywords and
@@ -219,6 +227,8 @@ KERNEL_SOURCE = "enhance_cb_whisper_tpu_torch/csrc/mel.cu"
 REPLACES = "enhance_cb_whisper_tpu/ops/mel_pallas.py:56"
 K2_SOURCE = "enhance_cb_whisper_tpu_torch/csrc/matmul_s8.cu"
 K2_REPLACES = "enhance_cb_whisper_tpu/ops/matmul_s8.py:61"
+K3_SOURCE = "enhance_cb_whisper_tpu_torch/csrc/maxsim.cu"
+K3_REPLACES = None  # no TPU kernel: the JAX package leaves the cascade's proxy to XLA
 S8_STAGES = ("stage_1", "stage_2", "stage_3")
 KWS_SIZE = (150, 750)
 CHUNK = 8  # keyword maps per scorer call (CBWhisper and KWSEngine)
@@ -263,17 +273,17 @@ def _stacks(rng: np.random.Generator, n: int, n_layers: int, frames, dim: int):
 
 
 def build_kernels() -> None:
-    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, mel_cuda
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, maxsim_cuda, mel_cuda
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        mel_job, k2_job = pool.submit(mel_cuda.build), pool.submit(matmul_s8_cuda.build)
-        mel_lib = mel_job.result()
-        k2_lib = k2_job.result()
-    print(f"build: {KERNEL_SOURCE} and {K2_SOURCE} compiled in parallel and loaded in "
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(m.build) for m in (mel_cuda, matmul_s8_cuda, maxsim_cuda)]
+        mel_lib, k2_lib, k3_lib = (job.result() for job in jobs)
+    print(f"build: {KERNEL_SOURCE}, {K2_SOURCE} and {K3_SOURCE} compiled in parallel and loaded in "
           f"{time.perf_counter() - t0:.1f} s")
     _print_ptxas("K1", mel_lib)
     _print_ptxas("K2", k2_lib)  # four kernels: BM 64/128, with and without a residual
+    _print_ptxas("K3", k3_lib)  # four row kernels (bf16/f16 x BM 64/128) and the reduction
 
 
 def _print_ptxas(name: str, lib: str) -> None:
@@ -440,6 +450,97 @@ def phase_a2(device, shapes, what=f"chunk of {CHUNK} maps at {KWS_SIZE}", ragged
     if total:
         raise RuntimeError(f"K2 disagrees with its plain version in {total} codes")
     return total, worst
+
+K3_CASES = (  # label, N, L, T_k, T_u, U, catalog dtype, proxy dtype, masks ("ones", "partial", None)
+    ("cascade-100k LEF", 100352, 3, 75, 750, 64, "bfloat16", "bfloat16", "ones"),
+    ("LE", 3000, 3, 150, 1500, 64, "float32", "bfloat16", "partial"),
+    ("L", 1000, 3, 150, 1500, 1024, "float32", "bfloat16", "partial"),
+    ("ragged LEF, fp16 products", 1001, 3, 75, 750, 64, "bfloat16", "float16", "partial"),
+    ("ragged fp16 catalog, T_u 700", 777, 2, 75, 700, 64, "float16", "float16", "partial"),
+    ("ragged f32 catalog, no masks", 333, 2, 40, 260, 128, "float32", "bfloat16", None),
+    ("the dry run's U 8", 64, 2, 16, 32, 8, "float32", "bfloat16", "ones"),
+    ("U 96, ragged", 300, 2, 20, 300, 96, "bfloat16", "bfloat16", "partial"),
+)
+K3_TIMED = ("cascade-100k LEF", "L")
+K3_ATOL = 1e-4
+
+
+def phase_a3(device) -> dict:
+    """K3 (csrc/maxsim.cu) against the plain version (``maxsim_proxy_fast_plain``
+    over chunks of 128 rows, the cascade's stage 1 before K3) on the card at
+    each of ``K3_CASES``: max |kernel - plain| <= 1e-4 (only the order of
+    the f32 sums differs: in the products, and in the sum of squares, which
+    can flip one operand's bf16 rounding), NaN where the plain version has
+    NaN, two launches a call.  At ``K3_TIMED`` it prints the kernel's device
+    time (CUDA events) beside its bound (the products at the bf16 peak or
+    the catalog's bytes at the HBM rate) and the chunked plain path's time,
+    which the port no longer calls."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.efficient_kws import catalog as cat
+    from enhance_cb_whisper_tpu_torch.efficient_kws.model import _safe_normalize
+    from enhance_cb_whisper_tpu_torch.ops import maxsim_cuda
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    worst, timed = 0.0, {}
+    for label, n, layers, tk, tu, units, kdtype, pdtype, masks in K3_CASES:
+        kdtype, pdtype = getattr(torch, kdtype), getattr(torch, pdtype)
+        kwd = torch.randn((n, layers, tk, units), generator=gen, device=device)
+        utt = torch.randn((1, layers, tu, units), generator=gen, device=device)
+        kwd_mask = utt_mask = None
+        if masks == "ones":
+            kwd_mask = torch.ones((n, layers, tk), device=device, dtype=kdtype)
+            utt_mask = torch.ones((1, layers, tu), device=device)
+        elif masks == "partial":
+            kwd_mask = (torch.rand((n, layers, tk), generator=gen, device=device) > 0.3).float()
+            kwd_mask[::9] = 0.0  # keywords with no valid frame
+            kwd = kwd * kwd_mask[..., None]  # padded frames are zero, as project_catalog pads
+            kwd_mask = kwd_mask.to(kdtype)
+            utt_mask = (torch.rand((1, layers, tu), generator=gen, device=device) > 0.2).float()
+            utt_mask[:, :, -(tu // 5):] = 0.0
+        kwd = kwd.to(kdtype)
+        utt_n = _safe_normalize(utt, 1e-6)[0]
+        before = maxsim_cuda.launches
+        got = cat.maxsim_proxy_fast(kwd, utt_n, kwd_mask, utt_mask, pdtype)
+        torch.cuda.synchronize()
+        if maxsim_cuda.launches - before != maxsim_cuda.LAUNCHES_PER_CALL:
+            raise RuntimeError(f"phase A3 {label}: {maxsim_cuda.launches - before} launches, expected "
+                               f"{maxsim_cuda.LAUNCHES_PER_CALL}")
+
+        def plain():
+            return torch.cat([cat.maxsim_proxy_fast_plain(
+                kwd[i:i + 128], utt_n, None if kwd_mask is None else kwd_mask[i:i + 128], utt_mask, pdtype)
+                for i in range(0, n, 128)])
+
+        want = plain()
+        nan = torch.isnan(want)
+        if got.shape != (n,) or not torch.equal(torch.isnan(got), nan):
+            raise RuntimeError(f"phase A3 {label}: shape {tuple(got.shape)} or NaN rows differ from the plain version")
+        gap = float((got - want)[~nan].abs().max())
+        worst = max(worst, gap)
+        plan = maxsim_cuda.launch_plan(n, layers, tk, tu, units)
+        print(f"phase A3: K3 {label} N={n} L={layers} T_k={tk} T_u={tu} U={units} {kdtype} -> {pdtype} "
+              f"masks={masks} [BM {plan.bm}, {plan.stages} stages, {plan.blocks} blocks, {plan.smem} B smem]: "
+              f"max |kernel - plain| {gap!r} (NaN rows {int(nan.sum())}), proxy range "
+              f"[{float(want[~nan].min())!r}, {float(want[~nan].max())!r}]")
+        if not gap <= K3_ATOL:
+            raise RuntimeError(f"phase A3 {label}: K3 differs from the plain version by {gap!r} > {K3_ATOL}")
+        if label in K3_TIMED:
+            fn = lambda: cat.maxsim_proxy_fast(kwd, utt_n, kwd_mask, utt_mask, pdtype)  # noqa: E731
+            ms, plain_ms = _event_ms(fn, reps=9), _event_ms(plain, reps=3)
+            ops = 2 * n * layers * tk * tu * units
+            bytes_ = kwd.numel() * kwd.element_size() + 4 * n + (
+                0 if kwd_mask is None else kwd_mask.numel() * kwd_mask.element_size())
+            bound = max(ops / BF16_RATE, bytes_ / HBM_RATE) * 1e3
+            print(f"phase A3: K3 {label}: device {ms!r} ms (CUDA events, median of 9), bound {bound!r} ms "
+                  f"({ops:.4g} FLOP at {BF16_RATE / 1e12:.0f} TFLOP/s, {bytes_} B at {HBM_RATE / 1e12} TB/s), "
+                  f"{ms / bound!r}x the bound ({ops / ms / 1e9!r} TFLOP/s); the chunked plain path "
+                  f"{plain_ms!r} ms ({plain_ms / ms!r}x K3)")
+            timed[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound}
+        del kwd, utt, kwd_mask, utt_mask, want, got
+        torch.cuda.empty_cache()
+    print(f"phase A3: K3 = plain within {K3_ATOL} at {len(K3_CASES)} shapes (largest gap {worst!r})")
+    return {"max_abs_err": worst, **timed[K3_TIMED[0]]}
 
 
 @contextlib.contextmanager
@@ -3037,7 +3138,9 @@ def phase_i3(device) -> dict:
     proxy).  Keywords/s, device ms (CUDA events), peak memory and each run's
     bound: the ResNet's convolution FLOPs per pair (plus the proxy's
     similarity FLOPs for the cascade) at the FP32 or bf16 peak, or the
-    catalog's bytes at the HBM rate, whichever is larger."""
+    catalog's bytes at the HBM rate, whichever is larger.  The cascade must
+    launch K3 twice a score, and its ``ecw.catalog.proxy`` spans must say so;
+    returns K1's, K2's and K3's launches over the phase."""
     import torch
 
     from enhance_cb_whisper_tpu_torch.efficient_kws.catalog import (
@@ -3046,7 +3149,8 @@ def phase_i3(device) -> dict:
         project_catalog,
     )
     from enhance_cb_whisper_tpu_torch.efficient_kws.model import EfficientKWSConfig, EfficientKWSModel
-    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, mel_cuda
+    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, maxsim_cuda, mel_cuda
+    from enhance_cb_whisper_tpu_torch.runtime import profiler
 
     mel_cuda.launches = matmul_s8_cuda.launches = 0
     chunk, layers, units = 128, 3, 64
@@ -3109,9 +3213,23 @@ def phase_i3(device) -> dict:
     n, shortlist = 100352, 2048
     big = random_catalog(n)
     proxy_flops = n * layers * P2_LEF_MAPS[0] * P2_SIZE[1] // 2 * units * 2
+    maxsim_cuda.launches = 0
+    since = time.perf_counter()
     casc = report(f"cascade bf16 proxy, shortlist {shortlist}", n,
                   make_cascade_score_fn(bf16, chunk=chunk, shortlist=shortlist), big, BF16_RATE,
                   extra_flops=proxy_flops, exact=shortlist)
+    # report scores 1 (warm-up) + 3 (timed) + 1 (the returned scores) times,
+    # each one maxsim_proxy_fast call over all n rows
+    calls = 5
+    k3 = maxsim_cuda.launches
+    spans = [s["attrs"] for s in profiler.spans(since_s=since) if s["name"] == "ecw.catalog.proxy"]
+    print(f"phase I3: K3 launches over {calls} cascade scores {k3}; the proxy spans' launches "
+          f"{[a.get('launches') for a in spans]}")
+    if k3 != calls * maxsim_cuda.LAUNCHES_PER_CALL:
+        raise RuntimeError(f"phase I3: the cascade launched K3 {k3} times, expected "
+                           f"{calls} x {maxsim_cuda.LAUNCHES_PER_CALL}")
+    if len(spans) != calls or any(a.get("launches") != maxsim_cuda.LAUNCHES_PER_CALL for a in spans):
+        raise RuntimeError(f"phase I3: the ecw.catalog.proxy spans do not show K3's launches: {spans}")
     rows = torch.nonzero(casc).ravel()
     again = make_projected_score_fn(bf16, chunk=chunk)(
         {**big, "kwd": big["kwd"][rows], "kwd_mask": big["kwd_mask"][rows], "mask": big["mask"][rows]},
@@ -3121,7 +3239,7 @@ def phase_i3(device) -> dict:
           f"gives them within {gap!r}")
     if len(rows) > shortlist or gap > 1e-3:
         raise RuntimeError("phase I3: the cascade's shortlist disagrees with the full scorer")
-    return {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches}
+    return {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches, "k3": k3}
 
 
 def phase_i(device, shapes) -> dict:
@@ -3137,7 +3255,7 @@ def phase_i(device, shapes) -> dict:
         more = phase_i3(device)
     finally:
         shutil.rmtree(PHASE_I_DIR, ignore_errors=True)
-    launches = {k: launches[k] + more[k] for k in launches}
+    launches = {k: launches.get(k, 0) + more[k] for k in more}
     print(f"phase I: {time.perf_counter() - t0:.1f} s; kernel launches over I2 and I3 {launches}")
     return launches
 
@@ -4762,7 +4880,7 @@ def _card() -> str:
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--k1"], ["--serving"], ["--levers"], ["--train"], ["--paper2"],
+    if argv not in ([], ["--k1"], ["--k3"], ["--serving"], ["--levers"], ["--train"], ["--paper2"],
                     ["--paper2-train"], ["--pipeline"], ["--scale-out"]):
         print(__doc__, file=sys.stderr)
         return 2
@@ -4791,6 +4909,16 @@ def main(argv) -> int:
         phase_a(device)
         phase_c(device)
         print_k1_bound()
+        print(_card())
+        return 0
+    if argv == ["--k3"]:  # K3 alone: build and phase A3
+        from enhance_cb_whisper_tpu_torch.ops import maxsim_cuda
+
+        k3_lib = maxsim_cuda.build()
+        print(f"build: {K3_SOURCE} compiled and loaded in {time.perf_counter() - t_start:.1f} s")
+        _print_ptxas("K3", k3_lib)
+        phase_a3(device)
+        print(f"chip_smoke --k3: passed in {time.perf_counter() - t_start:.1f} s")
         print(_card())
         return 0
     if argv in (["--paper2-train"], ["--pipeline"]):  # K1, phase A and phase J or P alone
@@ -4852,6 +4980,7 @@ def main(argv) -> int:
     for name, group in p2_shapes.items():
         more, err = phase_a2(device, group, f"chunk of {P2_CHUNK} paper-2 {name} maps", ragged=())
         mismatches, k2_err = mismatches + more, max(k2_err, err)
+    k3 = phase_a3(device)
     check_tf32_off(device)
     phase_b_reference(device)
     phase_b_longform_reference(device)
@@ -4893,6 +5022,10 @@ def main(argv) -> int:
          "max_abs_err": k2_err, "mismatches": mismatches,
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
+        {"name": "maxsim_proxy", "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
+         "paper2_launches": paper2_launches["k3"], "max_abs_err": k3["max_abs_err"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": "operations", "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

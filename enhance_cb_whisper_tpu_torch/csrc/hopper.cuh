@@ -1,10 +1,13 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile
 // copies, wgmma with both operands in shared memory, and thread-block
-// cluster barriers and distributed shared memory.  Header-only, no
-// dependencies beyond the CUDA toolkit.
+// cluster barriers and distributed shared memory; on the host, the tensor
+// map encoder and the dynamic shared memory a kernel may take.
+// Header-only, no dependencies beyond the CUDA toolkit.
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -118,8 +121,10 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// waits until at most N of the warpgroup's committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // D[64 x 128] (s32) += A[64 x 32] (s8, K-major, shared) * B[128 x 32]^T (s8, K-major, shared)
@@ -146,6 +151,47 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// the 64 accumulator operands of an m64n128 wgmma, %0 .. %63
+#define HOPPER_WGMMA_D64(T)                                                                                      \
+  T(d[0]), T(d[1]), T(d[2]), T(d[3]), T(d[4]), T(d[5]), T(d[6]), T(d[7]), T(d[8]), T(d[9]), T(d[10]), T(d[11]),  \
+      T(d[12]), T(d[13]), T(d[14]), T(d[15]), T(d[16]), T(d[17]), T(d[18]), T(d[19]), T(d[20]), T(d[21]),        \
+      T(d[22]), T(d[23]), T(d[24]), T(d[25]), T(d[26]), T(d[27]), T(d[28]), T(d[29]), T(d[30]), T(d[31]),        \
+      T(d[32]), T(d[33]), T(d[34]), T(d[35]), T(d[36]), T(d[37]), T(d[38]), T(d[39]), T(d[40]), T(d[41]),        \
+      T(d[42]), T(d[43]), T(d[44]), T(d[45]), T(d[46]), T(d[47]), T(d[48]), T(d[49]), T(d[50]), T(d[51]),        \
+      T(d[52]), T(d[53]), T(d[54]), T(d[55]), T(d[56]), T(d[57]), T(d[58]), T(d[59]), T(d[60]), T(d[61]),        \
+      T(d[62]), T(d[63])
+#define HOPPER_WGMMA_REGS64                                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                            \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                   \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                    \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// D[64 x 128] (f32) (+)= A[64 x 16] * B[128 x 16]^T, both 16-bit (bf16, or
+// f16 with kHalf) and K-major in shared memory; accumulate = 0 overwrites D
+template <bool kHalf>
+__device__ __forceinline__ void wgmma_m64n128k16_f32(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                                     int accumulate) {
+  if constexpr (kHalf) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " HOPPER_WGMMA_REGS64 ", %64, %65, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : HOPPER_WGMMA_D64("+f")
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_WGMMA_REGS64 ", %64, %65, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : HOPPER_WGMMA_D64("+f")
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  }
+}
+
 // ---- clusters -----------------------------------------------------------
 
 // every thread of every block of the cluster arrives, then waits; shared
@@ -169,6 +215,50 @@ __device__ __forceinline__ int4 ld_cluster_v4(uint32_t addr) {
                : "r"(addr)
                : "memory");
   return v;
+}
+
+// ---- host -----------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime: no -lcuda
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+constexpr int kMaxDevices = 64;
+
+// lets `kernel` take `smem` bytes of dynamic shared memory on the current
+// device; `allowed` (kMaxDevices entries, one array per kernel) keeps what
+// each device already allows, since the attribute is set per device
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel* kernel, int smem, int* allowed) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (smem > allowed[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    allowed[dev] = smem;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace hopper

@@ -50,8 +50,6 @@
 // max, round-half-even, clip): the epilogue uses __fmul_rn / __fadd_rn, which
 // nvcc never contracts into an fma, and rounds half to even (see requant).
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
-#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -202,7 +200,7 @@ matmul_s8_requant_kernel(const __grid_constant__ CUtensorMap map_x,
 #pragma unroll
       for (int kk = 0; kk < kBK / 32; ++kk) wgmma_m64n128k32_s8(acc, da + 2 * kk, db + 2 * kk);
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
 #pragma unroll
       for (int i2 = 0; i2 < kR; ++i2) asm volatile("" : "+r"(acc[i2])::"memory");
       if ((tid & 31) == 0) mbar_arrive(empty(s));
@@ -286,29 +284,6 @@ matmul_s8_requant_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, through the runtime: no -lcuda
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // a row-major [rows, cols] int8 matrix read or written in [box_rows, 128 B] tiles, 128B-swizzled
 bool tile_map(EncodeTiled encode, CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
@@ -340,12 +315,9 @@ cudaError_t launch(const void* x, const void* w_nk, const void* residual, void* 
 
   auto kernel = matmul_s8_requant_kernel<BM, kRes>;
   const int smem = smem_bytes(BM, p.stages, p.split);
-  static int allowed = 0;  // dynamic shared memory this kernel may take, set once per size
-  if (smem > allowed) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    allowed = smem;
-  }
+  static int allowed[kMaxDevices] = {};  // dynamic shared memory this kernel may take, per device
+  cudaError_t err = allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.split, N / kBN, (p.M + BM - 1) / BM);
   cfg.blockDim = dim3(kThreads<BM>);

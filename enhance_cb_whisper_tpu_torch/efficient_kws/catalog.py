@@ -16,9 +16,14 @@ also halves its frames), ~40x smaller.
   chunked classifier scores only the top ``shortlist``.  The shortlist is
   taken by a stable descending sort, so equal proxies keep the lower row
   first, as ``lax.top_k`` does (padded rows are -inf and tie).  Stage 1
-  (every chunk's proxy and the mask) is recorded as an
+  (the proxy of every row and the mask) is recorded as an
   ``ecw.catalog.proxy`` span (:mod:`..runtime.profiler`), device-timed on
-  the card.
+  the card, with the K3 launches inside it as ``launches``.
+
+:func:`maxsim_proxy_fast` is one call over every row it is given: on the
+card kernel K3 (:mod:`..ops.maxsim_cuda`, two launches), on the CPU its
+plain version :func:`maxsim_proxy_fast_plain` over ``PLAIN_ROWS`` rows at
+a time.
 
 The float classifier is the model's own; with ``quantized_params``
 (:func:`..models.quant.quantize_efficient_classifier`) and calibrated
@@ -41,6 +46,7 @@ from typing import Any, Dict
 import torch
 
 from ..models.quant import make_quantized_kws_apply
+from ..ops import maxsim_cuda
 from ..runtime import profiler
 from ..runtime.precision import reference_precision
 from .model import EfficientKWSModel, _safe_normalize, masked_sims
@@ -179,11 +185,35 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a, b, out_dtype=torch.float32)
 
 
+# keyword rows per block of the plain version: its [L, rows * T_k, T_u] f32
+# maps stay ~86 MB at LEF's 75 x 750 however large the catalog
+PLAIN_ROWS = 128
+
+
 def maxsim_proxy_fast(kwd, utt_n, kwd_mask, utt_mask_p, dtype=torch.bfloat16) -> torch.Tensor:
     """:func:`maxsim_proxy`'s reduction over a cheaper similarity: operands
     rounded to ``dtype`` and products summed in f32, the utterance side
     normalized once per utterance (``utt_n = _safe_normalize(utt_p)[0]``,
-    [L, T_u, U]).  Returns [chunk] f32."""
+    [L, T_u, U]).  ``kwd`` [rows, L, T_k, U] → [rows] f32.  CUDA tensors
+    go to kernel K3, which raises on what it does not take; others to
+    :func:`maxsim_proxy_fast_plain`, ``PLAIN_ROWS`` rows at a time."""
+    if kwd.device.type == "cuda":
+        return maxsim_cuda.maxsim_proxy(kwd, utt_n, kwd_mask, None if utt_mask_p is None else utt_mask_p[0],
+                                        dtype)
+    if kwd.shape[0] == 0:
+        return kwd.new_zeros((0,), dtype=torch.float32)
+    return torch.cat([
+        maxsim_proxy_fast_plain(kwd[i:i + PLAIN_ROWS], utt_n,
+                                None if kwd_mask is None else kwd_mask[i:i + PLAIN_ROWS], utt_mask_p, dtype)
+        for i in range(0, kwd.shape[0], PLAIN_ROWS)
+    ])
+
+
+def maxsim_proxy_fast_plain(kwd, utt_n, kwd_mask, utt_mask_p, dtype=torch.bfloat16) -> torch.Tensor:
+    """The plain version of :func:`maxsim_proxy_fast` on a block of rows, in
+    torch on any device: the normalized keyword frames cast to ``dtype``,
+    their f32 similarity maps [L, rows * T_k, T_u], then
+    :func:`_maxsim_reduce`.  Returns [rows] f32."""
     c, n_layers, t_k, u = kwd.shape
     kwd_n = _safe_normalize(kwd, 1e-6).to(dtype)
     # per layer, every keyword frame of the chunk against the utterance
@@ -223,16 +253,19 @@ def make_cascade_score_fn(model: EfficientKWSModel, chunk: int = 128, shortlist:
         assert shortlist <= total, f"shortlist ({shortlist}) exceeds catalog rows ({total})"
         utt_p, utt_mask_p = _project_utterance(model, utt, utt_mask)
         kwd, kwd_mask = catalog["kwd"], catalog["kwd_mask"]
-        with profiler.span("ecw.catalog.proxy", device=utt_p.device.type == "cuda", chunks=n_pad // chunk):
+        with profiler.span("ecw.catalog.proxy", device=utt_p.device.type == "cuda",
+                           chunks=n_pad // chunk) as span:
+            launched = maxsim_cuda.launches
             if proxy_dtype == "float32":
-                parts = [maxsim_proxy(kwd[i:i + chunk], utt_p, kwd_mask[i:i + chunk], utt_mask_p)
-                         for i in range(0, n_pad, chunk)]
+                proxy = torch.cat([maxsim_proxy(kwd[i:i + chunk], utt_p, kwd_mask[i:i + chunk], utt_mask_p)
+                                   for i in range(0, n_pad, chunk)])
             else:
                 utt_n = _safe_normalize(utt_p, 1e-6)[0]  # once per utterance
-                dtype = getattr(torch, proxy_dtype)
-                parts = [maxsim_proxy_fast(kwd[i:i + chunk], utt_n, kwd_mask[i:i + chunk], utt_mask_p, dtype)
-                         for i in range(0, n_pad, chunk)]
-            proxy = torch.where(catalog["mask"] > 0, torch.cat(parts), float("-inf"))
+                # every row in one call, looked up by name at call time
+                proxy = maxsim_proxy_fast(kwd, utt_n, kwd_mask, utt_mask_p, getattr(torch, proxy_dtype))
+            proxy = torch.where(catalog["mask"] > 0, proxy, float("-inf"))
+            if span is not None:  # None while recording is off
+                span.attrs["launches"] = maxsim_cuda.launches - launched
         proxy = _gathered(catalog, proxy)
         idx = shortlist_rows(proxy, shortlist)
         if shard is not None:

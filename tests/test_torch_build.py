@@ -23,3 +23,7 @@ def test_digest_follows_included_headers_and_flags(tmp_path):
 
 def test_k2_source_includes_its_header():
     assert "hopper.cuh" in [h.name for h in local_headers(CSRC_DIR / "matmul_s8.cu")]
+
+
+def test_k3_source_includes_its_header():
+    assert "hopper.cuh" in [h.name for h in local_headers(CSRC_DIR / "maxsim.cu")]

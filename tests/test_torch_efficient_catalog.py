@@ -15,8 +15,14 @@ ResNet-18; chunks of 4 keywords).
   within atol 2e-2 (the JAX test's tolerance) and against JAX's fast proxy
   within 1e-5; ``maxsim_proxy`` against JAX's within 1e-5;
 * unpadded catalogs and shortlists off the chunk raise;
-* the cascade records one ``ecw.catalog.proxy`` span a call, and its
-  probabilities do not depend on recording.
+* the cascade records one ``ecw.catalog.proxy`` span a call (``launches``
+  0 on the CPU), and its probabilities do not depend on recording;
+* ``maxsim_proxy_fast`` over a whole catalog on the CPU equals today's
+  per-chunk calls of its plain version (ragged N, partial masks, LEF- and
+  L-like shapes scaled down); the cascade calls it once per utterance by
+  its module name, over every row; CPU tensors never reach kernel K3's
+  wrapper; K3's launch plan at the paper-2 configs' shapes, and what it
+  refuses.
 """
 
 import time
@@ -35,6 +41,7 @@ from enhance_cb_whisper_tpu_torch.convert import from_flax_efficient_variables
 from enhance_cb_whisper_tpu_torch.efficient_kws import catalog as pc
 from enhance_cb_whisper_tpu_torch.efficient_kws import model as pm
 from enhance_cb_whisper_tpu_torch.models.quant import calibrate_act_scales, quantize_efficient_classifier
+from enhance_cb_whisper_tpu_torch.ops import maxsim_cuda
 from enhance_cb_whisper_tpu_torch.runtime import profiler
 
 L, D, U, CHUNK = 2, 16, 8, 4
@@ -224,7 +231,8 @@ def test_cascade_proxy_span_and_recording_change_nothing(proxy_dtype):
     on = [score(catalog, utt, utt_mask) for _ in range(2)]
     got = [s for s in profiler.spans(since_s=t0) if s["name"] == "ecw.catalog.proxy"]
     assert len(got) == 2
-    assert all(s["attrs"] == {"chunks": catalog["kwd"].shape[0] // CHUNK} and s["device_ms"] is None for s in got)
+    assert all(s["attrs"] == {"chunks": catalog["kwd"].shape[0] // CHUNK, "launches": 0}
+               and s["device_ms"] is None for s in got)
     previous = profiler.set_recording(False)
     try:
         t1 = time.perf_counter()
@@ -233,3 +241,103 @@ def test_cascade_proxy_span_and_recording_change_nothing(proxy_dtype):
     finally:
         profiler.set_recording(previous)
     assert torch.equal(on[0], off) and torch.equal(on[1], off)
+
+
+def _proxy_inputs(rng, n, layers, tk, tu, units, dtype):
+    """A catalog of ``n`` keywords with partial keyword masks (some keywords
+    all masked, their masked frames zero) and an utterance whose mask has
+    holes and a masked tail."""
+    kwd_mask = (rng.random((n, layers, tk)) > 0.3).astype(np.float32)
+    kwd_mask[::9] = 0.0
+    kwd = rng.standard_normal((n, layers, tk, units)).astype(np.float32) * kwd_mask[..., None]
+    utt = rng.standard_normal((1, layers, tu, units)).astype(np.float32)
+    utt_mask = (rng.random((1, layers, tu)) > 0.2).astype(np.float32)
+    utt_mask[:, :, -(tu // 5):] = 0.0
+    t = torch.from_numpy
+    return (t(kwd).to(dtype), pm._safe_normalize(t(utt), 1e-6)[0], t(kwd_mask).to(dtype), t(utt_mask))
+
+
+@pytest.mark.parametrize("shape", [(3, 15, 150, 64), (2, 30, 300, 256)], ids=["LEF", "L"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_whole_catalog_proxy_equals_the_chunked_calls(shape, dtype):
+    """One ``maxsim_proxy_fast`` call over a ragged catalog of 300 rows on
+    the CPU (blocks of ``PLAIN_ROWS``) = the per-chunk calls the cascade
+    made before, at the cell's chunk of 128 and at a chunk of 7."""
+    layers, tk, tu, units = shape
+    kwd, utt_n, kwd_mask, utt_mask = _proxy_inputs(np.random.default_rng(5), 300, layers, tk, tu, units, dtype)
+    whole = pc.maxsim_proxy_fast(kwd, utt_n, kwd_mask, utt_mask)
+    assert whole.shape == (300,) and whole.dtype == torch.float32 and torch.isfinite(whole).all()
+    for chunk in (128, 7):
+        parts = torch.cat([pc.maxsim_proxy_fast_plain(kwd[i:i + chunk], utt_n, kwd_mask[i:i + chunk], utt_mask)
+                           for i in range(0, 300, chunk)])
+        np.testing.assert_allclose(whole.numpy(), parts.numpy(), rtol=0, atol=1e-6)
+    assert torch.equal(whole[::9], torch.zeros(34))  # keywords with no valid frame
+
+
+def test_cascade_calls_the_proxy_by_module_name_once_over_every_row(monkeypatch):
+    """A wrapper installed as perfbench's catalog driver installs its own
+    sees one call per utterance, whose result covers the catalog's rows."""
+    _, _, port, groups, utt, utt_mask = _fixture("LEF")
+    catalog = pc.project_catalog(port, groups, chunk=CHUNK)
+    want = pc.make_cascade_score_fn(port, chunk=CHUNK, shortlist=8)(catalog, utt, utt_mask)
+    proxy_fast, calls = pc.maxsim_proxy_fast, []
+
+    def proxy(*args, **kwargs):
+        out = proxy_fast(*args, **kwargs)
+        calls.append(out)
+        return out
+
+    monkeypatch.setattr(pc, "maxsim_proxy_fast", proxy)
+    score = pc.make_cascade_score_fn(port, chunk=CHUNK, shortlist=8)
+    for k in range(2):
+        assert torch.equal(score(catalog, utt, utt_mask), want)
+        assert len(calls) == k + 1 and calls[-1].shape == (catalog["kwd"].shape[0],)
+
+
+def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
+    """On the CPU the cascade's proxy is the plain version: K3's wrapper is
+    not called and its launch count does not move."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached the K3 wrapper")
+
+    wrapper = maxsim_cuda.maxsim_proxy
+    monkeypatch.setattr(maxsim_cuda, "maxsim_proxy", refuse)
+    _, _, port, groups, utt, utt_mask = _fixture("LE")
+    catalog = pc.project_catalog(port, groups, chunk=CHUNK)
+    before = maxsim_cuda.launches
+    pc.make_cascade_score_fn(port, chunk=CHUNK, shortlist=8)(catalog, utt, utt_mask)
+    kwd, utt_n, kwd_mask, umask = _proxy_inputs(np.random.default_rng(2), 10, L, 6, 20, U, torch.float32)
+    assert pc.maxsim_proxy_fast(kwd, utt_n, kwd_mask, umask).shape == (10,)
+    assert pc.maxsim_proxy_fast(kwd[:0], utt_n, kwd_mask[:0], umask).shape == (0,)
+    assert maxsim_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        wrapper(kwd, utt_n, kwd_mask, umask[0])
+
+
+@pytest.mark.parametrize("variant, shape, bm, stages", [
+    ("LEF", (100352, 3, 75, 750, 64), 256, 4),
+    ("LE", (100352, 3, 150, 1500, 64), 256, 4),
+    ("L", (4096, 3, 150, 1500, 1024), 64, 4),
+    ("ragged", (1001, 2, 7, 130, 128), 64, 4),
+    ("one tile", (5, 1, 3, 40, 64), 256, 1),
+    ("dry run's U 8", (16, 2, 16, 32, 8), 256, 1),
+    ("U 96", (300, 2, 20, 300, 96), 64, 4),
+])
+def test_k3_launch_plan_at_the_configs_shapes(variant, shape, bm, stages):
+    """The paper-2 configs' shapes (eval-{LEF,LE,L}-*.yaml) and ragged ones:
+    one block per BM frames of a layer, the tile chosen from U, a ring no
+    deeper than the tiles to stream, within the shared memory a block has."""
+    n, layers, tk, tu, units = shape
+    plan = maxsim_cuda.launch_plan(n, layers, tk, tu, units)
+    assert (plan.bm, plan.stages) == (bm, stages)
+    assert plan.n_tiles * maxsim_cuda.BN >= tu > (plan.n_tiles - 1) * maxsim_cuda.BN
+    assert plan.blocks * plan.bm >= n * tk * layers and plan.smem <= maxsim_cuda.SMEM_LIMIT
+    if units <= 64:
+        assert 2 * plan.smem <= 228 * 1024  # two blocks to an SM
+
+
+@pytest.mark.parametrize("shape", [(10, 3, 75, 750, 12), (10, 3, 75, 750, 4), (0, 3, 75, 750, 64),
+                                   (10, 3, 75, 40000, 1024)])
+def test_k3_launch_plan_refuses_what_the_kernel_does_not_take(shape):
+    with pytest.raises(ValueError):
+        maxsim_cuda.launch_plan(*shape)
