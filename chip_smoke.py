@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (enhance_cb_whisper_tpu_torch) on one GPU.
 
     python3 chip_smoke.py          # every phase
-    python3 chip_smoke.py --k1     # K1 alone: its build, phase A and its phase C times
+    python3 chip_smoke.py --k1     # K1 alone: its build, phase A (and the features' span) and phase C times
     python3 chip_smoke.py --k3     # K3 alone: its build and phase A3 (checks and times)
     python3 chip_smoke.py --serving  # the kernels' build, phase A2 and phase F alone
     python3 chip_smoke.py --levers   # the kernels' build, phase A2 and phase G alone
@@ -19,9 +19,13 @@ A.  holds the fused mel kernel K1 (csrc/mel.cu) against its plain torch
     version on the card at 80 and 128 mels: [4, 480000], a 37 s
     [2, 592000] batch, [3, 4960] (31 frames a row, fewer than a tile) and
     [1, 480] (3 frames, both reflected edges in one tile), and at 80 mels
-    [1, 760000], the whole 47.5 s utterance of phase B, and [16, 480000],
-    the batch phase J's audio-mode step gives it, rtol 1e-4 / atol 1e-5
-    (the JAX package's Pallas-kernel tolerance);
+    [1, 760000], the whole 47.5 s utterance of phase B, and at both
+    [1, 480000] and [16, 480000], the batch phase J's audio-mode step gives
+    it, rtol 1e-4 / atol 1e-5 (the JAX package's Pallas-kernel tolerance);
+    then ``prepare_features`` on its own stream: equal to K1 on the
+    caller's stream bit for bit, alone and beside another thread's busy
+    stream, one device-timed ``ecw.audio.features`` span a call (bins,
+    samples, one K1 launch);
 A2. holds the fused s8 matmul + requant kernel K2 (csrc/matmul_s8.cu)
     against its plain version at every shape the int8 ResNet-50 scorer
     gives it (22 launches per chunk of 8 keyword maps at 150x750, 9
@@ -323,10 +327,12 @@ def phase_a(device) -> float:
     worst = 0.0
     # 3000 and 3700 frames a row; 31 frames, fewer than a tile; 3 frames,
     # both reflected edges in one tile; the 47.5 s utterance of phase B
-    # (4750 frames) and phase J3's batch at the main path's 80 mels
+    # (4750 frames), and phase J3's batch and one 30 s segment at 80 and at
+    # whisper-large-v3's 128 mels
     cases = [(shape, (80, 128)) for shape in ((4, 480000), (2, 592000), (3, 4960), (1, 480))]
     cases.append(((1, int(16000 * LONGFORM_SECONDS)), (80,)))
-    cases.append(((J_BATCH, 480000), (80,)))  # phase J3's step: 16 utterances of 30 s
+    cases.append(((J_BATCH, 480000), (80, 128)))  # phase J3's step: 16 utterances of 30 s
+    cases.append(((1, 480000), (80, 128)))
     for (batch, n_samples), mel_counts in cases:
         audio = torch.from_numpy(_audio(batch, n_samples, rng)).to(device)
         for n_mels in mel_counts:
@@ -347,6 +353,88 @@ def phase_a(device) -> float:
             if not ok:
                 raise RuntimeError("mel kernel disagrees with its plain version")
     return worst
+
+
+def phase_a_features(device) -> None:
+    """``prepare_features`` on the card at 80 and 128 mels: its features
+    equal K1 and the epilogue run on the caller's stream, bit for bit; each
+    call records one device-timed ``ecw.audio.features`` span with its bins,
+    samples and one K1 launch.  Then 16 segments' features made while
+    another thread keeps the card busy on the default stream (as a serving
+    worker does): each equals its quiet twin, so the caller's stream is
+    ordered after the features' own; their spans' device times stay near the
+    quiet ones.  For scale, the pageable copy of one 30 s clip to the card
+    alone (CUDA events on a stream of its own)."""
+
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.audio.io import prepare_features
+    from enhance_cb_whisper_tpu_torch.ops import mel_cuda
+    from enhance_cb_whisper_tpu_torch.ops.mel import apply_dynamic_range
+    from enhance_cb_whisper_tpu_torch.runtime import profiler
+
+    rng = np.random.default_rng(SEED + 5)
+    clips = [_audio(1, 16000 * 20, rng)[0] for _ in range(16)]
+
+    def quiet(clip, n_mels):
+        padded = np.zeros((480000,), np.float32)
+        padded[: clip.size] = clip
+        return apply_dynamic_range(mel_cuda.log10_mel(torch.from_numpy(padded[None]).to(device), n_mels))
+
+    def features_spans():
+        return [s for s in profiler.spans() if s["name"] == "ecw.audio.features"]
+
+    for n_mels in (80, 128):
+        profiler.reset()
+        for clip in clips[:4]:
+            got, _ = prepare_features(clip, n_mels=n_mels, device=device)
+            if not torch.equal(got, quiet(clip, n_mels)):
+                raise RuntimeError(f"prepare_features at {n_mels} mels differs from K1 on the caller's stream")
+        spans = features_spans()
+        attrs = {(s["attrs"]["n_mels"], s["attrs"]["samples"], s["attrs"]["launches"]) for s in spans}
+        ms = [s["device_ms"] for s in spans]
+        if len(spans) != 4 or attrs != {(n_mels, 480000, 1)} or not all(m is not None and m > 0 for m in ms):
+            raise RuntimeError(f"ecw.audio.features spans at {n_mels} mels: {spans}")
+        print(f"phase A: prepare_features at {n_mels} mels equals K1 on the caller's stream; "
+              f"ecw.audio.features attrs {sorted(attrs)}, device_ms {ms!r}")
+
+    want = [quiet(clip, 128) for clip in clips]
+    busy = torch.randn(4096, 4096, device=device)
+    stop = threading.Event()
+
+    def worker():
+        torch.cuda.set_device(device)
+        while not stop.is_set():
+            for _ in range(8):
+                busy.matmul(busy)
+            torch.cuda.synchronize(device)
+
+    thread = threading.Thread(target=worker, daemon=True)
+    profiler.reset()
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        made = [prepare_features(clip, n_mels=128, device=device)[0] for clip in clips]
+        host_ms = (time.perf_counter() - t0) / len(clips) * 1e3
+        sums = [m.sum() for m in made]  # read on the caller's stream at once
+        torch.cuda.synchronize(device)
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise RuntimeError("the busy thread did not stop")
+    for m, w, total in zip(made, want, sums):
+        if not torch.equal(m, w) or float(total) != float(w.sum()):
+            raise RuntimeError("features made beside a busy stream differ from their quiet twins")
+    ms = sorted(s["device_ms"] for s in features_spans())
+    padded = torch.from_numpy(np.zeros((1, 480000), np.float32))
+    side = torch.cuda.Stream(device)
+    with torch.cuda.stream(side):
+        copy_ms = _median_ms(lambda: padded.to(device))
+    print(f"phase A: 16 features beside a busy stream equal their quiet twins; ecw.audio.features "
+          f"device_ms median {statistics.median(ms)!r} (min {ms[0]!r}, max {ms[-1]!r}), host "
+          f"{host_ms!r} ms a call; the pageable copy of [1, 480000] f32 alone {copy_ms!r} ms "
+          f"[CUDA events, median of 25]")
 
 
 def k2_launch_shapes(cfg, size=KWS_SIZE, batch=CHUNK):
@@ -4728,9 +4816,9 @@ def _stft_log10_mel(audio, window, fb):
 
 
 def phase_c(device):
-    """K1 at [1, 480000], [8, 480000] and the longform [1, 760000], 80 mels:
-    device time from CUDA-graph
-    replays, beside the least time of one graph node; the kernel's own run
+    """K1 at [1, 480000], [8, 480000] and the longform [1, 760000], 80 mels,
+    and at [1, 480000] and [16, 480000], 128 mels (whisper-large-v3): device
+    time from CUDA-graph replays, beside the least time of one graph node; the kernel's own run
     time (CUPTI); the eager wrapper's time and its host time per call; the
     plain version's eager time (it copies its tables to the card on every
     call, so it cannot be captured); and for scale the cuFFT sequence of
@@ -4746,12 +4834,13 @@ def phase_c(device):
     print(f"phase C: one kernel node that writes one float: {floor!r} ms [CUDA-graph replays], "
           f"the least time of any launch in this timing")
     window = torch.hann_window(400, periodic=True, device=device)
-    fb = torch.from_numpy(mel_filter_bank(80)).to(device)
     out = {}
-    for batch, n_samples in ((1, 480000), (8, 480000), (1, int(16000 * LONGFORM_SECONDS))):
+    for batch, n_samples, n_mels in ((1, 480000, 80), (8, 480000, 80), (1, int(16000 * LONGFORM_SECONDS), 80),
+                                     (1, 480000, 128), (J_BATCH, 480000, 128)):
+        fb = torch.from_numpy(mel_filter_bank(n_mels)).to(device)
         audio = torch.from_numpy(_audio(batch, n_samples, rng)).to(device)
-        kernel = lambda: mel_cuda.log10_mel(audio, 80)  # noqa: E731
-        plain = lambda: log10_mel_plain(audio, 80)  # noqa: E731
+        kernel = lambda: mel_cuda.log10_mel(audio, n_mels)  # noqa: E731
+        plain = lambda: log10_mel_plain(audio, n_mels)  # noqa: E731
         stft = lambda: _stft_log10_mel(audio, window, fb)  # noqa: E731
         g1, g2 = _graph_ms(kernel), _graph_ms(kernel)
         # plain, kernel, kernel, plain: drift in clocks shows as a spread
@@ -4764,15 +4853,15 @@ def phase_c(device):
             stft_text = f"{stft_ms!r} ms [CUDA-graph replays], max |diff| vs plain {stft_err!r}"
         except RuntimeError as err:
             stft_text = f"not measured: {err}"
-        print(f"phase C: K1 [{batch}, {n_samples}] n_mels=80: device {ms!r} ms ({g1!r}, {g2!r}) "
+        print(f"phase C: K1 [{batch}, {n_samples}] n_mels={n_mels}: device {ms!r} ms ({g1!r}, {g2!r}) "
               f"[CUDA-graph replays], of which the kernel runs {alone!r} ms [CUPTI, mean of 20]; "
               f"eager wrapper {eager!r} ms ({e1!r}, {e2!r}), its host time {host!r} ms a call "
               f"[mean of 200 enqueued back to back]; plain torch "
               f"eager {plain_ms!r} ms ({p1!r}, {p2!r}); medians of 25 CUDA-event timings each")
-        print(f"phase C: [{batch}, {n_samples}] torch.stft (cuFFT) -> |.|^2 -> drop last frame -> "
+        print(f"phase C: [{batch}, {n_samples}] n_mels={n_mels} torch.stft (cuFFT) -> |.|^2 -> drop last frame -> "
               f"filterbank -> log10, several library calls the port never makes, for scale only: "
               f"{stft_text}")
-        out[(batch, n_samples)] = (ms, plain_ms)
+        out[(batch, n_samples, n_mels)] = (ms, plain_ms)
     return out
 
 
@@ -4796,11 +4885,11 @@ def k1_bound(n_samples: int = 480000, n_mels: int = 80) -> dict:
 
 
 def print_k1_bound() -> dict:
-    """Prints K1's bound at [1, 480000] and at the longform [1, 760000];
-    returns the first."""
-    for n_samples in (int(16000 * LONGFORM_SECONDS), 480000):
-        k1 = k1_bound(n_samples)
-        print(f"phase C: K1 bound at [1, {n_samples}] n_mels=80 {k1['ms']!r} ms, {k1['by']}-bound "
+    """Prints K1's bound at the longform [1, 760000], at [1, 480000] with
+    128 mels (whisper-large-v3) and at [1, 480000]; returns the last."""
+    for n_samples, n_mels in ((int(16000 * LONGFORM_SECONDS), 80), (480000, 128), (480000, 80)):
+        k1 = k1_bound(n_samples, n_mels)
+        print(f"phase C: K1 bound at [1, {n_samples}] n_mels={n_mels} {k1['ms']!r} ms, {k1['by']}-bound "
               f"({k1['bytes']} B; {k1['ops']!r} FP32 operations with a real FFT per frame and "
               f"{k1['taps']} nonzero filterbank taps); K1's direct DFT would need "
               f"{k1['dft_ms']!r} ms at the FP32 peak")
@@ -4907,6 +4996,7 @@ def main(argv) -> int:
         print(f"build: {KERNEL_SOURCE} compiled and loaded in {time.perf_counter() - t_start:.1f} s")
         _print_ptxas("K1", mel_lib)
         phase_a(device)
+        phase_a_features(device)
         phase_c(device)
         print_k1_bound()
         print(_card())
@@ -4976,6 +5066,7 @@ def main(argv) -> int:
         return 0
 
     max_abs_err = phase_a(device)
+    phase_a_features(device)
     mismatches, k2_err = phase_a2(device, shapes)
     for name, group in p2_shapes.items():
         more, err = phase_a2(device, group, f"chunk of {P2_CHUNK} paper-2 {name} maps", ragged=())
@@ -5005,7 +5096,7 @@ def main(argv) -> int:
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(_card())
-    ms, plain_ms = times[(1, 480000)]
+    ms, plain_ms = times[(1, 480000, 80)]
     print(json.dumps({"kernels": [
         {"name": "log10_mel", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
          "launches": fp32_launches["mel"], "cli_launches": cli_launches["mel"],

@@ -19,16 +19,21 @@ machine without ffmpeg).
 from __future__ import annotations
 
 import ctypes
+import threading
 import wave
 from math import gcd
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from ..ops import mel_cuda
 from ..ops.mel import HOP_LENGTH, N_SAMPLES, SAMPLE_RATE, log_mel_spectrogram
+from ..runtime import profiler
 
 _resampler = None
+_streams: Dict[int, "torch.cuda.Stream"] = {}  # card index -> the features' stream
+_streams_lock = threading.Lock()
 
 
 def read_wav(path: str) -> Tuple[np.ndarray, int]:
@@ -115,7 +120,35 @@ def prepare_features(
         padded[:n] = waveform
         mask = np.zeros((target,), np.int32)
         mask[:n] = 1
-    audio = torch.from_numpy(padded[None]).to(device)
-    features = log_mel_spectrogram(audio, n_mels=n_mels)
+    device = torch.device(device)
+    caller = torch.cuda.current_stream(device) if device.type == "cuda" else None
+    side = _features_stream(caller) if caller is not None else None
+    # on a card the features run on their own stream (see _features_stream);
+    # torch.cuda.stream(None) changes nothing
+    with torch.cuda.stream(side), profiler.span(
+            "ecw.audio.features", device=side is not None, n_mels=n_mels, samples=int(padded.size)) as span:
+        launched = mel_cuda.launches
+        features = log_mel_spectrogram(torch.from_numpy(padded[None]).to(device), n_mels=n_mels)
+        if span is not None:  # None while recording is off
+            span.attrs["launches"] = mel_cuda.launches - launched
+    if side is not None:
+        caller.wait_stream(side)
+        features.record_stream(caller)
     frame_mask = mask[::HOP_LENGTH][: features.shape[-1]]
     return features, frame_mask[None]
+
+
+def _features_stream(caller: "torch.cuda.Stream") -> "torch.cuda.Stream":
+    """The features' own stream on the card of ``caller`` (one per card).
+
+    On the caller's stream, which a serving worker thread shares, the
+    features span's events would also time the decode work other threads
+    queue in between, and the audio's copy would wait for it.  The caller's
+    stream is ordered after the features (``wait_stream``), and their
+    output is recorded on it, so the allocator keeps its memory until the
+    work queued there when it is freed has run."""
+    side = _streams.get(caller.device_index)
+    if side is None:
+        with _streams_lock:
+            side = _streams.setdefault(caller.device_index, torch.cuda.Stream(caller.device))
+    return side

@@ -137,6 +137,11 @@ class GenerationOptions:
         return self.language_token_id is None and len(self.lang_token_ids) > 0
 
 
+def _nbytes(layers: List[Dict[str, torch.Tensor]]) -> int:
+    """Bytes of a per-layer list of cache tensors, from their shapes."""
+    return sum(t.numel() * t.element_size() for layer in layers for t in layer.values())
+
+
 def _compression_ratio(tokens: Sequence[int], vocab_size: int) -> float:
     """zlib compression ratio over token bytes (high = repetitive).  The
     byte width comes from the vocab size, not from the sequence (HF
@@ -320,6 +325,7 @@ class WhisperGenerator:
                            dtype=self.dtype, kv_int8=self._kv_cache_int8,
                            staging_window=self._kv_staging,
                            num_heads=decoder_heads(self.params, self.config))
+        profiler.add_counts("ecw.scheduler.window", self_kv_bytes=_nbytes(cache["layers"]))
         logits = self._by_segment(prompt, cache, ctx, prefill=True)
         cache["index"] = prompt.shape[1] - 1
         if "base" in cache:
@@ -554,6 +560,7 @@ class WhisperGenerator:
         if enc is None:
             enc = self._encode(seg)
         cross_kv = self._cross_kv_fn(enc)
+        profiler.add_counts("ecw.scheduler.window", cross_kv_bytes=_nbytes(cross_kv))
 
         # language auto-detection: each row once, on its own first window
         # (frames [0:3000], HF's detect_language operand)

@@ -146,9 +146,10 @@ def log10_mel(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
             batch, n_samples, n_mels, fb_w.numel())
     # the raw handle of the current stream: torch.cuda.current_stream() would
     # build a Stream object, which costs more than the rest of this call.  A
-    # thread that sets no stream of its own (the prefetch thread) gets the
-    # legacy default stream, the one the decode runs on, so a mel made there
-    # is ordered before the work that reads it: keep it that way
+    # thread that sets no stream of its own gets the legacy default stream,
+    # the one the decode runs on, so a mel made there is ordered before the
+    # work that reads it: keep it that way (``prepare_features`` runs K1 on
+    # its own stream and orders the caller's stream after it)
     if idx == torch.cuda.current_device():
         err = _library().ecw_log10_mel(*args, torch._C._cuda_getCurrentRawStream(idx))
     else:

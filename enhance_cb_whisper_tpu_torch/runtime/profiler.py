@@ -8,8 +8,9 @@ enhance_cb_whisper_tpu/runtime/profiler.py).
   a directory, per operation: leaf ops only, repeats summed, the JAX
   package's contract;
 * :class:`RTFxMeter` — seconds of audio per second of wall clock;
-* :func:`span`, :func:`interval`, :func:`spans` — the program's own spans
-  at its layer boundaries, kept in a bounded in-memory ring (below).
+* :func:`span`, :func:`interval`, :func:`add_counts`, :func:`spans` — the
+  program's own spans at its layer boundaries and their counters, kept in
+  a bounded in-memory ring (below).
 
 The JAX package tells device tracks from host ones by a process name
 without "CPU".  A Kineto trace names its host process after the program,
@@ -53,7 +54,16 @@ tells them from ATen operators and from a caller's own annotations:
                             ``ecw.decode.step``
 ``ecw.catalog.proxy``       the cascade's stage 1: every chunk's proxy and
                             the mask (``chunks``; device-timed)
+``ecw.audio.features``      ``prepare_features``: the audio's copy to the
+                            card, kernel K1 and the log-mel epilogue, on
+                            the features' own stream (``n_mels``,
+                            ``samples``, ``launches``: K1's; device-timed)
 =========================  ==============================================
+
+Counters that a span gathers while it is open (:func:`add_counts`):
+``ecw.scheduler.window`` takes ``self_kv_bytes`` (the self-attention
+caches its prefills allocated, beam rows included) and ``cross_kv_bytes``
+(its cross-attention K/V, one per slot), both from the tensors' shapes.
 
 :func:`to_trace_us` maps a span's ``perf_counter_ns`` time onto a Chrome
 trace's ``ts`` through one anchor pair ``(perf_counter_ns, time_ns)`` read
@@ -373,6 +383,19 @@ def interval(name: str, start_ns: int, id: Any = None, **attrs) -> None:
     stack = rec.stack()
     rec.ring.append((next(rec.appends), next(rec.seq), name, int(start_ns), end,
                      stack[-1].seq if stack else None, id, rec.local.thread, attrs, None))
+
+
+def add_counts(name: str, **counts: int) -> None:
+    """Add ``counts`` to the attributes of the innermost span named
+    ``name`` open on this thread (a counter summed while the span is open);
+    nothing when no such span is open or recording is off."""
+    if not RECORDER.recording:
+        return
+    for open_span in reversed(RECORDER.stack()):
+        if open_span.name == name:
+            for key, value in counts.items():
+                open_span.attrs[key] = open_span.attrs.get(key, 0) + value
+            return
 
 
 def spans(since_s: Optional[float] = None, until_s: Optional[float] = None) -> List[Dict[str, Any]]:

@@ -275,7 +275,10 @@ def test_window_span_per_launch(port_gen, case, monkeypatch):
     _packed(port_gen, _stream(lengths, seed), _options(GenerationOptions, overrides), slots, **kwargs)
     windows = [s for s in profiler.spans(since_s=t0) if s["name"] == "ecw.scheduler.window"]
     assert [s["id"] for s in windows] == launches and len(launches) > 1
-    assert all(s["attrs"] == {"slots": slots} for s in windows)
+    # the launch's width, and the bytes of the decoder caches it allocated
+    # (their values: test_torch_profiler.py)
+    assert all(s["attrs"]["slots"] == slots and s["attrs"]["self_kv_bytes"] > 0 and s["attrs"]["cross_kv_bytes"] > 0
+               and set(s["attrs"]) == {"slots", "self_kv_bytes", "cross_kv_bytes"} for s in windows)
     if case == "more_slots_than_stream":
         assert all(len(ids) < slots for ids in launches), launches
 

@@ -336,3 +336,59 @@ def test_device_timing_is_read_lazily_from_reused_event_pairs(recorder, monkeypa
     assert _FakeEvent.made == 4  # pairs are made once and reused
     assert streams == [0]  # the stream object is kept while it stays current
     assert [s["device_ms"] for s in got if s["name"] != "ecw.t.host"] == [None, 1.0, 1.0]
+
+
+# ------------------------------------------------- features and cache counters
+
+
+def test_features_span_records_bins_samples_and_launches(recorder, monkeypatch):
+    """``prepare_features`` records one ``ecw.audio.features`` span a call:
+    its mel bins, the samples it transformed (30 s, or the clip padded to a
+    hop) and the K1 launches inside, counted by the kernel's wrapper; a
+    stand-in wrapper counts as the real one does and takes the plain path."""
+    import numpy as np
+
+    from enhance_cb_whisper_tpu_torch.audio.io import prepare_features
+    from enhance_cb_whisper_tpu_torch.ops import mel_cuda
+    from enhance_cb_whisper_tpu_torch.ops.mel import log10_mel_plain
+
+    def counted(audio, n_mels=80):
+        mel_cuda._count_launch()
+        return log10_mel_plain(audio, n_mels)
+
+    monkeypatch.setattr(mel_cuda, "log10_mel", counted)
+    prepare_features(np.zeros(16000 * 12, np.float32), n_mels=128, device="cpu")
+    prepare_features(np.ones(16000 * 40 + 5, np.float32), n_mels=80, device="cpu")
+    got = [s for s in profiler.spans() if s["name"] == "ecw.audio.features"]
+    assert [s["attrs"] for s in got] == [{"n_mels": 128, "samples": 480000, "launches": 1},
+                                         {"n_mels": 80, "samples": 640160, "launches": 1}]
+    assert all(s["device_ms"] is None for s in got)  # device-timed on a card only
+
+
+def test_window_counts_the_decoder_caches_it_allocated(recorder):
+    """Each ``ecw.scheduler.window`` carries the bytes of the caches its
+    launch allocated, from their shapes: the self-attention K/V of every
+    beam row over the whole target length, and one cross-attention K/V per
+    slot over the encoder's positions, in every decoder layer."""
+    import numpy as np
+
+    from enhance_cb_whisper_tpu_torch.convert import from_jax_whisper_params
+    from enhance_cb_whisper_tpu_torch.decoding.generate import GenerationOptions, WhisperGenerator
+    from enhance_cb_whisper_tpu_torch.models.whisper import WhisperConfig, init_whisper_params
+
+    cfg = WhisperConfig(vocab_size=128, num_mel_bins=8, d_model=32, encoder_layers=1, encoder_attention_heads=4,
+                        decoder_layers=3, decoder_attention_heads=4, encoder_ffn_dim=64, decoder_ffn_dim=64,
+                        max_source_positions=24, max_target_positions=30, decoder_start_token_id=3,
+                        eos_token_id=2, pad_token_id=0)
+    params = from_jax_whisper_params(init_whisper_params(np.random.default_rng(0), cfg), device="cpu")
+    gen = WhisperGenerator(cfg, params, device="cpu")
+    opts = GenerationOptions(decoder_start_token_id=3, no_timestamps_token_id=100, prev_sot_token_id=99,
+                             eos_token_id=2, pad_token_id=0, num_beams=3, max_target_positions=30)
+    stream = [(torch.randn(1, 8, 48, generator=torch.Generator().manual_seed(i)), None) for i in range(3)]
+    slots, beams, layers, width, f32 = 2, 3, 3, 32, 4
+    assert len(list(gen.generate_packed(iter(stream), opts, slots=slots))) == 3
+    windows = [s for s in profiler.spans() if s["name"] == "ecw.scheduler.window"]
+    assert len(windows) == 2  # three utterances of one window each over two slots
+    for w in windows:
+        assert w["attrs"]["self_kv_bytes"] == layers * 2 * slots * beams * 30 * width * f32
+        assert w["attrs"]["cross_kv_bytes"] == layers * 2 * slots * 24 * width * f32

@@ -265,7 +265,8 @@ def test_queue_wait_span_per_ticket(port_cb):
     assert sorted(s["id"] for s in waits) == tickets
     assert all(t0 < s["start_s"] <= s["end_s"] and s["thread"] == "ecw-serving" for s in waits)
     windows = {s["seq"]: s for s in got if s["name"] == "ecw.scheduler.window"}
-    assert windows and all(s["attrs"] == {"slots": 2} for s in windows.values())
+    assert windows and all(s["attrs"]["slots"] == 2 and set(s["attrs"]) == {"slots", "self_kv_bytes", "cross_kv_bytes"}
+                           for s in windows.values())
     # the occupied slots' orders (stream order is ticket order); a
     # segment that takes a second window appears in two launches
     assert {o for s in windows.values() for o in s["id"]} == set(tickets)
