@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # every phase
     python3 chip_smoke.py --k1     # K1 alone: its build, phase A (and the features' span) and phase C times
     python3 chip_smoke.py --k3     # K3 alone: its build and phase A3 (checks and times)
+    python3 chip_smoke.py --k4     # K4 alone: its build and phase A4 (checks and times)
     python3 chip_smoke.py --serving  # the kernels' build, phase A2 and phase F alone
     python3 chip_smoke.py --levers   # the kernels' build, phase A2 and phase G alone
     python3 chip_smoke.py --train    # phase H (paper-1 training) alone
@@ -44,6 +45,14 @@ A3. holds the fused MaxSim proxy kernel K3 (csrc/maxsim.cu) against its
     partial masks, fp16 products and f32 and fp16 catalogs: max |diff| <= 1e-4 (the order
     of f32 sums), two launches a call; prints its device time beside its
     bound and the chunked path's time at the LEF cell and the L shape;
+A4. holds the beam self-attention kernel K4 (csrc/beam_attention.cu)
+    against its plain version (the rows gathered by the ancestry map, then
+    the decoder's attention) at the serve cells' beam caches: a map [16, 5,
+    244], 16 and 20 heads of 64, lengths 124-243, uniform and re-parented
+    maps, prompt pads, f32 and bf16, 3 and 8 beams, and the tiny models'
+    head sizes 16 and 32 (tolerance: ``K4_TOL``, with its reason), one
+    launch a call; prints its device time beside its bytes bound, the
+    plain version's time and the host time of a call;
 B.  checks that building ``CBWhisper`` on the card turns TF32 off; checks
     the CUDA path against the CPU path on a tiny random CB-Whisper, in fp32
     and with int8 spotting on a K2-eligible ResNet (identical keywords and
@@ -61,7 +70,8 @@ B.  checks that building ``CBWhisper`` on the card turns TF32 off; checks
     scorer, once with the int8 scorer (``enable_int8_spotting``, calibrated
     on a warm-up utterance, stages 1-3 on K2), counting each kernel's
     launches over exactly each ``run_test`` (K1 once per utterance, K2 22
-    times per chunk of each window);
+    times per chunk of each window, K4 once per decoder layer of every beam
+    step, whose span reads ``reorder_bytes`` 0 and ``anc_layers`` 24);
 D.  runs the paper-1 KWS eval (``KWSEngine.test``) on the same ResNet-50
     over the 100-keyword catalog and 8 utterance stacks of 300-1500 frames,
     in fp32 and after ``enable_int8_scoring``: P/R/F1 with bootstrap CIs,
@@ -233,6 +243,8 @@ K2_SOURCE = "enhance_cb_whisper_tpu_torch/csrc/matmul_s8.cu"
 K2_REPLACES = "enhance_cb_whisper_tpu/ops/matmul_s8.py:61"
 K3_SOURCE = "enhance_cb_whisper_tpu_torch/csrc/maxsim.cu"
 K3_REPLACES = None  # no TPU kernel: the JAX package leaves the cascade's proxy to XLA
+K4_SOURCE = "enhance_cb_whisper_tpu_torch/csrc/beam_attention.cu"
+K4_REPLACES = None  # no TPU kernel: the JAX package leaves _ancestry_attention to XLA
 S8_STAGES = ("stage_1", "stage_2", "stage_3")
 KWS_SIZE = (150, 750)
 CHUNK = 8  # keyword maps per scorer call (CBWhisper and KWSEngine)
@@ -277,17 +289,18 @@ def _stacks(rng: np.random.Generator, n: int, n_layers: int, frames, dim: int):
 
 
 def build_kernels() -> None:
-    from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, maxsim_cuda, mel_cuda
+    from enhance_cb_whisper_tpu_torch.ops import beam_attention, matmul_s8_cuda, maxsim_cuda, mel_cuda
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        jobs = [pool.submit(m.build) for m in (mel_cuda, matmul_s8_cuda, maxsim_cuda)]
-        mel_lib, k2_lib, k3_lib = (job.result() for job in jobs)
-    print(f"build: {KERNEL_SOURCE}, {K2_SOURCE} and {K3_SOURCE} compiled in parallel and loaded in "
-          f"{time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(4) as pool:
+        jobs = [pool.submit(m.build) for m in (mel_cuda, matmul_s8_cuda, maxsim_cuda, beam_attention)]
+        mel_lib, k2_lib, k3_lib, k4_lib = (job.result() for job in jobs)
+    print(f"build: {KERNEL_SOURCE}, {K2_SOURCE}, {K3_SOURCE} and {K4_SOURCE} compiled in parallel and "
+          f"loaded in {time.perf_counter() - t0:.1f} s")
     _print_ptxas("K1", mel_lib)
     _print_ptxas("K2", k2_lib)  # four kernels: BM 64/128, with and without a residual
     _print_ptxas("K3", k3_lib)  # four row kernels (bf16/f16 x BM 64/128) and the reduction
+    _print_ptxas("K4", k4_lib)  # f32 and bf16
 
 
 def _print_ptxas(name: str, lib: str) -> None:
@@ -629,6 +642,149 @@ def phase_a3(device) -> dict:
         torch.cuda.empty_cache()
     print(f"phase A3: K3 = plain within {K3_ATOL} at {len(K3_CASES)} shapes (largest gap {worst!r})")
     return {"max_abs_err": worst, **timed[K3_TIMED[0]]}
+
+
+# the serve cells' beam caches: 16 slots x beam 5 over max_target_positions
+# 244, whisper-medium's 16 heads and whisper-large-v3's 20, positions
+# 124-243 written over a launch's 120 steps (and other beam counts)
+K4_ITEMS, K4_MAX_LEN = 16, 244
+K4_CASES = (  # label, beams, heads, head size, length, dtype, map ("uniform": any row anywhere; "beam": re-parented)
+    ("medium, first step", 5, 16, 64, 124, "float32", "uniform"),
+    ("medium, mid launch", 5, 16, 64, 184, "float32", "uniform"),
+    ("medium, last step", 5, 16, 64, 243, "float32", "uniform"),
+    ("medium, mid launch, beam map", 5, 16, 64, 184, "float32", "beam"),
+    ("v3, first step", 5, 20, 64, 124, "float32", "uniform"),
+    ("v3, mid launch", 5, 20, 64, 184, "float32", "uniform"),
+    ("v3, last step", 5, 20, 64, 243, "float32", "uniform"),
+    ("v3, mid launch, beam map", 5, 20, 64, 184, "float32", "beam"),
+    ("medium bf16, mid launch", 5, 16, 64, 184, "bfloat16", "uniform"),
+    ("v3 bf16, last step", 5, 20, 64, 243, "bfloat16", "beam"),
+    ("medium, 3 beams", 3, 16, 64, 150, "float32", "uniform"),
+    ("medium, 8 beams, bf16", 8, 16, 64, 200, "bfloat16", "beam"),
+    ("the tiny models' head size 16", 5, 4, 16, 37, "float32", "beam"),
+    ("head size 32, 4 beams, bf16", 4, 2, 32, 61, "bfloat16", "uniform"),
+)
+K4_TIMED = ("medium, mid launch", "v3, mid launch")
+# f32: only the order of the f32 sums differs (64-term dots, the softmax's
+# sum, a weighted sum over <= 243 positions): ~1e-7 of the output's scale,
+# held at 2e-6 of it.  bf16: both sides round each probability and the
+# output to bf16, and a last-bit difference in an f32 probability can move
+# its rounding by one bf16 step: two bf16 steps (2^-7) of the output's scale.
+K4_TOL = {"float32": 2e-6, "bfloat16": 2.0**-7}
+
+
+def _k4_inputs(gen, beams, heads, head_dim, length, dtype, kind, device):
+    """q, the two slabs (this step's token written at ``length - 1``), the
+    map and the self-attention mask of a serve cell's beam step: prompts
+    of 4-8 leading tokens then 0-24 pads (the fixed-width layout), the
+    rest attended."""
+    import torch
+
+    rows = K4_ITEMS * beams
+    q = (torch.randn((rows, 1, heads, head_dim), generator=gen, device=device) * head_dim**-0.5 * 2).to(dtype)
+    slabs = [torch.randn((rows, K4_MAX_LEN, heads, head_dim), generator=gen, device=device).to(dtype)
+             for _ in range(2)]
+    ident = torch.arange(beams, dtype=torch.int32, device=device)[None, :, None]
+    anc = ident.expand(K4_ITEMS, beams, K4_MAX_LEN).contiguous()
+    if kind == "uniform":
+        anc[:, :, :length - 1] = torch.randint(0, beams, (K4_ITEMS, beams, length - 1), generator=gen,
+                                               device=device, dtype=torch.int32)
+    else:  # the beam step's own re-parenting from the first written position on
+        from enhance_cb_whisper_tpu_torch.decoding.beam import _reparent
+
+        for cur_len in range(9, length):  # after a 8-token prompt
+            _reparent(anc, torch.randint(0, beams, (K4_ITEMS, beams), generator=gen, device=device), cur_len)
+    mask = torch.ones((K4_ITEMS, K4_MAX_LEN), dtype=torch.int64, device=device)
+    lead = torch.randint(4, 9, (K4_ITEMS,), generator=gen, device=device).tolist()
+    pads = torch.randint(0, 25, (K4_ITEMS,), generator=gen, device=device).tolist()
+    for i, (a, n) in enumerate(zip(lead, pads)):
+        mask[i, a:a + n] = 0
+    return q, slabs[0], slabs[1], anc, mask.repeat_interleave(beams, dim=0)
+
+
+def phase_a4(device) -> dict:
+    """K4 (csrc/beam_attention.cu) against its plain version (the rows
+    gathered by the map, then the decoder's ``_attention``) on the card at
+    each of ``K4_CASES``, the serve cells' beam caches: max |kernel - plain|
+    within ``K4_TOL`` of the output's scale, one launch a call.  At
+    ``K4_TIMED`` and at each case it prints the kernel's device time
+    (CUDA-graph replays) beside its bound (every row's written prefix of K
+    and V read once at the HBM rate; the FLOPs are 2 per 4 bytes), the
+    bytes a map's referenced rows need, the plain version's time and the
+    wrapper's host time per call."""
+    import torch
+
+    from enhance_cb_whisper_tpu_torch.ops import beam_attention as ba
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 40)
+    timed = {}
+    for label, beams, heads, head_dim, length, dtype_name, kind in K4_CASES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v, anc, mask = _k4_inputs(gen, beams, heads, head_dim, length, dtype, kind, device)
+        before = ba.launches
+        got = ba.ancestry_attention(q, k, v, anc, mask, length)
+        torch.cuda.synchronize()
+        if ba.launches - before != 1:
+            raise RuntimeError(f"phase A4 {label}: {ba.launches - before} launches, expected 1")
+        want = ba.ancestry_attention_plain(q, k, v, anc, mask, length)
+        scale = float(want.float().abs().max())
+        gap = float((got.float() - want.float()).abs().max())
+        elem = q.element_size()
+        rows = K4_ITEMS * beams
+        vec = heads * head_dim * elem  # one position of one row, all heads
+        bytes_ = 2 * rows * length * vec + 2 * q.numel() * elem + anc[:, :, :length].numel() * 4 \
+            + rows * length * 8
+        # the rows some beam points at, per position: what the kernel reads
+        used = int(torch.nn.functional.one_hot(anc[:, :, :length].long(), beams).amax(1).sum())
+        needed = 2 * used * vec
+        bound = bytes_ / HBM_RATE * 1e3
+        ms = _graph_ms(lambda: ba.ancestry_attention(q, k, v, anc, mask, length))
+        plain_ms = _graph_ms(lambda: ba.ancestry_attention_plain(q, k, v, anc, mask, length), calls=3, reps=5)
+        host = _host_ms(lambda: ba.ancestry_attention(q, k, v, anc, mask, length))
+        print(f"phase A4: K4 {label}: map [{K4_ITEMS}, {beams}, {K4_MAX_LEN}] ({kind}), H {heads}, "
+              f"Dh {head_dim}, length {length}, {dtype_name}: max |kernel - plain| {gap!r} (output scale "
+              f"{scale!r}, tolerance {K4_TOL[dtype_name] * scale!r}); device {ms!r} ms (CUDA-graph replays), "
+              f"bound {bound!r} ms ({bytes_} B at {HBM_RATE / 1e12} TB/s), {ms / bound!r}x the bound; the "
+              f"referenced rows' K and V {needed} B ({needed / ms / 1e6!r} GB/s); plain {plain_ms!r} ms "
+              f"({plain_ms / ms!r}x K4); host {host!r} ms a call")
+        if not gap <= K4_TOL[dtype_name] * scale:
+            raise RuntimeError(f"phase A4 {label}: K4 differs from the plain version by {gap!r}")
+        if label in K4_TIMED:
+            timed[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "max_abs_err": gap}
+        del q, k, v, anc, mask, got, want
+        torch.cuda.empty_cache()
+    print(f"phase A4: K4 = plain within its tolerance at {len(K4_CASES)} shapes")
+    return timed
+
+
+def _k4_mark():
+    """Start counting K4's main path: the profiler's ring emptied, the
+    launches so far."""
+    from enhance_cb_whisper_tpu_torch.ops import beam_attention
+    from enhance_cb_whisper_tpu_torch.runtime import profiler
+
+    profiler.reset()
+    return time.perf_counter(), beam_attention.launches
+
+
+def _check_k4_main_path(label, mark, layers: int) -> int:
+    """Since ``mark``: K4 launched once per decoder layer of every beam
+    step, and every beam step's span reads ``reorder_bytes`` 0 and
+    ``anc_layers`` = the decoder's layers.  Returns the launches."""
+    from enhance_cb_whisper_tpu_torch.ops import beam_attention
+    from enhance_cb_whisper_tpu_torch.runtime import profiler
+
+    since, before = mark
+    launches = beam_attention.launches - before
+    steps = [s["attrs"] for s in profiler.spans(since_s=since)
+             if s["name"] == "ecw.decode.step" and "reorder_bytes" in s["attrs"]]
+    off = [a for a in steps if a["reorder_bytes"] != 0 or a["anc_layers"] != layers]
+    print(f"{label}: K4 launches {launches} = {layers} decoder layers x {len(steps)} beam steps expected "
+          f"{layers * len(steps)}; reorder_bytes 0 and anc_layers {layers} on every beam step: {not off} "
+          f"(spans dropped {profiler.dropped()})")
+    if not steps or off or launches != layers * len(steps) or profiler.dropped():
+        raise RuntimeError(f"{label}: the beam steps did not all read through the map with K4")
+    return launches
 
 
 @contextlib.contextmanager
@@ -1062,12 +1218,14 @@ def _drive_slice(cb, config, opts, dataset, device, label, int8_stages=None):
 
     mel_cuda.launches = 0
     matmul_s8_cuda.launches = 0
+    k4_mark = _k4_mark()
     t_run = time.perf_counter()
     with _recorded_k2_shapes() as k2_shapes:
         results = cb.run_test(dataset, mel_fn, num_bootstraps=100)
         torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches, "k2_shapes": k2_shapes}
+    launches = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches, "k2_shapes": k2_shapes,
+                "k4": _check_k4_main_path(f"phase B {label}", k4_mark, config.decoder_layers)}
     del cb._score_to_keywords, cb.forward, cb.encode_and_spot, cb.generator.generate
     del cb.generator._generate_with_fallback, cb.generator._retrieve_segment
     cb._score_fn = score_fn
@@ -2088,7 +2246,9 @@ def phase_f2(device, cb, dataset, shapes) -> dict:
        stages 1-3)``, calibrated on the first window in both runs).
 
     K1 launches exactly once per utterance and K2 exactly 22 x 13 per row
-    of every window (vacant slots are scored too), at phase A2's shapes.
+    of every window (vacant slots are scored too), at phase A2's shapes;
+    over the fp32 service run, K4 once per decoder layer of every beam
+    step, each step's span reading ``reorder_bytes`` 0.
     Returns the launches of the int8 service run."""
     from enhance_cb_whisper_tpu_torch.runtime.serving import TranscriptionService
 
@@ -2104,7 +2264,10 @@ def phase_f2(device, cb, dataset, shapes) -> dict:
     module = fresh()
     svc = TranscriptionService(module, slots=4)
     try:
+        k4_mark = _k4_mark()
         texts, _, spotted = serve("fp32 TranscriptionService(slots=4)", svc, module, dataset)
+        _check_k4_main_path("phase F2 fp32 TranscriptionService(slots=4)", k4_mark,
+                            cb.whisper_config.decoder_layers)
         same("fp32", (texts, spotted), solo)
 
         params2 = _second_checkpoint(cb.generator.params, seed=1)
@@ -4969,7 +5132,7 @@ def _card() -> str:
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--k1"], ["--k3"], ["--serving"], ["--levers"], ["--train"], ["--paper2"],
+    if argv not in ([], ["--k1"], ["--k3"], ["--k4"], ["--serving"], ["--levers"], ["--train"], ["--paper2"],
                     ["--paper2-train"], ["--pipeline"], ["--scale-out"]):
         print(__doc__, file=sys.stderr)
         return 2
@@ -5009,6 +5172,16 @@ def main(argv) -> int:
         _print_ptxas("K3", k3_lib)
         phase_a3(device)
         print(f"chip_smoke --k3: passed in {time.perf_counter() - t_start:.1f} s")
+        print(_card())
+        return 0
+    if argv == ["--k4"]:  # K4 alone: build and phase A4
+        from enhance_cb_whisper_tpu_torch.ops import beam_attention
+
+        k4_lib = beam_attention.build()
+        print(f"build: {K4_SOURCE} compiled and loaded in {time.perf_counter() - t_start:.1f} s")
+        _print_ptxas("K4", k4_lib)
+        phase_a4(device)
+        print(f"chip_smoke --k4: passed in {time.perf_counter() - t_start:.1f} s")
         print(_card())
         return 0
     if argv in (["--paper2-train"], ["--pipeline"]):  # K1, phase A and phase J or P alone
@@ -5072,6 +5245,7 @@ def main(argv) -> int:
         more, err = phase_a2(device, group, f"chunk of {P2_CHUNK} paper-2 {name} maps", ragged=())
         mismatches, k2_err = mismatches + more, max(k2_err, err)
     k3 = phase_a3(device)
+    k4 = phase_a4(device)[K4_TIMED[0]]
     check_tf32_off(device)
     phase_b_reference(device)
     phase_b_longform_reference(device)
@@ -5117,6 +5291,10 @@ def main(argv) -> int:
          "paper2_launches": paper2_launches["k3"], "max_abs_err": k3["max_abs_err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": "operations", "library_ms": None},
+        {"name": "beam_attention", "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
+         "launches": fp32_launches["k4"], "max_abs_err": k4["max_abs_err"],
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

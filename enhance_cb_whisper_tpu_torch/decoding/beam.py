@@ -18,13 +18,25 @@ The JAX ``while_loop`` is a Python loop here.  Conventions kept: the cache
 arrives positioned at ``prompt_len - 1`` and the first step re-feeds the
 final prompt token; a staged int8 cache is flushed after every W-th step
 (the JAX loop runs whole W-step windows, the steps past its stop changing
-nothing but the cache, which the port skips).  The self-attention cache
-is reordered by beam index each step (``index_select`` over its written
-prefix) instead of the JAX package's ancestry map.
+nothing but the cache, which the port skips).
+
+A float cache (no ``k_scale`` in its layers) carries the JAX package's
+ancestry map: ``cache["anc"]`` [B, K, max_len] int32 names, for each
+logical beam and position, the item's physical beam row that holds the
+token.  Each logical beam appends its K/V to its own row, and each step
+re-parents the map with the beam selection (:func:`_reparent`); the rows
+never move, and the decoder reads them through the map
+(``ops/beam_attention.py``, kernel K4).  An int8 cache, whose steps attend
+in split score blocks, is reordered by beam index each step instead
+(:func:`_gather_beams`, ``index_select`` over its written prefix).  The
+path follows what the cache holds.
 
 Each step, its stop test included, is an ``ecw.decode.step`` span
 (:mod:`..runtime.profiler`); the stop test's read of the device, the one
-place a step waits for the card, is its child ``ecw.decode.sync``.
+place a step waits for the card, is its child ``ecw.decode.sync``.  A
+beam step's span carries ``reorder_bytes`` (the cache bytes
+:func:`_gather_beams` copied, 0 on the map) and ``anc_layers`` (the
+decoder layers that read through the map).
 """
 
 from __future__ import annotations
@@ -42,14 +54,40 @@ from .topk import exact_top_k
 DecodeFn = Callable[[torch.Tensor, Any, Any], Tuple[torch.Tensor, Any]]
 
 
-def _gather_beams(cache: dict, rows: torch.Tensor, length: int) -> None:
+def _gather_beams(cache: dict, rows: torch.Tensor, length: int) -> int:
     """Reorder the cache's batch·beam rows by ``rows`` [B·K], in place, over
     the written prefix ``[:length]`` of every slab of every layer: the K/V
     and, for an int8 cache, their per-token scales and staging windows
-    (whose written slots are fewer than ``length``)."""
+    (whose written slots are fewer than ``length``).  Returns the bytes of
+    the prefixes reordered."""
+    moved = 0
     for layer in cache["layers"]:
         for slab in layer.values():
             slab[:, :length] = slab[:, :length].index_select(0, rows)
+            moved += slab[:, :length].numel() * slab.element_size()
+    return moved
+
+
+def _ancestry_map(cache: Any, batch: int, beams: int) -> Optional[torch.Tensor]:
+    """Give a float cache its identity ancestry map [B, K, max_len] int32
+    (``cache["anc"]``) and return it; None for an int8 cache, which keeps
+    :func:`_gather_beams`."""
+    layers = cache["layers"]
+    if any("k_scale" in layer for layer in layers):
+        return None
+    max_len = layers[0]["k"].shape[1]
+    ident = torch.arange(beams, dtype=torch.int32, device=layers[0]["k"].device)
+    cache["anc"] = ident[None, :, None].expand(batch, beams, max_len).contiguous()
+    return cache["anc"]
+
+
+def _reparent(anc: torch.Tensor, sel_beam: torch.Tensor, length: int) -> None:
+    """Each logical beam takes its selected parent's map over the written
+    positions ``[:length]``, this step's included, in place; later
+    positions stay the identity, so each beam's next token lands in its own
+    row (the JAX package's ``where(slot < cur_len, parent, ident)``)."""
+    prefix = anc[:, :, :length]
+    prefix.copy_(torch.gather(prefix, 1, sel_beam[:, :, None].expand(-1, -1, length)))
 
 
 def _flush_full_window(cache: Any) -> None:
@@ -105,6 +143,7 @@ def beam_search(
     done = torch.zeros((batch,), dtype=torch.bool, device=device)
     rank = torch.arange(2 * K, device=device)[None, :]
     row_base = (torch.arange(batch, device=device) * K)[:, None]
+    anc = _ancestry_map(cache, batch, K)
 
     def normalize(scores: torch.Tensor, length: int) -> torch.Tensor:
         denom = torch.tensor(float(length), dtype=torch.float32, device=device) ** length_penalty
@@ -113,7 +152,7 @@ def beam_search(
     cur_len = prompt_len
     running = cur_len < max_length and not bool(done.all())
     while running:
-        with profiler.span("ecw.decode.step", rows=batch * K):
+        with profiler.span("ecw.decode.step", rows=batch * K, anc_layers=0):
             last = tokens[:, :, cur_len - 1].reshape(batch * K, 1)
             logits, cache = decode_fn(last, cache, ctx)
             logprobs = torch.log_softmax(logits.to(torch.float32), dim=-1)
@@ -165,7 +204,12 @@ def beam_search(
             sel_token = torch.gather(cand_token, 1, sel)
             new_tokens = torch.gather(tokens, 1, sel_beam[:, :, None].expand(batch, K, max_length)).clone()
             new_tokens[:, :, cur_len] = sel_token
-            _gather_beams(cache, (row_base + sel_beam).reshape(-1), cur_len)
+            if anc is not None:
+                _reparent(anc, sel_beam, cur_len)
+                moved = 0
+            else:
+                moved = _gather_beams(cache, (row_base + sel_beam).reshape(-1), cur_len)
+            profiler.add_counts("ecw.decode.step", reorder_bytes=moved)
             _flush_full_window(cache)
 
             # frozen batches keep their previous state

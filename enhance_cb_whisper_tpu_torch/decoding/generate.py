@@ -60,6 +60,7 @@ import torch.nn.functional as F
 
 from ..models.whisper import (
     WhisperConfig,
+    cross_kv_order,
     decoder_forward,
     decoder_heads,
     encoder_forward,
@@ -293,7 +294,8 @@ class WhisperGenerator:
     def _by_segment(self, ids: torch.Tensor, cache: dict, ctx: dict, prefill: bool) -> torch.Tensor:
         """``decoder_forward`` of ``ids`` one segment's rows at a time, into
         views of ``cache``, whose index it advances; the last position's
-        logits of every row."""
+        logits of every row.  A beam cache's ancestry map is item-local, so
+        a segment takes its own slice of it."""
         n_seg = ctx["cross_kv"][0]["k"].shape[0]
         reps = ids.shape[0] // n_seg
         index = cache["index"]
@@ -302,6 +304,8 @@ class WhisperGenerator:
             rows = slice(i * reps, (i + 1) * reps)
             part = dict(cache, layers=[{name: slab[rows] for name, slab in layer.items()}
                                        for layer in cache["layers"]])
+            if "anc" in cache:
+                part["anc"] = cache["anc"][i : i + 1]
             cross_kv = [{name: t[i : i + 1] for name, t in layer.items()} for layer in ctx["cross_kv"]]
             out, _ = decoder_forward(ctx["params"], ids[rows], cross_kv, self.config,
                                      cache=part, attention_mask=ctx["attn_mask"][rows],
@@ -777,9 +781,11 @@ class WhisperGenerator:
     @staticmethod
     def _take_rows(cross_kv, rows: List[int]):
         """Rows ``rows`` of the batch axis of every layer's cross K/V
-        ([B, T_enc, H, Dh] each, and [B, T_enc] int8 scales)."""
+        ([B, T_enc, H, Dh] each, kept in their memory order, and [B, T_enc]
+        int8 scales)."""
         idx = torch.as_tensor(rows, dtype=torch.long, device=cross_kv[0]["k"].device)
-        return [{name: t.index_select(0, idx) for name, t in layer.items()} for layer in cross_kv]
+        return [{name: cross_kv_order(name, [t.index_select(0, idx)]) for name, t in layer.items()}
+                for layer in cross_kv]
 
     def _need_fallback(self, gen_with_eos, score, no_speech_prob, opts, num_beams_used: int):
         """HF ``_need_fallback`` on one row: (fallback, skip).

@@ -11,12 +11,15 @@ JAX pytrees by :func:`..convert.from_jax_whisper_params`):
 
 The self-attention KV cache is a dict ``{"index": int, "layers": [{"k",
 "v"}]}`` whose [B, max_len, H, Dh] slabs are written IN PLACE by
-:func:`decoder_forward` (no copy per step).  Beam search reorders it by
-index (``decoding/beam.py``); the JAX ancestry cache is a TPU mechanism
-that this port does not carry.  Staged writes (the JAX package's
-``kv_staging``) are carried for the int8 cache alone, the one cache whose
-results they change: the last tokens stay in a compute-dtype window until
-:func:`flush_staging` quantizes them (:func:`init_cache`).
+:func:`decoder_forward` (no copy per step).  Beam search over a float cache
+adds the JAX package's ancestry map ``anc`` [B_items, K, max_len]
+(``decoding/beam.py``): the rows stay where each beam appended its tokens,
+and a decode step's self-attention reads them through the map
+(:func:`..ops.beam_attention.ancestry_attention`, kernel K4 on the card);
+an int8 cache is reordered by index instead.  Staged writes (the JAX
+package's ``kv_staging``) are carried for the int8 cache alone, the one
+cache whose results they change: the last tokens stay in a compute-dtype
+window until :func:`flush_staging` quantizes them (:func:`init_cache`).
 
 The serving levers of the JAX package, with its casts one for one:
 
@@ -50,7 +53,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..ops.beam_attention import ancestry_attention
 from ..ops.sim import l2_normalize
+from ..runtime import profiler
 
 NEG_INF = float(np.finfo(np.float32).min)
 
@@ -730,19 +735,39 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
+# The memory order of the cross-attention K and V behind their [B, T_enc,
+# H, Dh] shape (to it, and back): K as [B, H, Dh, T_enc] and V as [B, H,
+# T_enc, Dh], the layouts that the decoder's batched products read them in.
+# Stored as [B, T_enc, H, Dh], each einsum copied the segment's whole K and
+# V into those layouts in every layer of every decode step.
+_CROSS_ORDER = {"k": ((0, 2, 3, 1), (0, 3, 1, 2)), "v": ((0, 2, 1, 3), (0, 2, 1, 3))}
+
+
+def cross_kv_order(name: str, parts: List[torch.Tensor]) -> torch.Tensor:
+    """``parts`` ([b, T_enc, H, Dh] each) concatenated along the batch, in
+    the memory order of the cross-attention tensor ``name`` (K and V; any
+    other, such as an int8 scale, as it is).  Values and shape are those of
+    ``torch.cat(parts)``."""
+    if name not in _CROSS_ORDER:
+        return torch.cat(parts)
+    to, back = _CROSS_ORDER[name]
+    return torch.cat([part.permute(to) for part in parts]).permute(back)
+
+
 def precompute_cross_kv(params: Dict[str, Any], encoder_out: torch.Tensor,
                         config: WhisperConfig, int8: bool = False) -> List[Dict[str, torch.Tensor]]:
     """Cross-attention K/V, once per segment: per layer {"k","v"} [B, T_enc, H, Dh]
-    in the encoding's dtype; with ``int8`` the codes and per-(row, token)
-    f32 ``k_scale``/``v_scale`` [B, T_enc].  Each segment is projected on
-    its own, so its bits do not depend on the batch (see
+    in the encoding's dtype (in :func:`cross_kv_order`'s memory order); with
+    ``int8`` the codes (in that order) and per-(row, token) f32
+    ``k_scale``/``v_scale`` [B, T_enc].  Each segment is projected on its
+    own, so its bits do not depend on the batch (see
     :func:`encoder_forward`)."""
     head_dim = config.d_model // config.decoder_attention_heads
     out = []
     for layer in params["decoder"]["layers"]:
         kv = {
-            name: torch.cat([_split_heads(_linear(layer["encoder_attn"][proj], encoder_out[i : i + 1]), head_dim)
-                             for i in range(encoder_out.shape[0])])
+            name: cross_kv_order(name, [_split_heads(_linear(layer["encoder_attn"][proj], encoder_out[i : i + 1]),
+                                                     head_dim) for i in range(encoder_out.shape[0])])
             for name, proj in (("k", "k_proj"), ("v", "v_proj"))
         }
         if int8:
@@ -804,7 +829,12 @@ def _decoder_layer(
     offset: int,
     step: bool = False,
     base: Optional[int] = None,
+    anc: Optional[torch.Tensor] = None,
+    attention_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
+    """One decoder layer.  With an ancestry map ``anc`` (a beam step over a
+    float cache) the self-attention reads the unpermuted cache through it,
+    masked by ``attention_mask``; otherwise by ``self_mask``."""
     head_dim = x.shape[-1] // num_heads
     t = x.shape[1]
 
@@ -823,7 +853,11 @@ def _decoder_layer(
             cache_layer["v"][:, offset : offset + t] = v
             k = cache_layer["k"][:, : offset + t]
             v = cache_layer["v"][:, : offset + t]
-        attn = _attention(q, k, v, self_mask)
+        if anc is not None:
+            # a beam step: each logical beam's prefix through the map
+            attn = ancestry_attention(q, cache_layer["k"], cache_layer["v"], anc, attention_mask, offset + 1)
+        else:
+            attn = _attention(q, k, v, self_mask)
     x = x + _linear(p["self_attn"]["out_proj"], attn.reshape(*attn.shape[:2], -1))
 
     # cross attention: beams of one batch item share the encoder output, so
@@ -865,9 +899,11 @@ def decoder_forward(
     in ``dtype``; the logits are f32.
 
     A single-token call is a decode step, which matters for an int8 cache
-    (:func:`_self_attention_int8`); ``prefill=True`` gives any call the
-    multi-token write (the JAX package prefills a prompt padded to a bucket
-    of at least 8 tokens, so its prefill always takes that path).
+    (:func:`_self_attention_int8`) and for a cache with an ancestry map,
+    whose steps read it through the map (and which takes steps only);
+    ``prefill=True`` gives any call the multi-token write (the JAX package
+    prefills a prompt padded to a bucket of at least 8 tokens, so its
+    prefill always takes that path).
 
     Returns (logits [B, T, vocab], cache)."""
     p = params["decoder"]
@@ -875,21 +911,28 @@ def decoder_forward(
     offset = int(cache["index"]) if cache is not None else 0
     device = input_ids.device
     step = cache is not None and t == 1 and not prefill
+    anc = cache.get("anc") if cache is not None else None
+    if anc is not None and not step:
+        raise ValueError("a cache with an ancestry map takes single-token decode steps only")
 
     x = p["embed_tokens"]["weight"][input_ids].to(dtype) + p["embed_positions"]["weight"][offset : offset + t].to(dtype)
 
-    key_pos = torch.arange(offset + t, device=device)
-    query_pos = offset + torch.arange(t, device=device)
-    mask = (key_pos[None, :] <= query_pos[:, None])[None, None]  # [1, 1, T, offset+T]
-    if attention_mask is not None:
-        mask = mask & attention_mask[:, None, None, : offset + t].bool()
+    mask = None
+    if anc is None:
+        key_pos = torch.arange(offset + t, device=device)
+        query_pos = offset + torch.arange(t, device=device)
+        mask = (key_pos[None, :] <= query_pos[:, None])[None, None]  # [1, 1, T, offset+T]
+        if attention_mask is not None:
+            mask = mask & attention_mask[:, None, None, : offset + t].bool()
 
     for i, layer in enumerate(p["layers"]):
         x = _decoder_layer(
             layer, x, cross_kv[i], config.decoder_attention_heads, mask,
             cache["layers"][i] if cache is not None else None, offset, step,
-            cache.get("base") if cache is not None else None,
+            cache.get("base") if cache is not None else None, anc, attention_mask,
         )
+    if anc is not None:
+        profiler.set_counts("ecw.decode.step", anc_layers=len(p["layers"]))
     x = _layer_norm(p["layer_norm"], x)
     if "embed_tokens_q" in p:
         # weight-only int8 vocab projection: f32 logits, f32 row scales

@@ -49,7 +49,11 @@ tells them from ATen operators and from a caller's own annotations:
 ``ecw.cbw.spotter``         ``CBWhisper``: catalog scoring to keywords
                             (``rows``; device-timed)
 ``ecw.decode.step``         ``beam_search`` / ``greedy_search``: one step,
-                            its stop test included (``rows``)
+                            its stop test included (``rows``; a beam
+                            step's ``reorder_bytes``, the cache bytes its
+                            reorder copied, 0 through an ancestry map,
+                            and ``anc_layers``, the decoder layers whose
+                            self-attention read through the map)
 ``ecw.decode.sync``         the stop test's read of the device, a child of
                             ``ecw.decode.step``
 ``ecw.catalog.proxy``       the cascade's stage 1: every chunk's proxy and
@@ -60,10 +64,13 @@ tells them from ATen operators and from a caller's own annotations:
                             ``samples``, ``launches``: K1's; device-timed)
 =========================  ==============================================
 
-Counters that a span gathers while it is open (:func:`add_counts`):
+Counters that a span gathers while it is open (:func:`add_counts`; or
+:func:`set_counts`, for a count that each of several calls inside the span
+reports whole, such as the decoder's once per segment):
 ``ecw.scheduler.window`` takes ``self_kv_bytes`` (the self-attention
 caches its prefills allocated, beam rows included) and ``cross_kv_bytes``
-(its cross-attention K/V, one per slot), both from the tensors' shapes.
+(its cross-attention K/V, one per slot), both from the tensors' shapes;
+``ecw.decode.step`` takes ``reorder_bytes`` and ``anc_layers`` (above).
 
 :func:`to_trace_us` maps a span's ``perf_counter_ns`` time onto a Chrome
 trace's ``ts`` through one anchor pair ``(perf_counter_ns, time_ns)`` read
@@ -385,17 +392,33 @@ def interval(name: str, start_ns: int, id: Any = None, **attrs) -> None:
                      stack[-1].seq if stack else None, id, rec.local.thread, attrs, None))
 
 
+def _innermost(name: str) -> Optional[_Span]:
+    """The innermost span named ``name`` open on this thread, if recording."""
+    if RECORDER.recording:
+        for open_span in reversed(RECORDER.stack()):
+            if open_span.name == name:
+                return open_span
+    return None
+
+
 def add_counts(name: str, **counts: int) -> None:
     """Add ``counts`` to the attributes of the innermost span named
     ``name`` open on this thread (a counter summed while the span is open);
     nothing when no such span is open or recording is off."""
-    if not RECORDER.recording:
-        return
-    for open_span in reversed(RECORDER.stack()):
-        if open_span.name == name:
-            for key, value in counts.items():
-                open_span.attrs[key] = open_span.attrs.get(key, 0) + value
-            return
+    open_span = _innermost(name)
+    if open_span is not None:
+        for key, value in counts.items():
+            open_span.attrs[key] = open_span.attrs.get(key, 0) + value
+
+
+def set_counts(name: str, **counts: int) -> None:
+    """Set ``counts`` as attributes of the innermost span named ``name``
+    open on this thread (a count that several calls inside the span each
+    report whole, not a sum); nothing when no such span is open or
+    recording is off."""
+    open_span = _innermost(name)
+    if open_span is not None:
+        open_span.attrs.update(counts)
 
 
 def spans(since_s: Optional[float] = None, until_s: Optional[float] = None) -> List[Dict[str, Any]]:
