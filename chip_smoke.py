@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # every phase
     python3 chip_smoke.py --k1     # K1 alone: its build, phase A (and the features' span) and phase C times
     python3 chip_smoke.py --k3     # K3 alone: its build and phase A3 (checks and times)
-    python3 chip_smoke.py --k4     # K4 alone: its build and phase A4 (checks and times)
+    python3 chip_smoke.py --k4     # K4 alone: its build and phase A4 (checks, times, 9 beams)
     python3 chip_smoke.py --serving  # the kernels' build, phase A2 and phase F alone
     python3 chip_smoke.py --levers   # the kernels' build, phase A2 and phase G alone
     python3 chip_smoke.py --train    # phase H (paper-1 training) alone
@@ -49,10 +49,13 @@ A4. holds the beam self-attention kernel K4 (csrc/beam_attention.cu)
     against its plain version (the rows gathered by the ancestry map, then
     the decoder's attention) at the serve cells' beam caches: a map [16, 5,
     244], 16 and 20 heads of 64, lengths 124-243, uniform and re-parented
-    maps, prompt pads, f32 and bf16, 3 and 8 beams, and the tiny models'
+    maps, prompt pads, f32 and bf16, 3, 8, 9 and 17 beams, and the tiny models'
     head sizes 16 and 32 (tolerance: ``K4_TOL``, with its reason), one
     launch a call; prints its device time beside its bytes bound, the
-    plain version's time and the host time of a call;
+    plain version's time and the host time of a call; then decodes the
+    tiny CB-Whisper of phase B at 9 beams, more than a K4 block takes, on
+    the CPU and on the card (identical keywords and token sequences, K4
+    launched);
 B.  checks that building ``CBWhisper`` on the card turns TF32 off; checks
     the CUDA path against the CPU path on a tiny random CB-Whisper, in fp32
     and with int8 spotting on a K2-eligible ResNet (identical keywords and
@@ -293,7 +296,7 @@ def build_kernels() -> None:
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(4) as pool:
-        jobs = [pool.submit(m.build) for m in (mel_cuda, matmul_s8_cuda, maxsim_cuda, beam_attention)]
+        jobs = [pool.submit(m.kernel.build) for m in (mel_cuda, matmul_s8_cuda, maxsim_cuda, beam_attention)]
         mel_lib, k2_lib, k3_lib, k4_lib = (job.result() for job in jobs)
     print(f"build: {KERNEL_SOURCE}, {K2_SOURCE}, {K3_SOURCE} and {K4_SOURCE} compiled in parallel and "
           f"loaded in {time.perf_counter() - t0:.1f} s")
@@ -601,11 +604,11 @@ def phase_a3(device) -> dict:
             utt_mask[:, :, -(tu // 5):] = 0.0
         kwd = kwd.to(kdtype)
         utt_n = _safe_normalize(utt, 1e-6)[0]
-        before = maxsim_cuda.launches
+        before = maxsim_cuda.kernel.launches
         got = cat.maxsim_proxy_fast(kwd, utt_n, kwd_mask, utt_mask, pdtype)
         torch.cuda.synchronize()
-        if maxsim_cuda.launches - before != maxsim_cuda.LAUNCHES_PER_CALL:
-            raise RuntimeError(f"phase A3 {label}: {maxsim_cuda.launches - before} launches, expected "
+        if maxsim_cuda.kernel.launches - before != maxsim_cuda.LAUNCHES_PER_CALL:
+            raise RuntimeError(f"phase A3 {label}: {maxsim_cuda.kernel.launches - before} launches, expected "
                                f"{maxsim_cuda.LAUNCHES_PER_CALL}")
 
         def plain():
@@ -663,6 +666,8 @@ K4_CASES = (  # label, beams, heads, head size, length, dtype, map ("uniform": a
     ("medium, 8 beams, bf16", 8, 16, 64, 200, "bfloat16", "beam"),
     ("the tiny models' head size 16", 5, 4, 16, 37, "float32", "beam"),
     ("head size 32, 4 beams, bf16", 4, 2, 32, 61, "bfloat16", "uniform"),
+    ("medium, 9 beams", 9, 16, 64, 184, "float32", "beam"),
+    ("head size 16, 17 beams, bf16", 17, 4, 16, 37, "bfloat16", "uniform"),
 )
 K4_TIMED = ("medium, mid launch", "v3, mid launch")
 # f32: only the order of the f32 sums differs (64-term dots, the softmax's
@@ -721,11 +726,11 @@ def phase_a4(device) -> dict:
     for label, beams, heads, head_dim, length, dtype_name, kind in K4_CASES:
         dtype = getattr(torch, dtype_name)
         q, k, v, anc, mask = _k4_inputs(gen, beams, heads, head_dim, length, dtype, kind, device)
-        before = ba.launches
+        before = ba.kernel.launches
         got = ba.ancestry_attention(q, k, v, anc, mask, length)
         torch.cuda.synchronize()
-        if ba.launches - before != 1:
-            raise RuntimeError(f"phase A4 {label}: {ba.launches - before} launches, expected 1")
+        if ba.kernel.launches - before != 1:
+            raise RuntimeError(f"phase A4 {label}: {ba.kernel.launches - before} launches, expected 1")
         want = ba.ancestry_attention_plain(q, k, v, anc, mask, length)
         scale = float(want.float().abs().max())
         gap = float((got.float() - want.float()).abs().max())
@@ -757,6 +762,36 @@ def phase_a4(device) -> dict:
     return timed
 
 
+def phase_a4_beams(device) -> None:
+    """More beams than a K4 block takes: the tiny CB-Whisper of phase B
+    decodes at 9 beams on the CPU and on the card, where K4 takes each beam
+    step in groups of 8.  Identical keywords and token sequences (every
+    token, timestamps included), and K4 launched."""
+    import dataclasses
+
+    from enhance_cb_whisper_tpu_torch.ops import beam_attention as ba
+
+    beams = 9
+
+    def make(dev):
+        cb = _tiny_pipeline(dev)
+        cb.opts = dataclasses.replace(cb.opts, num_beams=beams)
+        cb.decode_fn = lambda toks: " ".join(str(int(t)) for t in toks)
+        return cb
+
+    rng = np.random.default_rng(SEED + 1)
+    waves = [(rng.standard_normal(int(16000 * s)) * 0.1).astype(np.float32) for s in (6.0, 21.0)]
+    before = ba.kernel.launches
+    cpu, gpu, _ = _tiny_runs(device, waves, make, int8=False)
+    launched = ba.kernel.launches - before
+    print(f"phase A4: {beams} beams, tiny CB-Whisper, cpu vs cuda: keywords {gpu[0]}, token sequences equal "
+          f"{cpu[1] == gpu[1]} ({[len(p.split()) for p in gpu[1]]} tokens); K4 launches {launched}")
+    if cpu != gpu:
+        raise RuntimeError(f"phase A4 at {beams} beams: the card's tokens differ from the CPU's: {gpu} vs {cpu}")
+    if not launched:
+        raise RuntimeError(f"phase A4 at {beams} beams: K4 never launched")
+
+
 def _k4_mark():
     """Start counting K4's main path: the profiler's ring emptied, the
     launches so far."""
@@ -764,7 +799,7 @@ def _k4_mark():
     from enhance_cb_whisper_tpu_torch.runtime import profiler
 
     profiler.reset()
-    return time.perf_counter(), beam_attention.launches
+    return time.perf_counter(), beam_attention.kernel.launches
 
 
 def _check_k4_main_path(label, mark, layers: int) -> int:
@@ -775,7 +810,7 @@ def _check_k4_main_path(label, mark, layers: int) -> int:
     from enhance_cb_whisper_tpu_torch.runtime import profiler
 
     since, before = mark
-    launches = beam_attention.launches - before
+    launches = beam_attention.kernel.launches - before
     steps = [s["attrs"] for s in profiler.spans(since_s=since)
              if s["name"] == "ecw.decode.step" and "reorder_bytes" in s["attrs"]]
     off = [a for a in steps if a["reorder_bytes"] != 0 or a["anc_layers"] != layers]
@@ -899,13 +934,13 @@ def _tiny_runs(device, waves, make, int8: bool):
         cb = make(dev)
         if int8:
             cb.enable_int8_spotting(calibration_batches=1, s8_1x1=("stage_1",))
-        matmul_s8_cuda.launches = 0
+        matmul_s8_cuda.kernel.launches = 0
         spotted, preds = [], []
         for wav in waves:
             features, _ = prepare_features(wav, n_mels=80, device=dev)
             spotted.append(cb.spot_keywords(features))
             preds.append(cb.forward(features))
-        launches = matmul_s8_cuda.launches
+        launches = matmul_s8_cuda.kernel.launches
         results[str(dev)] = (spotted, preds)
     return results["cpu"], results[str(device)], launches
 
@@ -1216,15 +1251,15 @@ def _drive_slice(cb, config, opts, dataset, device, label, int8_stages=None):
     cb.generator._generate_with_fallback = timed_fallback
     cb.generator._retrieve_segment = recorded_segment
 
-    mel_cuda.launches = 0
-    matmul_s8_cuda.launches = 0
+    mel_cuda.kernel.launches = 0
+    matmul_s8_cuda.kernel.launches = 0
     k4_mark = _k4_mark()
     t_run = time.perf_counter()
     with _recorded_k2_shapes() as k2_shapes:
         results = cb.run_test(dataset, mel_fn, num_bootstraps=100)
         torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches, "k2_shapes": k2_shapes,
+    launches = {"mel": mel_cuda.kernel.launches, "k2": matmul_s8_cuda.kernel.launches, "k2_shapes": k2_shapes,
                 "k4": _check_k4_main_path(f"phase B {label}", k4_mark, config.decoder_layers)}
     del cb._score_to_keywords, cb.forward, cb.encode_and_spot, cb.generator.generate
     del cb.generator._generate_with_fallback, cb.generator._retrieve_segment
@@ -1420,13 +1455,13 @@ def phase_d(device, kws, stacks, shapes) -> dict:
         torch.cuda.synchronize()
         _device_breakdown(f"phase D {mode}: one utterance ({catalog.num_padded // CHUNK} chunks)",
                           lambda: engine.score_utterance(variables, dataset, utts[-1]))
-        matmul_s8_cuda.launches = 0
+        matmul_s8_cuda.kernel.launches = 0
         t0 = time.perf_counter()
         with _recorded_k2_shapes() as k2_shapes:
             preds, targets, _, loss = engine._eval_dataset(variables, dataset)
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {"k2": matmul_s8_cuda.launches, "k2_shapes": k2_shapes}
+        launches = {"k2": matmul_s8_cuda.kernel.launches, "k2_shapes": k2_shapes}
         results = engine.test(variables, module)
         if not (np.isfinite(preds).all() and preds.shape == (len(items) * N_KW,)
                 and all(np.isfinite(v) for v in results.values())):
@@ -1718,13 +1753,13 @@ def phase_e_tiny(root: Path) -> None:
     runs = {}
     for dev in ("cpu", "cuda"):
         preds = []
-        mel_cuda.launches = 0
+        mel_cuda.kernel.launches = 0
         with _recorded_cli_run() as marks:
             if dev == "cpu":
                 results = run_cli(list(argv), device="cpu", predictions_out=preds)
             else:
                 results = run_cli(list(argv), predictions_out=preds)  # the default device: the card
-        runs[dev] = (preds, [m["keywords"] for m in marks], results, mel_cuda.launches)
+        runs[dev] = (preds, [m["keywords"] for m in marks], results, mel_cuda.kernel.launches)
     (cpu_preds, cpu_kw, cpu_res, _), (gpu_preds, gpu_kw, gpu_res, mel) = runs["cpu"], runs["cuda"]
     recall = [(r["Entity Recall"], r["Entity Recall LB"], r["Entity Recall UB"]) for r in (cpu_res, gpu_res)]
     print(f"phase E tiny: run_cli on the CPU and on the card ({time.perf_counter() - t0:.1f} s with the "
@@ -1782,8 +1817,8 @@ def phase_e_medium(root: Path, config, params, kws, stacks, shapes) -> dict:
     _write_acl(root / "acl", keywords, stacks, utterances)
     _write_lightning_kws(root / "kws.ckpt", kws)
 
-    mel_cuda.launches = 0
-    matmul_s8_cuda.launches = 0
+    mel_cuda.kernel.launches = 0
+    matmul_s8_cuda.kernel.launches = 0
     preds = []
     t0 = time.perf_counter()
     with _recorded_cli_run() as marks:
@@ -1793,7 +1828,7 @@ def phase_e_medium(root: Path, config, params, kws, stacks, shapes) -> dict:
         results = run_cli(_cb_argv(root, "--model.init_args.num_bootstraps", "20"), predictions_out=preds)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches}
+    launches = {"mel": mel_cuda.kernel.launches, "k2": matmul_s8_cuda.kernel.launches}
     for u, m in zip(utterances, marks):
         seconds = m["end"] - m["start"]
         print(f"phase E cb-whisper.py test: utterance of {u['seconds']} s ({u['rate']} Hz WAV): WAV read "
@@ -1814,13 +1849,13 @@ def phase_e_medium(root: Path, config, params, kws, stacks, shapes) -> dict:
     argv = ["test", "--config", str(CONFIGS / "kws-acl.yaml"), "--set", f"AISHELL_ROOT={root}",
             "--set", "MODALITY=tts", "--set", f"ACL_ROOT={root / 'acl'}", "--set", f"CKPT={root / 'kws.ckpt'}",
             "--model.init_args.kws_int8", "true", "--model.init_args.kws_int8_calibration_batches", "2"]
-    matmul_s8_cuda.launches = 0
+    matmul_s8_cuda.kernel.launches = 0
     t0 = time.perf_counter()
     with _recorded_k2_shapes() as k2_shapes:
         kws_results = run_cli(argv)
         torch.cuda.synchronize()
     kws_wall = time.perf_counter() - t0
-    k2 = {"k2": matmul_s8_cuda.launches, "k2_shapes": k2_shapes}
+    k2 = {"k2": matmul_s8_cuda.kernel.launches, "k2_shapes": k2_shapes}
     print(f"phase E kws.py test (kws_int8): run_cli {kws_wall!r} s; "
           f"P {kws_results['Precision']!r} R {kws_results['Recall']!r} F1 {kws_results['F1']!r} "
           f"[{kws_results['F1_LB']!r}, {kws_results['F1_UB']!r}]")
@@ -1968,11 +2003,11 @@ def phase_f1(device) -> None:
     out, windows = {}, {}
     for dev in ("cpu", device):
         cb = make(dev)
-        matmul_s8_cuda.launches = 0
+        matmul_s8_cuda.kernel.launches = 0
         with _recorded_windows(cb.generator) as recorded:
             out[str(dev)] = packed(cb, ladder, 3)
         windows[str(dev)] = [(w["width"], w["occupied"], w["decodes"]) for w in recorded]
-        k2 = matmul_s8_cuda.launches
+        k2 = matmul_s8_cuda.kernel.launches
     cpu, gpu = out["cpu"], out[str(device)]
     temperatures = {t for w in windows["cpu"] for _, t in w[2]}
     occupancy = [w[1] for w in windows["cpu"]]
@@ -2021,11 +2056,11 @@ def phase_f1(device) -> None:
         runs = {}
         for dev in ("cpu", "cuda"):
             preds = []
-            mel_cuda.launches = 0
+            mel_cuda.kernel.launches = 0
             kwargs = {"device": "cpu"} if dev == "cpu" else {}  # the default device: the card
             results = run_cli(list(argv), predictions_out=preds, **kwargs)
             runs[dev] = (preds, tuple(results[k] for k in ("Entity Recall", "Entity Recall LB",
-                                                           "Entity Recall UB")), mel_cuda.launches)
+                                                           "Entity Recall UB")), mel_cuda.kernel.launches)
     finally:
         shutil.rmtree(PHASE_F_DIR, ignore_errors=True)
     print(f"phase F1: run_cli with eval_packed true, eval_batch_size 2: transcripts identical "
@@ -2163,7 +2198,7 @@ def _serving_kit(device, cb, shapes, phase: str):
     def reference(label, module, items, int8=False):
         """``run_test(packed=True, batch_size=1)``: the slots=1 transcripts."""
         preds = []
-        mel_cuda.launches = matmul_s8_cuda.launches = 0
+        mel_cuda.kernel.launches = matmul_s8_cuda.kernel.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with _recorded_windows(module.generator) as windows, _recorded_k2_shapes() as k2_shapes, \
@@ -2172,7 +2207,7 @@ def _serving_kit(device, cb, shapes, phase: str):
                                       predictions_out=preds)
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches, "k2_shapes": k2_shapes}
+        launches = {"mel": mel_cuda.kernel.launches, "k2": matmul_s8_cuda.kernel.launches, "k2_shapes": k2_shapes}
         report(label, wall, sum(i["seconds"] for i in items), windows, launches, preds,
                torch.cuda.max_memory_allocated())
         print(f"{phase} {label}: run_test RTFx {results['RTFx']!r}, entity recall "
@@ -2184,7 +2219,7 @@ def _serving_kit(device, cb, shapes, phase: str):
 
     def serve(label, svc, module, items, int8=False):
         """All of ``items`` submitted at once; their transcripts in order."""
-        mel_cuda.launches = matmul_s8_cuda.launches = 0
+        mel_cuda.kernel.launches = matmul_s8_cuda.kernel.launches = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with _recorded_windows(module.generator) as windows, _recorded_k2_shapes() as k2_shapes, \
@@ -2196,7 +2231,7 @@ def _serving_kit(device, cb, shapes, phase: str):
         first_ticket = tickets[0]
         spotted = {order - first_ticket: keywords for order, keywords in spotted.items()}
         wall = time.perf_counter() - t0
-        launches = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches, "k2_shapes": k2_shapes}
+        launches = {"mel": mel_cuda.kernel.launches, "k2": matmul_s8_cuda.kernel.launches, "k2_shapes": k2_shapes}
         report(label, wall, sum(i["seconds"] for i in items), windows, launches, texts,
                torch.cuda.max_memory_allocated())
         check_launches(label, launches, windows, len(items), int8)
@@ -2527,7 +2562,7 @@ def _lever_run(module, item, label, mel_fn):
     gen._decode_prompted, gen._decode_step = timed(decode_prompted, "decode_s"), counted_step
     module._score_to_keywords = recorded_keywords
     preds = []
-    mel_cuda.launches = matmul_s8_cuda.launches = 0
+    mel_cuda.kernel.launches = matmul_s8_cuda.kernel.launches = 0
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2540,7 +2575,7 @@ def _lever_run(module, item, label, mel_fn):
         delattr(module, spot_name)
         del gen._decode_prompted, gen._decode_step, module._score_to_keywords
     rec.update(wall=time.perf_counter() - t0, peak=torch.cuda.max_memory_allocated(), resident=resident,
-               launches={"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches, "k2_shapes": k2_shapes},
+               launches={"mel": mel_cuda.kernel.launches, "k2": matmul_s8_cuda.kernel.launches, "k2_shapes": k2_shapes},
                tokens=preds[0].split() if preds else [], per_step=_launches_per_step(gen))
     if len(preds) != 1 or not rec["tokens"] or rec["launches"]["mel"] != 1:
         raise RuntimeError(f"{label}: {len(preds)} transcripts, {len(rec['tokens'])} tokens, "
@@ -3104,11 +3139,11 @@ def phase_h(device) -> dict:
     """Phase H: K1's and K2's launches over the training path (none)."""
     from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, mel_cuda
 
-    mel_cuda.launches = matmul_s8_cuda.launches = 0
+    mel_cuda.kernel.launches = matmul_s8_cuda.kernel.launches = 0
     t0 = time.perf_counter()
     phase_h1(device)
     phase_h2(device)
-    launches = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches}
+    launches = {"mel": mel_cuda.kernel.launches, "k2": matmul_s8_cuda.kernel.launches}
     print(f"phase H: {time.perf_counter() - t0:.1f} s; kernel launches on the training path {launches}")
     return launches
 
@@ -3262,10 +3297,10 @@ def phase_i1(device) -> None:
             for dev, engine in engines.items():
                 if int8:
                     engine.enable_int8_scoring(models[dev], items=[ds[0], ds[1]], s8_1x1=s8_stages(tiny_k2))
-                matmul_s8_cuda.launches = 0
+                matmul_s8_cuda.kernel.launches = 0
                 db = keyword_db(models[dev], ds)
                 probs[dev] = np.concatenate([engine.score_item(models[dev], db, ds[i])[0] for i in range(len(ds))])
-                launches = matmul_s8_cuda.launches
+                launches = matmul_s8_cuda.kernel.launches
                 results[dev] = engine.test(models[dev], dm, num_bootstraps=100)
             got, want = torch.from_numpy(probs[device]), torch.from_numpy(probs["cpu"])
             max_abs, _, ok = _close(got, want)
@@ -3339,12 +3374,12 @@ def phase_i2(device, shapes) -> dict:
         del model, engine, db
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        mel_cuda.launches = matmul_s8_cuda.launches = 0
+        mel_cuda.kernel.launches = matmul_s8_cuda.kernel.launches = 0
         t0 = time.perf_counter()
         with _recorded_k2_shapes() as k2_shapes:
             results = run_cli(argv)  # the default device: the card
         wall = time.perf_counter() - t0
-        run = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches, "k2_shapes": k2_shapes}
+        run = {"mel": mel_cuda.kernel.launches, "k2": matmul_s8_cuda.kernel.launches, "k2_shapes": k2_shapes}
         peak = torch.cuda.max_memory_allocated() / 2**30
         pairs = len(ds) * P2_N_KW
         print(f"{label}: run_cli {wall!r} s for {len(ds)} utterances x {P2_N_KW} keywords "
@@ -3403,7 +3438,7 @@ def phase_i3(device) -> dict:
     from enhance_cb_whisper_tpu_torch.ops import matmul_s8_cuda, maxsim_cuda, mel_cuda
     from enhance_cb_whisper_tpu_torch.runtime import profiler
 
-    mel_cuda.launches = matmul_s8_cuda.launches = 0
+    mel_cuda.kernel.launches = matmul_s8_cuda.kernel.launches = 0
     chunk, layers, units = 128, 3, 64
     cfg = EfficientKWSConfig(**P2_VARIANTS["LEF"])
     model = _init_p2_model(EfficientKWSModel(cfg), SEED + 20).to(device)
@@ -3464,7 +3499,7 @@ def phase_i3(device) -> dict:
     n, shortlist = 100352, 2048
     big = random_catalog(n)
     proxy_flops = n * layers * P2_LEF_MAPS[0] * P2_SIZE[1] // 2 * units * 2
-    maxsim_cuda.launches = 0
+    maxsim_cuda.kernel.launches = 0
     since = time.perf_counter()
     casc = report(f"cascade bf16 proxy, shortlist {shortlist}", n,
                   make_cascade_score_fn(bf16, chunk=chunk, shortlist=shortlist), big, BF16_RATE,
@@ -3472,7 +3507,7 @@ def phase_i3(device) -> dict:
     # report scores 1 (warm-up) + 3 (timed) + 1 (the returned scores) times,
     # each one maxsim_proxy_fast call over all n rows
     calls = 5
-    k3 = maxsim_cuda.launches
+    k3 = maxsim_cuda.kernel.launches
     spans = [s["attrs"] for s in profiler.spans(since_s=since) if s["name"] == "ecw.catalog.proxy"]
     print(f"phase I3: K3 launches over {calls} cascade scores {k3}; the proxy spans' launches "
           f"{[a.get('launches') for a in spans]}")
@@ -3490,7 +3525,7 @@ def phase_i3(device) -> dict:
           f"gives them within {gap!r}")
     if len(rows) > shortlist or gap > 1e-3:
         raise RuntimeError("phase I3: the cascade's shortlist disagrees with the full scorer")
-    return {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches, "k3": k3}
+    return {"mel": mel_cuda.kernel.launches, "k2": matmul_s8_cuda.kernel.launches, "k3": k3}
 
 
 def phase_i(device, shapes) -> dict:
@@ -3699,10 +3734,10 @@ def phase_j1(device) -> None:
     for dev in ("cpu", device):
         engine = EfficientKWSEngine(EfficientKWSConfig(**J1_TINY, **P2_VARIANTS["LE"]), whisper=whisper[dev],
                                     kws_layer_slice=(1, 5), utt_frames_budget=64, device=dev)
-        mel_cuda.launches = 0
+        mel_cuda.kernel.launches = 0
         utt, mask = engine.embed_utterances(torch.from_numpy(b["utt_audio"]).to(dev),
                                             torch.from_numpy(b["utt_frames"]).to(dev))
-        embeds[dev] = (utt.cpu(), mask.cpu(), mel_cuda.launches)
+        embeds[dev] = (utt.cpu(), mask.cpu(), mel_cuda.kernel.launches)
     (u_c, m_c, _), (u_d, m_d, launched) = embeds["cpu"], embeds[device]
     gap = float((u_d - u_c).abs().max())
     tails_zero = all(not u_d[i, :, int(n):].any() for i, n in enumerate(b["utt_frames"]) if n < 64)
@@ -3710,10 +3745,10 @@ def phase_j1(device) -> None:
             and launched == 1):
         raise RuntimeError(f"phase J1 audio: embedding card vs CPU max diff {gap!r}, masks equal "
                            f"{torch.equal(m_d, m_c)}, zero tails {tails_zero}, K1 launches {launched}")
-    mel_cuda.launches = 0
+    mel_cuda.kernel.launches = 0
     snap = _j1_pair("LE", device, whisper)
-    if mel_cuda.launches != 1:
-        raise RuntimeError(f"phase J1 audio: the card's step launched K1 {mel_cuda.launches} times")
+    if mel_cuda.kernel.launches != 1:
+        raise RuntimeError(f"phase J1 audio: the card's step launched K1 {mel_cuda.kernel.launches} times")
     text = _j1_compare_audio(snap["cpu"], snap[device])
     print(f"phase J1 audio: embedding [8, 480000] card (K1) vs CPU (plain mel) max diff {gap!r} "
           f"(rtol 1e-3, atol 1e-4), masks equal, zero past each utterance; one step: {text}; K1 "
@@ -4021,12 +4056,12 @@ def _j_fit(label, argv):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    mel_cuda.launches = matmul_s8_cuda.launches = 0
+    mel_cuda.kernel.launches = matmul_s8_cuda.kernel.launches = 0
     with _recorded_p2_steps() as rec, _recorded_k1_shapes() as k1:
         t0 = time.perf_counter()
         state = run_cli(argv)  # the default device: the card
         seconds = time.perf_counter() - t0
-    rec["launches"] = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches}
+    rec["launches"] = {"mel": mel_cuda.kernel.launches, "k2": matmul_s8_cuda.kernel.launches}
     _report_run(label, rec, seconds)
     moved = max(float((p.detach() - q).abs().max()) for p, q in zip(state.model.parameters(), rec["initial"]))
     if not moved > 0 or not all(bool(torch.isfinite(p).all()) for p in state.model.parameters()):
@@ -4157,7 +4192,7 @@ def _p_extract(argv, label: str):
     from enhance_cb_whisper_tpu_torch.ops import mel_cuda
 
     out = io.StringIO()
-    mel_cuda.launches = 0
+    mel_cuda.kernel.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with _recorded_k1_shapes() as shapes, contextlib.redirect_stdout(out):
@@ -4165,9 +4200,9 @@ def _p_extract(argv, label: str):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     printed = out.getvalue().splitlines()
-    print(f"{label}: pipeline.main {wall!r} s; K1 launches {mel_cuda.launches} at {shapes}; "
+    print(f"{label}: pipeline.main {wall!r} s; K1 launches {mel_cuda.kernel.launches} at {shapes}; "
           f"printed {printed}")
-    return wall, {"mel": mel_cuda.launches, "shapes": shapes}, printed
+    return wall, {"mel": mel_cuda.kernel.launches, "shapes": shapes}, printed
 
 
 @contextlib.contextmanager
@@ -4537,9 +4572,9 @@ def _q_spot(cb, feats, mesh):
     if mesh is not None:
         cb._catalog_dev = shard_catalog(cb._catalog_dev, mesh)
     cb.enable_int8_spotting(calibration_batches=1, s8_1x1=S8_STAGES)
-    before = matmul_s8_cuda.launches
+    before = matmul_s8_cuda.kernel.launches
     keywords = [cb.spot_keywords(cb.generator._pad_segment(f[:, :, :3000]))[0] for f, _ in feats]
-    return keywords, matmul_s8_cuda.launches - before
+    return keywords, matmul_s8_cuda.kernel.launches - before
 
 
 @contextlib.contextmanager
@@ -4617,7 +4652,7 @@ def _q_mesh_rank(params, kws_state, stacks, audio, ckpt_dir):
 
     device = rank_device()
     torch.set_num_threads(Q_THREADS)
-    mel_cuda.launches = matmul_s8_cuda.launches = 0
+    mel_cuda.kernel.launches = matmul_s8_cuda.kernel.launches = 0
     rank = dist.get_rank()
     out = {"rank": rank, "device": str(device)}
     t0 = time.perf_counter()
@@ -4659,7 +4694,7 @@ def _q_mesh_rank(params, kws_state, stacks, audio, ckpt_dir):
     out["reduce_calls"] = rec["calls"]
     marks["decode"] = time.perf_counter() - t0 - sum(marks.values())
     out["reduce_ms"] = _q_reduce_ms(device, tp_mesh.get_group("model"))
-    out["launches"] = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches}
+    out["launches"] = {"mel": mel_cuda.kernel.launches, "k2": matmul_s8_cuda.kernel.launches}
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -4726,7 +4761,7 @@ def _q_ref_rank(params, kws_state, stacks, audio, ckpt_dir):
 
     device = rank_device()
     torch.set_num_threads(Q_THREADS)
-    mel_cuda.launches = matmul_s8_cuda.launches = 0
+    mel_cuda.kernel.launches = matmul_s8_cuda.kernel.launches = 0
     out = {}
     t0 = time.perf_counter()
     marks = out["marks"] = {}
@@ -4782,7 +4817,7 @@ def _q_ref_rank(params, kws_state, stacks, audio, ckpt_dir):
                      "device_events_s": self_device_s(DeviceType.CUDA), "ops": ops[:6],
                      "kernels": sum(o["count"] for o in ops)}
     marks["profile_rest"] = time.perf_counter() - t0 - sum(marks.values())
-    out["launches"] = {"mel": mel_cuda.launches, "k2": matmul_s8_cuda.launches}
+    out["launches"] = {"mel": mel_cuda.kernel.launches, "k2": matmul_s8_cuda.kernel.launches}
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -5155,7 +5190,7 @@ def main(argv) -> int:
     if argv == ["--k1"]:  # K1 alone: build, phase A, K1's timings
         from enhance_cb_whisper_tpu_torch.ops import mel_cuda
 
-        mel_lib = mel_cuda.build()
+        mel_lib = mel_cuda.kernel.build()
         print(f"build: {KERNEL_SOURCE} compiled and loaded in {time.perf_counter() - t_start:.1f} s")
         _print_ptxas("K1", mel_lib)
         phase_a(device)
@@ -5167,7 +5202,7 @@ def main(argv) -> int:
     if argv == ["--k3"]:  # K3 alone: build and phase A3
         from enhance_cb_whisper_tpu_torch.ops import maxsim_cuda
 
-        k3_lib = maxsim_cuda.build()
+        k3_lib = maxsim_cuda.kernel.build()
         print(f"build: {K3_SOURCE} compiled and loaded in {time.perf_counter() - t_start:.1f} s")
         _print_ptxas("K3", k3_lib)
         phase_a3(device)
@@ -5177,17 +5212,18 @@ def main(argv) -> int:
     if argv == ["--k4"]:  # K4 alone: build and phase A4
         from enhance_cb_whisper_tpu_torch.ops import beam_attention
 
-        k4_lib = beam_attention.build()
+        k4_lib = beam_attention.kernel.build()
         print(f"build: {K4_SOURCE} compiled and loaded in {time.perf_counter() - t_start:.1f} s")
         _print_ptxas("K4", k4_lib)
         phase_a4(device)
+        phase_a4_beams(device)
         print(f"chip_smoke --k4: passed in {time.perf_counter() - t_start:.1f} s")
         print(_card())
         return 0
     if argv in (["--paper2-train"], ["--pipeline"]):  # K1, phase A and phase J or P alone
         from enhance_cb_whisper_tpu_torch.ops import mel_cuda
 
-        mel_lib = mel_cuda.build()
+        mel_lib = mel_cuda.kernel.build()
         print(f"build: {KERNEL_SOURCE} compiled and loaded in {time.perf_counter() - t_start:.1f} s")
         _print_ptxas("K1", mel_lib)
         phase_a(device)
@@ -5246,6 +5282,7 @@ def main(argv) -> int:
         mismatches, k2_err = mismatches + more, max(k2_err, err)
     k3 = phase_a3(device)
     k4 = phase_a4(device)[K4_TIMED[0]]
+    phase_a4_beams(device)
     check_tf32_off(device)
     phase_b_reference(device)
     phase_b_longform_reference(device)

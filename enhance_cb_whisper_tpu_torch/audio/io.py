@@ -27,11 +27,15 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..build import NativeLibrary
 from ..ops import mel_cuda
 from ..ops.mel import HOP_LENGTH, N_SAMPLES, SAMPLE_RATE, log_mel_spectrogram
 from ..runtime import profiler
 
-_resampler = None
+_FLOAT_P = ctypes.POINTER(ctypes.c_float)
+resampler = NativeLibrary("resample.cpp", "resample_poly",
+                          [_FLOAT_P, ctypes.c_int64, _FLOAT_P, ctypes.c_int64, ctypes.c_int, ctypes.c_int],
+                          host=True)
 _streams: Dict[int, "torch.cuda.Stream"] = {}  # card index -> the features' stream
 _streams_lock = threading.Lock()
 
@@ -61,19 +65,6 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
     return data, rate
 
 
-def _resampler_library():
-    global _resampler
-    if _resampler is None:
-        from ..build import build_host_library
-
-        lib = ctypes.CDLL(str(build_host_library("resample.cpp")))
-        f = ctypes.POINTER(ctypes.c_float)
-        lib.resample_poly.argtypes = [f, ctypes.c_int64, f, ctypes.c_int64, ctypes.c_int, ctypes.c_int]
-        lib.resample_poly.restype = ctypes.c_int
-        _resampler = lib
-    return _resampler
-
-
 def resample(waveform: np.ndarray, orig_sr: int, target_sr: int = SAMPLE_RATE) -> np.ndarray:
     """Polyphase windowed-sinc resampling from ``orig_sr`` to ``target_sr``:
     ``ceil(n * up / down)`` float32 samples."""
@@ -83,9 +74,8 @@ def resample(waveform: np.ndarray, orig_sr: int, target_sr: int = SAMPLE_RATE) -
     up, down = target_sr // g, orig_sr // g
     x = np.ascontiguousarray(waveform, dtype=np.float32)
     out = np.empty((-(-x.size * up // down),), np.float32)
-    f = ctypes.POINTER(ctypes.c_float)
-    ret = _resampler_library().resample_poly(
-        x.ctypes.data_as(f), x.size, out.ctypes.data_as(f), out.size, up, down)
+    ret = resampler.entry()(
+        x.ctypes.data_as(_FLOAT_P), x.size, out.ctypes.data_as(_FLOAT_P), out.size, up, down)
     if ret != 0:
         raise RuntimeError(f"resample_poly failed on {x.size} samples ({orig_sr} -> {target_sr} Hz)")
     return out
@@ -127,10 +117,10 @@ def prepare_features(
     # torch.cuda.stream(None) changes nothing
     with torch.cuda.stream(side), profiler.span(
             "ecw.audio.features", device=side is not None, n_mels=n_mels, samples=int(padded.size)) as span:
-        launched = mel_cuda.launches
+        launched = mel_cuda.kernel.launches
         features = log_mel_spectrogram(torch.from_numpy(padded[None]).to(device), n_mels=n_mels)
         if span is not None:  # None while recording is off
-            span.attrs["launches"] = mel_cuda.launches - launched
+            span.attrs["launches"] = mel_cuda.kernel.launches - launched
     if side is not None:
         caller.wait_stream(side)
         features.record_stream(caller)

@@ -1,4 +1,4 @@
-"""Build the package's native sources into shared libraries at first use.
+"""Build, load, launch and count the package's native libraries.
 
 Each kernel file under ``csrc/`` exposes a plain C entry point (pointers,
 sizes and the stream; returns ``cudaGetLastError()``), so it compiles with
@@ -9,26 +9,36 @@ repository root (git-ignored), named by a hash of the source, every local
 header it includes and the flags, so a changed source or header is rebuilt
 and an unchanged one is reused.  The compiler's output is kept beside the
 library (``<library>.log``).  A failed build raises.
+
+:class:`NativeLibrary` is the one way the package reaches such a library:
+built and loaded at first use, its entry point bound, each kernel launched
+on the current stream of its tensors' card and counted.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import re
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
-# Hopper only: the `a` keeps wgmma/setmaxnreg available to later kernels
+# Hopper only: the `a` keeps wgmma/setmaxnreg available to later kernels;
+# -Xptxas=-v writes each kernel's registers, shared memory and spills into
+# the build's log
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 # the JAX package's flags for the same resampler source
 # (enhance_cb_whisper_tpu/audio/native/__init__.py)
@@ -84,18 +94,6 @@ def source_digest(src: Path, flags) -> str:
     return h.hexdigest()[:12]
 
 
-def build_library(source: str, extra_flags=()) -> Path:
-    """Compile ``csrc/<source>`` to a shared library with ``NVCC_FLAGS``
-    and the library's own ``extra_flags``; returns its path."""
-    return _build(CSRC_DIR / source, (*NVCC_FLAGS, *extra_flags), _nvcc)
-
-
-def build_host_library(source: str) -> Path:
-    """Compile the plain C++ ``csrc/<source>`` with g++ and ``HOST_FLAGS``;
-    returns the library's path."""
-    return _build(CSRC_DIR / source, HOST_FLAGS, _gxx)
-
-
 def _build(src: Path, flags, compiler) -> Path:
     out = BUILD_DIR / f"lib{src.stem}_{source_digest(src, flags)}.so"
     if out.exists():
@@ -118,3 +116,78 @@ def _build(src: Path, flags, compiler) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+class NativeLibrary:
+    """One library compiled from ``csrc/<source>``: with nvcc and
+    ``NVCC_FLAGS``, or, for ``host`` code, with g++ and ``HOST_FLAGS``.
+    Its entry point ``symbol`` takes ``argtypes`` (a CUDA entry point the
+    stream last) and returns an int, 0 on success.  ``name`` (the source's
+    stem unless given) names the kernel in a launch's error.
+
+    Nothing is built until first use; then the library is built and loaded
+    once, whichever thread asks first.  ``launches`` counts the kernel
+    launches since import (or since a caller set it to 0); only
+    :meth:`launch` adds to it, under the library's lock, since a kernel runs
+    from more than one thread (``run_test``'s prefetch thread, serving
+    workers)."""
+
+    def __init__(self, source: str, symbol: str, argtypes, host: bool = False, name: str = None):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.host = host
+        self.name = name or Path(source).stem
+        self.launches = 0
+        self.path = None  # the library's file, once loaded
+        self._entry = None
+        # what launch calls: the bound entry point once loaded, until then
+        # a stand-in that loads it, so a launch tests nothing
+        self._call = self._load_and_call
+        self._lock = threading.Lock()
+
+    def _load(self):
+        src = CSRC_DIR / self.source
+        path = _build(src, HOST_FLAGS, _gxx) if self.host else _build(src, NVCC_FLAGS, _nvcc)
+        entry = getattr(ctypes.CDLL(str(path)), self.symbol)
+        entry.argtypes = self.argtypes
+        entry.restype = ctypes.c_int
+        self.path = str(path)
+        return entry
+
+    def entry(self):
+        """The bound entry point; a failed build raises in the thread that
+        hit it (and the next caller builds again)."""
+        if self._entry is None:
+            with self._lock:
+                if self._entry is None:
+                    self._entry = self._call = self._load()
+        return self._entry
+
+    def _load_and_call(self, *args):
+        return self.entry()(*args)
+
+    def build(self) -> str:
+        """Compile and load the library now (otherwise: at first use);
+        returns its path."""
+        self.entry()
+        return self.path
+
+    def launch(self, device: torch.device, *args, launches: int = 1) -> None:
+        """Call the CUDA entry point with ``args`` and the raw current stream
+        of ``device``'s card (a thread that sets no stream of its own gets
+        the legacy default stream); raise on a nonzero CUDA error, else
+        count ``launches`` kernel launches."""
+        current = torch.cuda.current_device()
+        idx = current if device.index is None else device.index
+        # the raw handle: torch.cuda.current_stream() would build a Stream
+        # object, which costs more than the rest of a launch
+        if idx == current:
+            err = self._call(*args, torch._C._cuda_getCurrentRawStream(idx))
+        else:
+            with torch.cuda.device(idx):
+                err = self._call(*args, torch._C._cuda_getCurrentRawStream(idx))
+        if err:
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {err}")
+        with self._lock:
+            self.launches += launches

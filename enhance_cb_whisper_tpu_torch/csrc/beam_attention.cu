@@ -8,8 +8,8 @@
 //   p = softmax_t(s)                          (f32; rounded to bf16 for bf16 values)
 //   out[b K + k, h] = sum_{t < length} p[b, k, h, t] V[row(b, k, t), t, h]   (f32 sums)
 //
-// q, K, V and out in f32 or bf16, Dh <= 64 (every Whisper's is 64), K <= 8
-// beams, length <= 448.  It is
+// q, K, V and out in f32 or bf16, Dh <= 64 (every Whisper's is 64), K <=
+// 32767 beams, length <= 448.  It is
 // models/whisper.py's _attention over the rows gathered by the map, which is
 // the plain version (ops/beam_attention.py: ancestry_attention_plain).
 //
@@ -56,6 +56,12 @@
 // it runs at 1.17-1.27x the bound (PERF.md); with two blocks an SM and two
 // positions a warp iteration it took 1.7-2.3x: the passes were a chain of
 // load latencies, not a stream.
+// More than 8 beams (no cell decodes with more than 5): a block per (item,
+// head, group of 8 logical beams), the same two passes, but each logical
+// beam loads the vector its own map entry names, so a row two beams of a
+// group point at is loaded twice (the second load served by L1 or L2), and
+// each group's block reads the rows again.  The map entries are 16 bits
+// wide there, so the row index reaches 32766.
 // Masked positions score NEG_INF exactly as the plain version's masked_fill,
 // so exp gives 0 and a row whose every position is masked comes out uniform.
 
@@ -65,7 +71,8 @@
 namespace {
 
 constexpr int kMaxDh = 64;       // head size: every Whisper's is 64
-constexpr int kMaxBeams = 8;
+constexpr int kMaxBeams = 32767;  // a 16-bit map entry, its top bit the mask's
+constexpr int kGroup = 8;         // beams a block takes: the most in registers
 constexpr int kMaxLen = 448;     // Whisper's max_target_positions
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -148,6 +155,20 @@ struct Shape {
   static constexpr int kPre = (K * kMaxLen + kThreads - 1) / kThreads;
 };
 
+// a map entry in shared memory: the physical row, its top bit set where
+// the position is masked; 8 bits where the block covers every row of its
+// item (K <= 8), 16 where it takes a group of the logical beams
+template <bool kGather>
+struct Slot {
+  using type = uint8_t;
+  static constexpr unsigned kMasked = 0x80;
+};
+template <>
+struct Slot<true> {
+  using type = uint16_t;
+  static constexpr unsigned kMasked = 0x8000;
+};
+
 // the vector of row `a` among the loaded ones (a select chain: `a` is data)
 template <int K>
 __device__ __forceinline__ float2 pick(const float2 (&rows)[K], int a) {
@@ -160,10 +181,12 @@ __device__ __forceinline__ float2 pick(const float2 (&rows)[K], int a) {
 
 // one pass over the positions: each warp loads the referenced rows' vectors
 // of kUnroll positions at once from `slab`, then hands each (position, row
-// vectors) to `use`
-template <int T, int K, int E, typename Use>
+// vectors) to `use`.  kGather: vector p is the one logical beam p of the
+// group reads (`anc_s`, G of them), else physical row p's (`used`).
+template <int T, int K, int E, bool kGather, typename S, typename Use>
 __device__ __forceinline__ void stream_positions(const void* slab, int64_t item_base, int64_t row_stride,
-                                                 int64_t pos_stride, const uint8_t* used, int L, int warp,
+                                                 int64_t pos_stride, const uint8_t* used,
+                                                 const S (*anc_s)[kMaxLen], int G, int L, int warp,
                                                  bool active, Use use) {
   constexpr int U = Shape<K>::kUnroll;
   for (int t0 = warp; t0 < L; t0 += kWarps * U) {
@@ -171,11 +194,21 @@ __device__ __forceinline__ void stream_positions(const void* slab, int64_t item_
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int t = t0 + u * kWarps;
-      const unsigned bits = t < L ? used[t] : 0u;
+      if constexpr (kGather) {
 #pragma unroll
-      for (int p = 0; p < K; ++p)
-        rows[u][p] = Pair<T>::template load<E>(slab, item_base + p * row_stride + t * pos_stride,
-                                               active && ((bits >> p) & 1u));
+        for (int p = 0; p < K; ++p) {
+          const bool on = t < L && p < G;
+          const int64_t row = on ? anc_s[p][t] & (Slot<true>::kMasked - 1) : 0;
+          rows[u][p] = Pair<T>::template load<E>(slab, item_base + row * row_stride + t * pos_stride,
+                                                 active && on);
+        }
+      } else {
+        const unsigned bits = t < L ? used[t] : 0u;
+#pragma unroll
+        for (int p = 0; p < K; ++p)
+          rows[u][p] = Pair<T>::template load<E>(slab, item_base + p * row_stride + t * pos_stride,
+                                                 active && ((bits >> p) & 1u));
+      }
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -185,22 +218,27 @@ __device__ __forceinline__ void stream_positions(const void* slab, int64_t item_
   }
 }
 
-// KM: the most beams an instantiation takes; the beam count K is KM itself
-// where kExact (the serving default of 5), else read at run time
-template <int T, int KM, int E, bool kExact>
+// KM: the most beams a block takes; the beam count K is KM itself where
+// kExact (the serving default of 5), else read at run time.  kGather: the
+// block takes the G <= KM logical beams k0.. of group blockIdx.z of its
+// item, else all K.
+template <int T, int KM, int E, bool kExact, bool kGather>
 __global__ void __launch_bounds__(kThreads, 3) beam_attention_kernel(const Params prm) {
+  using S = typename Slot<kGather>::type;
+  constexpr unsigned kMasked = Slot<kGather>::kMasked;
   __shared__ float score[KM][kMaxLen];  // scores, then probabilities
-  __shared__ uint8_t anc_s[KM][kMaxLen];
+  __shared__ S anc_s[KM][kMaxLen];
   __shared__ uint8_t used[kMaxLen];      // bit p: some beam reads row p here
   __shared__ float2 partial[kWarps][KM][32];
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int K = kExact ? KM : prm.K, H = prm.H, L = prm.length, dh = prm.dh;
+  const int k0 = kGather ? blockIdx.z * KM : 0, G = kGather ? min(KM, K - k0) : K;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bool active = E * lane < dh;  // this lane holds elements of the row
 
   // the item's map and mask, every load of a thread issued before any
-  // store; masked positions are marked in the map's bit 7
+  // store; masked positions are marked in the entry's top bit
   {
     constexpr int N = Shape<KM>::kPre;
     int a[N];
@@ -210,11 +248,11 @@ __global__ void __launch_bounds__(kThreads, 3) beam_attention_kernel(const Param
       const int i = threadIdx.x + j * kThreads;
       a[j] = 0;
       keep[j] = true;
-      if (i < K * L) {
+      if (i < G * L) {
         const int k = i / L, t = i - k * L;
-        a[j] = prm.anc[(static_cast<int64_t>(b) * K + k) * prm.anc_len + t];
+        a[j] = prm.anc[(static_cast<int64_t>(b) * K + k0 + k) * prm.anc_len + t];
         if (prm.mask != nullptr) {
-          const int64_t m = (static_cast<int64_t>(b) * K + k) * prm.mask_stride + t;
+          const int64_t m = (static_cast<int64_t>(b) * K + k0 + k) * prm.mask_stride + t;
           keep[j] = prm.mask_bytes == 8   ? static_cast<const int64_t*>(prm.mask)[m] != 0
                     : prm.mask_bytes == 4 ? static_cast<const int32_t*>(prm.mask)[m] != 0
                                           : static_cast<const uint8_t*>(prm.mask)[m] != 0;
@@ -224,18 +262,20 @@ __global__ void __launch_bounds__(kThreads, 3) beam_attention_kernel(const Param
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       const int i = threadIdx.x + j * kThreads;
-      if (i < K * L) {
+      if (i < G * L) {
         const int k = i / L, t = i - k * L;
         // a map out of range is a caller's fault; stay inside the item
-        anc_s[k][t] = static_cast<uint8_t>(min(max(a[j], 0), K - 1) | (keep[j] ? 0 : 0x80));
+        anc_s[k][t] = static_cast<S>(min(max(a[j], 0), K - 1) | (keep[j] ? 0u : kMasked));
       }
     }
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < L; t += kThreads) {
-    unsigned bits = 0;
-    for (int k = 0; k < K; ++k) bits |= 1u << (anc_s[k][t] & 0x7f);
-    used[t] = static_cast<uint8_t>(bits);
+  if constexpr (!kGather) {
+    for (int t = threadIdx.x; t < L; t += kThreads) {
+      unsigned bits = 0;
+      for (int k = 0; k < K; ++k) bits |= 1u << (anc_s[k][t] & 0x7f);
+      used[t] = static_cast<uint8_t>(bits);
+    }
   }
 
   // this lane's elements of every beam's query
@@ -245,26 +285,26 @@ __global__ void __launch_bounds__(kThreads, 3) beam_attention_kernel(const Param
   float2 q[KM];
 #pragma unroll
   for (int k = 0; k < KM; ++k)
-    q[k] = Pair<T>::template load<E>(prm.q, ((static_cast<int64_t>(b) * K + k) * H + h) * dh + E * lane,
-                                     active && k < K);
+    q[k] = Pair<T>::template load<E>(prm.q, ((static_cast<int64_t>(b) * K + k0 + k) * H + h) * dh + E * lane,
+                                     active && k < G);
   __syncthreads();
 
   // pass 1: scores
-  stream_positions<T, KM, E>(prm.k, item_base, row_stride, pos_stride, used, L, warp, active,
-                             [&](int t, const float2 (&rows)[KM]) {
+  stream_positions<T, KM, E, kGather>(prm.k, item_base, row_stride, pos_stride, used, anc_s, G, L, warp, active,
+                                      [&](int t, const float2 (&rows)[KM]) {
 #pragma unroll
-                               for (int k = 0; k < KM; ++k) {
-                                 if (k >= K) break;
-                                 const int a = anc_s[k][t];
-                                 const float2 x = pick<KM>(rows, a & 0x7f);
-                                 const float s = warp_sum(fmaf(q[k].x, x.x, q[k].y * x.y));
-                                 if (lane == 0) score[k][t] = a & 0x80 ? kNegInf : s;
-                               }
-                             });
+                                        for (int k = 0; k < KM; ++k) {
+                                          if (k >= G) break;
+                                          const unsigned a = anc_s[k][t];
+                                          const float2 x = kGather ? rows[k] : pick<KM>(rows, a & 0x7f);
+                                          const float s = warp_sum(fmaf(q[k].x, x.x, q[k].y * x.y));
+                                          if (lane == 0) score[k][t] = a & kMasked ? kNegInf : s;
+                                        }
+                                      });
   __syncthreads();
 
   // softmax over the positions, one warp per beam (torch's: exp(s - max) / sum)
-  for (int k = warp; k < K; k += kWarps) {
+  for (int k = warp; k < G; k += kWarps) {
     float m = kNegInf;
     for (int t = lane; t < L; t += 32) m = fmaxf(m, score[k][t]);
     m = warp_max(m);
@@ -283,46 +323,55 @@ __global__ void __launch_bounds__(kThreads, 3) beam_attention_kernel(const Param
   float2 acc[KM];
 #pragma unroll
   for (int k = 0; k < KM; ++k) acc[k] = make_float2(0.f, 0.f);
-  stream_positions<T, KM, E>(prm.v, item_base, row_stride, pos_stride, used, L, warp, active,
-                             [&](int t, const float2 (&rows)[KM]) {
+  stream_positions<T, KM, E, kGather>(prm.v, item_base, row_stride, pos_stride, used, anc_s, G, L, warp, active,
+                                      [&](int t, const float2 (&rows)[KM]) {
 #pragma unroll
-                               for (int k = 0; k < KM; ++k) {
-                                 if (k >= K) break;
-                                 const float pk = score[k][t];
-                                 const float2 x = pick<KM>(rows, anc_s[k][t] & 0x7f);
-                                 acc[k].x = fmaf(pk, x.x, acc[k].x);
-                                 acc[k].y = fmaf(pk, x.y, acc[k].y);
-                               }
-                             });
+                                        for (int k = 0; k < KM; ++k) {
+                                          if (k >= G) break;
+                                          const float pk = score[k][t];
+                                          const float2 x = kGather ? rows[k] : pick<KM>(rows, anc_s[k][t] & 0x7f);
+                                          acc[k].x = fmaf(pk, x.x, acc[k].x);
+                                          acc[k].y = fmaf(pk, x.y, acc[k].y);
+                                        }
+                                      });
 #pragma unroll
   for (int k = 0; k < KM; ++k)
-    if (k < K) partial[warp][k][lane] = acc[k];
+    if (k < G) partial[warp][k][lane] = acc[k];
   __syncthreads();
 
   // the warps' partial outputs summed, one warp per beam, written once
-  for (int k = warp; k < K; k += kWarps) {
+  for (int k = warp; k < G; k += kWarps) {
     float2 o = make_float2(0.f, 0.f);
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       o.x += partial[w][k][lane].x;
       o.y += partial[w][k][lane].y;
     }
-    if (active) Pair<T>::template store<E>(prm.out, ((static_cast<int64_t>(b) * K + k) * H + h) * dh + E * lane, o);
+    if (active)
+      Pair<T>::template store<E>(prm.out, ((static_cast<int64_t>(b) * K + k0 + k) * H + h) * dh + E * lane, o);
   }
 }
 
-// six instantiations, to keep the build short (~14 s): Dh 64 at exactly 5
-// beams (the cells' shape) and at up to 8, and Dh <= 32 (the tests' tiny
-// models) at up to 8, in each dtype
+// five instantiations in each dtype, to keep the build short: Dh 64 at
+// exactly 5 beams (the cells' shape) and at up to 8, Dh <= 32 (the tests'
+// tiny models) at up to 8, and groups of 8 of more beams at either
 template <int T>
 void launch_beams(const Params& p, int B, cudaStream_t s) {
+  if (p.K > kGroup) {
+    const dim3 grid(p.H, B, (p.K + kGroup - 1) / kGroup);
+    if (p.dh <= 32)
+      beam_attention_kernel<T, kGroup, 1, false, true><<<grid, kThreads, 0, s>>>(p);
+    else
+      beam_attention_kernel<T, kGroup, 2, false, true><<<grid, kThreads, 0, s>>>(p);
+    return;
+  }
   const dim3 grid(p.H, B);
   if (p.dh <= 32)
-    beam_attention_kernel<T, 8, 1, false><<<grid, kThreads, 0, s>>>(p);
+    beam_attention_kernel<T, kGroup, 1, false, false><<<grid, kThreads, 0, s>>>(p);
   else if (p.K == 5)
-    beam_attention_kernel<T, 5, 2, true><<<grid, kThreads, 0, s>>>(p);
+    beam_attention_kernel<T, 5, 2, true, false><<<grid, kThreads, 0, s>>>(p);
   else
-    beam_attention_kernel<T, 8, 2, false><<<grid, kThreads, 0, s>>>(p);
+    beam_attention_kernel<T, kGroup, 2, false, false><<<grid, kThreads, 0, s>>>(p);
 }
 
 bool aligned(const void* p, int bytes) { return (reinterpret_cast<uintptr_t>(p) % bytes) == 0; }

@@ -255,7 +255,7 @@ def make_cascade_score_fn(model: EfficientKWSModel, chunk: int = 128, shortlist:
         kwd, kwd_mask = catalog["kwd"], catalog["kwd_mask"]
         with profiler.span("ecw.catalog.proxy", device=utt_p.device.type == "cuda",
                            chunks=n_pad // chunk) as span:
-            launched = maxsim_cuda.launches
+            launched = maxsim_cuda.kernel.launches
             if proxy_dtype == "float32":
                 proxy = torch.cat([maxsim_proxy(kwd[i:i + chunk], utt_p, kwd_mask[i:i + chunk], utt_mask_p)
                                    for i in range(0, n_pad, chunk)])
@@ -265,7 +265,7 @@ def make_cascade_score_fn(model: EfficientKWSModel, chunk: int = 128, shortlist:
                 proxy = maxsim_proxy_fast(kwd, utt_n, kwd_mask, utt_mask_p, getattr(torch, proxy_dtype))
             proxy = torch.where(catalog["mask"] > 0, proxy, float("-inf"))
             if span is not None:  # None while recording is off
-                span.attrs["launches"] = maxsim_cuda.launches - launched
+                span.attrs["launches"] = maxsim_cuda.kernel.launches - launched
         proxy = _gathered(catalog, proxy)
         idx = shortlist_rows(proxy, shortlist)
         if shard is not None:

@@ -12,65 +12,27 @@ The rows are never reordered, so the beam step copies no cache.
 CUDA tensors to K4 (:func:`ancestry_attention_cuda`), which raises on what
 it does not take.  K4 replaces no TPU kernel (the JAX package's
 ``_ancestry_attention`` is left to XLA); the source's note says what bounds
-it.  The library is compiled from the repository's sources with ``nvcc`` at
-first use (:mod:`..build`) and bound with :mod:`ctypes`.
+it.
 """
 
 from __future__ import annotations
 
-import ctypes
-import threading
+from ctypes import c_int, c_longlong, c_void_p
 from typing import Optional
 
 import torch
 
-# kernel launches since import (or since a caller reset it to 0); the
-# launch path below is the only place that increments it
-launches = 0
+from ..build import NativeLibrary
 
 MAX_HEAD_DIM = 64  # every Whisper's head size is 64
-MAX_BEAMS = 8
+MAX_BEAMS = 32767  # a 16-bit map entry in shared memory, its top bit the mask's
 MAX_LEN = 448  # Whisper's max_target_positions
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MASK_DTYPES = (torch.bool, torch.uint8, torch.int8, torch.int32, torch.int64)
 
-_lib = None
-# the lazy build and load and the launch count are changed under this lock
-_lock = threading.Lock()
-
-
-def _load():
-    from ..build import build_library
-
-    lib = ctypes.CDLL(str(build_library("beam_attention.cu", extra_flags=("-Xptxas=-v",))))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ecw_beam_attention.argtypes = [p] * 5 + [i, ctypes.c_longlong, p] + [i] * 8 + [p]
-    lib.ecw_beam_attention.restype = ctypes.c_int
-    return lib
-
-
-def _library():
-    """The loaded kernel library, built once whichever thread asks first; a
-    failed build raises in the thread that hit it (and the next caller
-    builds again)."""
-    global _lib
-    if _lib is None:
-        with _lock:
-            if _lib is None:
-                _lib = _load()
-    return _lib
-
-
-def _count_launch() -> None:
-    global launches
-    with _lock:
-        launches += 1
-
-
-def build() -> str:
-    """Compile and load the kernel library now (otherwise: at first launch);
-    returns its path."""
-    return _library()._name
+kernel = NativeLibrary("beam_attention.cu", "ecw_beam_attention",
+                       [c_void_p] * 5 + [c_int, c_longlong, c_void_p] + [c_int] * 8 + [c_void_p],
+                       name="beam attention")
 
 
 def ancestry_attention(q: torch.Tensor, k_slab: torch.Tensor, v_slab: torch.Tensor, anc: torch.Tensor,
@@ -147,8 +109,8 @@ def _check(q, k_slab, v_slab, anc, attention_mask, length) -> None:
 def ancestry_attention_cuda(q: torch.Tensor, k_slab: torch.Tensor, v_slab: torch.Tensor, anc: torch.Tensor,
                             attention_mask: Optional[torch.Tensor], length: int) -> torch.Tensor:
     """K4: :func:`ancestry_attention` in one launch on the current stream.
-    Takes f32 or bf16 with Dh <= 32 or even and <= 64, at most 8 beams and
-    448 positions, contiguous q, slabs and map; raises on anything else."""
+    Takes f32 or bf16 with Dh <= 32 or even and <= 64, at most ``MAX_BEAMS``
+    beams and 448 positions, contiguous q, slabs and map; raises on anything else."""
     _check(q, k_slab, v_slab, anc, attention_mask, length)
     if q.device.type != "cuda":
         raise ValueError(f"ancestry_attention: the kernel takes CUDA tensors, q is on {q.device}")
@@ -158,20 +120,10 @@ def ancestry_attention_cuda(q: torch.Tensor, k_slab: torch.Tensor, v_slab: torch
     mask = attention_mask
     if mask is not None and mask.dtype == torch.bool:
         mask = mask.view(torch.uint8)
-    args = (
-        q.data_ptr(), k_slab.data_ptr(), v_slab.data_ptr(), anc.data_ptr(),
+    kernel.launch(
+        q.device, q.data_ptr(), k_slab.data_ptr(), v_slab.data_ptr(), anc.data_ptr(),
         None if mask is None else mask.data_ptr(), 0 if mask is None else mask.element_size(),
         0 if mask is None else mask.stride(0), out.data_ptr(), DTYPES[q.dtype],
         batch, beams, heads, head_dim, k_slab.shape[1], anc.shape[2], int(length),
     )
-    idx = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    # the raw handle of the current stream, as maxsim_cuda takes it
-    if idx == torch.cuda.current_device():
-        err = _library().ecw_beam_attention(*args, torch._C._cuda_getCurrentRawStream(idx))
-    else:
-        with torch.cuda.device(q.device):
-            err = _library().ecw_beam_attention(*args, torch._C._cuda_getCurrentRawStream(idx))
-    if err != 0:
-        raise RuntimeError(f"beam attention kernel launch failed: CUDA error {err}")
-    _count_launch()
     return out

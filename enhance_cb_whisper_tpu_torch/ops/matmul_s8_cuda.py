@@ -12,71 +12,29 @@ rule is the JAX kernel's: K and N multiples of 128; any M ≥ 1.
 
 :func:`launch_plan` picks the tile height and the split of K for each (M, K, N);
 the split blocks of a tile sum their partials inside the one launch, so
-every call is one launch.  The library is compiled from the repository's
-sources with ``nvcc`` at first use (:mod:`..build`) and bound with
-:mod:`ctypes`.  A tensor on the CPU takes the plain torch version
-(:func:`.matmul_s8.matmul_s8_requant_plain`); a CUDA tensor launches the
-kernel or raises.
+every call is one launch.  A tensor on the CPU takes the plain torch
+version (:func:`.matmul_s8.matmul_s8_requant_plain`); a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
-import threading
+from ctypes import c_int, c_void_p
 from typing import NamedTuple, Optional, Union
 
 import torch
 
+from ..build import NativeLibrary
 from .matmul_s8 import matmul_s8_requant_plain
-
-# kernel launches since import (or since a caller reset it to 0); the
-# launch path below is the only place that increments it
-launches = 0
 
 NUM_SMS = 132  # H100 SXM
 K_TILE = 128  # bytes of K per pipeline stage
 BN = 128  # output columns per tile
 MAX_SPLIT = 8  # blocks of one cluster
 
-_lib = None
-# the lazy build and load and the launch count are changed under this lock:
-# the scorer may run on a serving worker thread while another thread builds
-_lock = threading.Lock()
-
-
-def _load():
-    from ..build import build_library
-
-    lib = ctypes.CDLL(str(build_library("matmul_s8.cu", extra_flags=("-Xptxas=-v",))))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ecw_matmul_s8_requant.argtypes = [p] * 6 + [i, p] + [i] * 6 + [p]
-    lib.ecw_matmul_s8_requant.restype = ctypes.c_int
-    return lib
-
-
-def _library():
-    """The loaded kernel library, built once whichever thread asks first; a
-    failed build raises in the thread that hit it (and the next caller
-    builds again)."""
-    global _lib
-    if _lib is None:
-        with _lock:
-            if _lib is None:
-                _lib = _load()
-    return _lib
-
-
-def _count_launch() -> None:
-    global launches
-    with _lock:
-        launches += 1
-
-
-def build() -> str:
-    """Compile and load the kernel library now (otherwise: at first launch);
-    returns its path."""
-    return _library()._name
+kernel = NativeLibrary("matmul_s8.cu", "ecw_matmul_s8_requant",
+                       [c_void_p] * 6 + [c_int, c_void_p] + [c_int] * 6 + [c_void_p])
 
 
 class Plan(NamedTuple):
@@ -205,20 +163,9 @@ def matmul_s8_requant(
     if not ok:
         _diagnose(x, w_kn.t(), scale, bias, residual, rs, m, n, k)
     out = torch.empty((m, n), dtype=torch.int8, device=dev)
-    args = (
-        x.data_ptr(), w_kn.data_ptr(), scale.data_ptr(), bias.data_ptr(), res_ptr, rs_ptr, rs_stride,
-        out.data_ptr(), m, n, k, int(relu), plan.bm, plan.split,
-    )
-    # the raw handle of the current stream: torch.cuda.current_stream() would
-    # build a Stream object, which costs more than the rest of this call's checks.
-    # A thread that sets no stream of its own (a serving worker) gets the
-    # legacy default stream, the one every other op of the scorer runs on
-    if idx == torch.cuda.current_device():
-        err = _library().ecw_matmul_s8_requant(*args, torch._C._cuda_getCurrentRawStream(idx))
-    else:
-        with torch.cuda.device(dev):
-            err = _library().ecw_matmul_s8_requant(*args, torch._C._cuda_getCurrentRawStream(idx))
-    if err != 0:
-        raise RuntimeError(f"matmul_s8 kernel launch failed: CUDA error {err}")
-    _count_launch()
+    # on the caller's current stream: a thread that sets no stream of its own
+    # (a serving worker) gets the legacy default stream, the one every other
+    # op of the scorer runs on
+    kernel.launch(dev, x.data_ptr(), w_kn.data_ptr(), scale.data_ptr(), bias.data_ptr(), res_ptr, rs_ptr,
+                  rs_stride, out.data_ptr(), m, n, k, int(relu), plan.bm, plan.split)
     return out

@@ -10,24 +10,20 @@ mask-weighted means.  The similarity maps never reach device memory.  K3
 replaces no TPU kernel (the JAX package leaves this proxy to XLA); the
 source's note says why it was added and what bounds it.
 
-The library is compiled from the repository's sources with ``nvcc`` at
-first use (:mod:`..build`) and bound with :mod:`ctypes`.  Only CUDA
-tensors are taken: the plain version is the catalog module's own, and the
-caller takes it for CPU tensors.  What the kernel does not take raises.
+Only CUDA tensors are taken: the plain version is the catalog module's
+own, and the caller takes it for CPU tensors.  What the kernel does not
+take raises.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
-import threading
+from ctypes import c_int, c_void_p
 from typing import NamedTuple, Optional
 
 import torch
 
-# kernel launches since import (or since a caller reset it to 0); the
-# launch path below is the only place that increments it
-launches = 0
+from ..build import NativeLibrary
 
 BK = 64  # elements of U per chunk (128 bytes of a 16-bit operand)
 UNIT = 8  # U is a multiple of this: 16-byte loads of a 16-bit catalog
@@ -37,43 +33,8 @@ SMEM_LIMIT = 232448  # dynamic shared memory a block may use on sm_90
 LAUNCHES_PER_CALL = 2  # the row maxima, then the means
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-_lib = None
-# the lazy build and load and the launch count are changed under this lock
-_lock = threading.Lock()
-
-
-def _load():
-    from ..build import build_library
-
-    lib = ctypes.CDLL(str(build_library("maxsim.cu", extra_flags=("-Xptxas=-v",))))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ecw_maxsim_proxy.argtypes = [p, i, p, i, p, i, p, i, p, p] + [i] * 7 + [p]
-    lib.ecw_maxsim_proxy.restype = ctypes.c_int
-    return lib
-
-
-def _library():
-    """The loaded kernel library, built once whichever thread asks first; a
-    failed build raises in the thread that hit it (and the next caller
-    builds again)."""
-    global _lib
-    if _lib is None:
-        with _lock:
-            if _lib is None:
-                _lib = _load()
-    return _lib
-
-
-def _count_launches(n: int) -> None:
-    global launches
-    with _lock:
-        launches += n
-
-
-def build() -> str:
-    """Compile and load the kernel library now (otherwise: at first launch);
-    returns its path."""
-    return _library()._name
+kernel = NativeLibrary("maxsim.cu", "ecw_maxsim_proxy",
+                       [c_void_p, c_int] * 4 + [c_void_p] * 2 + [c_int] * 7 + [c_void_p])
 
 
 def smem_bytes(bm: int, chunks: int, stages: int, n_tiles: int) -> int:
@@ -177,20 +138,11 @@ def maxsim_proxy(kwd: torch.Tensor, utt_n: torch.Tensor, kwd_mask: Optional[torc
     if kwd.data_ptr() % 16 or utt.data_ptr() % 16:
         raise ValueError("maxsim_proxy: kwd and utt_n must be 16-byte aligned")
     best = torch.empty((n, layers, t_k), dtype=torch.float32, device=dev)
-    args = (
-        kwd.data_ptr(), DTYPES[kwd.dtype], utt.data_ptr(), DTYPES[dtype],
+    kernel.launch(
+        dev, kwd.data_ptr(), DTYPES[kwd.dtype], utt.data_ptr(), DTYPES[dtype],
         None if umask is None else umask.data_ptr(), umask_type,
         None if kmask is None else kmask.data_ptr(), kmask_type,
         best.data_ptr(), out.data_ptr(), n, layers, t_k, t_u, units, plan.bm, plan.stages,
+        launches=LAUNCHES_PER_CALL,
     )
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    # the raw handle of the current stream, as matmul_s8_cuda takes it
-    if idx == torch.cuda.current_device():
-        err = _library().ecw_maxsim_proxy(*args, torch._C._cuda_getCurrentRawStream(idx))
-    else:
-        with torch.cuda.device(dev):
-            err = _library().ecw_maxsim_proxy(*args, torch._C._cuda_getCurrentRawStream(idx))
-    if err != 0:
-        raise RuntimeError(f"maxsim kernel launch failed: CUDA error {err}")
-    _count_launches(LAUNCHES_PER_CALL)
     return out

@@ -11,67 +11,28 @@ staged in shared memory by every block.  Unlike the Pallas kernel (exactly
 30 s windows) it takes any ``[B, N]`` with ``N % 160 == 0``, so every mel
 computed on the card goes through it.
 
-The library is compiled from the repository's sources with ``nvcc`` at
-first use (:mod:`..build`) and bound with :mod:`ctypes`.  A tensor on the
-CPU takes the plain torch version (:func:`.mel.log10_mel_plain`); a CUDA
-tensor launches the kernel or raises.
+A tensor on the CPU takes the plain torch version
+(:func:`.mel.log10_mel_plain`); a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
 
-import ctypes
 import threading
+from ctypes import c_int, c_void_p
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from ..build import NativeLibrary
 from .mel import HOP_LENGTH, N_FFT, log10_mel_plain, mel_filter_bank
 
-# kernel launches since import (or since a caller reset it to 0); the
-# launch path below is the only place that increments it
-launches = 0
+kernel = NativeLibrary("mel.cu", "ecw_log10_mel", [c_void_p] * 5 + [c_int] * 4 + [c_void_p])
 
-_lib = None
 _tables: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
 # K1 runs from more than one thread (``run_test``'s prefetch thread computes
-# the mel while the caller's thread decodes): the lazy build and load, the
-# table cache and the launch count are each changed under this lock
-_lock = threading.Lock()
-
-
-def _load():
-    from ..build import build_library
-
-    lib = ctypes.CDLL(str(build_library("mel.cu", extra_flags=("-Xptxas=-v",))))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ecw_log10_mel.argtypes = [p] * 5 + [i] * 4 + [p]
-    lib.ecw_log10_mel.restype = ctypes.c_int
-    return lib
-
-
-def _library():
-    """The loaded kernel library, built once whichever thread asks first; a
-    failed build raises in the thread that hit it (and the next caller
-    builds again)."""
-    global _lib
-    if _lib is None:
-        with _lock:
-            if _lib is None:
-                _lib = _load()
-    return _lib
-
-
-def _count_launch() -> None:
-    global launches
-    with _lock:
-        launches += 1
-
-
-def build() -> str:
-    """Compile and load the kernel library now (otherwise: at first launch);
-    returns its path."""
-    return _library()._name
+# the mel while the caller's thread decodes)
+_tables_lock = threading.Lock()
 
 
 def dft_tables() -> np.ndarray:
@@ -105,7 +66,7 @@ def _device_tables(device: torch.device, n_mels: int):
     fb_w, fb_meta = sparse_filterbank(n_mels)
     tables = tuple(torch.from_numpy(t).to(device)
                    for t in (dft_tables().astype(np.float32), fb_w, fb_meta))
-    with _lock:
+    with _tables_lock:
         return _tables.setdefault((device.index, n_mels), tables)
 
 
@@ -139,23 +100,13 @@ def log10_mel(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
             and audio.is_contiguous()):
         _diagnose(audio)
     batch, n_samples = audio.shape
-    idx = dev.index
-    tw, fb_w, fb_meta = _tables.get((idx, n_mels)) or _device_tables(dev, n_mels)
+    tw, fb_w, fb_meta = _tables.get((dev.index, n_mels)) or _device_tables(dev, n_mels)
     out = torch.empty((batch, n_mels, n_samples // HOP_LENGTH), dtype=torch.float32, device=dev)
-    args = (audio.data_ptr(), out.data_ptr(), tw.data_ptr(), fb_w.data_ptr(), fb_meta.data_ptr(),
-            batch, n_samples, n_mels, fb_w.numel())
-    # the raw handle of the current stream: torch.cuda.current_stream() would
-    # build a Stream object, which costs more than the rest of this call.  A
-    # thread that sets no stream of its own gets the legacy default stream,
-    # the one the decode runs on, so a mel made there is ordered before the
-    # work that reads it: keep it that way (``prepare_features`` runs K1 on
-    # its own stream and orders the caller's stream after it)
-    if idx == torch.cuda.current_device():
-        err = _library().ecw_log10_mel(*args, torch._C._cuda_getCurrentRawStream(idx))
-    else:
-        with torch.cuda.device(dev):
-            err = _library().ecw_log10_mel(*args, torch._C._cuda_getCurrentRawStream(idx))
-    if err != 0:
-        raise RuntimeError(f"mel kernel launch failed: CUDA error {err}")
-    _count_launch()
+    # on the caller's current stream: a thread that sets no stream of its own
+    # launches on the legacy default stream, the one the decode runs on, so
+    # a mel made there is ordered before the work that reads it; keep it
+    # that way (``prepare_features`` runs K1 on its own stream and orders the
+    # caller's stream after it)
+    kernel.launch(dev, audio.data_ptr(), out.data_ptr(), tw.data_ptr(), fb_w.data_ptr(), fb_meta.data_ptr(),
+                  batch, n_samples, n_mels, fb_w.numel())
     return out

@@ -63,6 +63,6 @@ def test_undecodable_input_raises(tmp_path):
 def test_failed_resampler_build_raises(monkeypatch):
     """No silent fallback to scipy, whose filter gives other samples."""
     monkeypatch.setattr(build, "HOST_FLAGS", (*build.HOST_FLAGS, "-fno-such-option-exists"))
-    monkeypatch.setattr(io, "_resampler", None)
+    monkeypatch.setattr(io.resampler, "_entry", None)
     with pytest.raises(RuntimeError, match="g\\+\\+ failed on resample.cpp"):
         io.resample(_tone(44100, 0.1), 44100)

@@ -252,6 +252,15 @@ def _valid(batch=2, beams=5, dh=64):
                 anc=torch.from_numpy(anc), attention_mask=torch.from_numpy(mask), length=9)
 
 
+def _beams_past_max(a):
+    """One item of ``MAX_BEAMS + 1`` beams; the slabs are expanded views,
+    which the beam count's check reaches before their contiguity's."""
+    rows = ba.MAX_BEAMS + 1
+    slab = a["k_slab"][:1].expand(rows, -1, -1, -1)
+    return dict(a, q=a["q"][:1].expand(rows, -1, -1, -1).contiguous(), k_slab=slab, v_slab=slab,
+                anc=torch.zeros((1, rows, a["anc"].shape[2]), dtype=torch.int32), attention_mask=None)
+
+
 BAD = {
     "q_float16": (TypeError, lambda a: dict(a, q=a["q"].half())),
     "slab_dtype": (TypeError, lambda a: dict(a, k_slab=a["k_slab"].double())),
@@ -262,7 +271,7 @@ BAD = {
     "slab_head_dim": (ValueError, lambda a: dict(a, k_slab=a["k_slab"][..., :32].contiguous(),
                                                  v_slab=a["v_slab"][..., :32].contiguous())),
     "two_tokens": (ValueError, lambda a: dict(a, q=a["q"].expand(-1, 2, -1, -1).contiguous())),
-    "nine_beams": (ValueError, lambda a: _valid(batch=1, beams=9)),
+    "beams_past_max": (ValueError, lambda a: _beams_past_max(a)),
     "map_rows_differ": (ValueError, lambda a: dict(a, anc=a["anc"][:1])),
     "length_past_slab": (ValueError, lambda a: dict(a, length=13)),
     "length_zero": (ValueError, lambda a: dict(a, length=0)),
@@ -292,3 +301,29 @@ def test_kernel_wrapper_refuses(case):
     error, change = BAD[case]
     with pytest.raises(error, match="ancestry_attention"):
         ba.ancestry_attention_cuda(**change(_valid()))
+
+
+@pytest.mark.parametrize("beams", [1, 8, 9, 17])
+def test_kernel_wrapper_takes_any_beam_count(beams):
+    """K4's wrapper checks pass at any beam count up to ``MAX_BEAMS``,
+    past a block's 8 too: CPU tensors then raise only for their device."""
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ba.ancestry_attention_cuda(**_valid(batch=1, beams=beams))
+
+
+@pytest.mark.parametrize("beams", [8, 9])
+def test_dispatcher_sends_every_beam_count_off_the_cpu_to_k4(beams, monkeypatch):
+    """Off the CPU the dispatcher calls K4 at any beam count and never the
+    plain version (here on the meta device, with a stand-in for the kernel
+    that records its calls)."""
+    calls = []
+    monkeypatch.setattr(ba, "ancestry_attention_cuda", lambda q, *args: calls.append(q.shape) or torch.empty_like(q))
+    monkeypatch.setattr(ba, "ancestry_attention_plain", lambda *args: pytest.fail("the plain version ran"))
+    batch, heads, head_dim, max_len, length = 2, 4, 16, 12, 7
+    q = torch.empty((batch * beams, 1, heads, head_dim), device="meta")
+    k = torch.empty((batch * beams, max_len, heads, head_dim), device="meta")
+    anc = torch.zeros((batch, beams, max_len), dtype=torch.int32, device="meta")
+    mask = torch.ones((batch * beams, max_len), dtype=torch.bool, device="meta")
+    out = ba.ancestry_attention(q, k, torch.empty_like(k), anc, mask, length)
+    assert out.shape == q.shape and out.device.type == "meta"
+    assert calls == [q.shape]

@@ -95,10 +95,10 @@ def test_int8_run_test_matches_jax(monkeypatch):
     jax_preds, port_preds = [], []
     want = jax_cb.run_test(dataset, lambda item: jax_prepare_features(item["audio"]),
                            num_bootstraps=20, predictions_out=jax_preds)
-    launches = matmul_s8_cuda.launches
+    launches = matmul_s8_cuda.kernel.launches
     got = port_cb.run_test(dataset, lambda item: prepare_features(item["audio"], device="cpu"),
                            num_bootstraps=20, predictions_out=port_preds)
-    assert matmul_s8_cuda.launches == launches  # CPU tensors: the plain version
+    assert matmul_s8_cuda.kernel.launches == launches  # CPU tensors: the plain version
 
     assert not port_cb._int8_pending and not jax_cb._int8_pending
     assert len(port_spotted) == len(jax_spotted) == 3

@@ -433,18 +433,22 @@ def test_language_null_needs_lang_to_id():
             cli._build_generation_options(FakeTokenizer(), gc, {"language": None})
 
 
-@pytest.mark.parametrize("module", ["mel_cuda", "matmul_s8_cuda"])
+@pytest.mark.parametrize("module", ["ops.mel_cuda", "ops.matmul_s8_cuda", "ops.maxsim_cuda",
+                                    "ops.beam_attention", "audio.io"],
+                         ids=["mel_cuda", "matmul_s8_cuda", "maxsim_cuda", "beam_attention", "resampler"])
 def test_kernel_loader_and_launch_count_are_thread_safe(monkeypatch, module):
-    """K1's and K2's wrappers, with a stub in place of the nvcc build: many
-    threads asking for the library at once build it once and share it; a
-    build that fails raises in the thread that hit it and the next caller
-    builds again; launch counts from many threads add up exactly."""
+    """Each native library of the port (K1-K4 and the host resampler), with
+    a stub in place of its build: many threads asking for the library at
+    once build it once and share it; a build that fails raises in the
+    thread that hit it and the next caller builds again; launch counts from
+    many threads add up exactly."""
     import importlib
     import sys
     import threading
     import time
 
-    mod = importlib.import_module(f"enhance_cb_whisper_tpu_torch.ops.{module}")
+    mod = importlib.import_module(f"enhance_cb_whisper_tpu_torch.{module}")
+    lib = mod.resampler if module == "audio.io" else mod.kernel
     builds = []
 
     def stub_load():
@@ -452,37 +456,42 @@ def test_kernel_loader_and_launch_count_are_thread_safe(monkeypatch, module):
         time.sleep(0.05)  # a slow build: the other threads arrive meanwhile
         if len(builds) == 1:
             raise RuntimeError("nvcc failed")
-        return object()
+        return lambda *args: 0
 
-    monkeypatch.setattr(mod, "_lib", None)
-    monkeypatch.setattr(mod, "_load", stub_load)
+    monkeypatch.setattr(lib, "_entry", None)
+    monkeypatch.setattr(lib, "_call", lib._load_and_call)
+    monkeypatch.setattr(lib, "_load", stub_load)
     with pytest.raises(RuntimeError, match="nvcc failed"):
-        mod._library()
+        lib.entry()
     barrier = threading.Barrier(8)
     libs = []
 
     def ask():
         barrier.wait()
-        libs.append(mod._library())
+        libs.append(lib.entry())
 
     threads = [threading.Thread(target=ask) for _ in range(8)]
     for t in threads:
         t.start()
     for t in threads:
         t.join(30)
-    assert len(builds) == 2 and len(libs) == 8 and all(lib is libs[0] for lib in libs)
+    assert len(builds) == 2 and len(libs) == 8 and all(one is libs[0] for one in libs)
 
     # CPython switches threads only at calls and loop ends, so an unlocked
     # count seldom loses one here; the total is held exact all the same
 
-    monkeypatch.setattr(mod, "launches", 0)
+    monkeypatch.setattr(lib, "launches", 0)
+    # the CPU build of torch has no CUDA stream to fetch: stand-ins for card 0
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda idx: None, raising=False)
+    card = torch.device("cuda", 0)
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)  # switch threads as often as the interpreter can
     try:
         def count():
             barrier.wait()
             for _ in range(5000):
-                mod._count_launch()
+                lib.launch(card)
 
         threads = [threading.Thread(target=count) for _ in range(8)]
         for t in threads:
@@ -491,4 +500,5 @@ def test_kernel_loader_and_launch_count_are_thread_safe(monkeypatch, module):
             t.join(60)
     finally:
         sys.setswitchinterval(interval)
-    assert mod.launches == 8 * 5000
+    assert not any(t.is_alive() for t in threads)
+    assert lib.launches == 8 * 5000

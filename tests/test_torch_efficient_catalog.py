@@ -304,12 +304,12 @@ def test_cpu_tensors_never_reach_the_kernel(monkeypatch):
     monkeypatch.setattr(maxsim_cuda, "maxsim_proxy", refuse)
     _, _, port, groups, utt, utt_mask = _fixture("LE")
     catalog = pc.project_catalog(port, groups, chunk=CHUNK)
-    before = maxsim_cuda.launches
+    before = maxsim_cuda.kernel.launches
     pc.make_cascade_score_fn(port, chunk=CHUNK, shortlist=8)(catalog, utt, utt_mask)
     kwd, utt_n, kwd_mask, umask = _proxy_inputs(np.random.default_rng(2), 10, L, 6, 20, U, torch.float32)
     assert pc.maxsim_proxy_fast(kwd, utt_n, kwd_mask, umask).shape == (10,)
     assert pc.maxsim_proxy_fast(kwd[:0], utt_n, kwd_mask[:0], umask).shape == (0,)
-    assert maxsim_cuda.launches == before
+    assert maxsim_cuda.kernel.launches == before
     with pytest.raises(ValueError, match="CUDA tensors"):
         wrapper(kwd, utt_n, kwd_mask, umask[0])
 

@@ -59,9 +59,9 @@ def test_mel_wrapper_on_cpu_is_the_plain_version():
     audio = torch.from_numpy(
         (np.random.default_rng(0).standard_normal((2, 16000 * 2)) * 0.1).astype(np.float32)
     )
-    before = mel_cuda.launches
+    before = mel_cuda.kernel.launches
     got = mel_cuda.log10_mel(audio, 80)
-    assert mel_cuda.launches == before == 0
+    assert mel_cuda.kernel.launches == before == 0
     torch.testing.assert_close(got, log10_mel_plain(audio, 80), rtol=0, atol=0)
     assert got.shape == (2, 80, 200)
 
@@ -74,10 +74,10 @@ def test_matmul_s8_wrapper_on_cpu_is_the_plain_version():
     bias = torch.from_numpy(rng.normal(0, 0.5, 128).astype(np.float32))
     res = dict(residual=torch.from_numpy(rng.integers(-127, 128, (40, 128)).astype(np.int8)),
                res_scale=torch.tensor(1.5e-3))
-    before = matmul_s8_cuda.launches
+    before = matmul_s8_cuda.kernel.launches
     # w as the [K, N] view of a [N, K] tensor, as the int8 ResNet passes it
     got = matmul_s8_cuda.matmul_s8_requant(x, w_nk.t(), scale, bias, relu=False, **res)
-    assert matmul_s8_cuda.launches == before == 0
+    assert matmul_s8_cuda.kernel.launches == before == 0
     want = matmul_s8_requant_plain(x, w_nk.t().contiguous(), scale, bias, relu=False, **res)
     assert got.dtype == torch.int8 and got.shape == (40, 128)
     assert torch.equal(got, want)

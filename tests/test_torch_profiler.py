@@ -353,10 +353,11 @@ def test_features_span_records_bins_samples_and_launches(recorder, monkeypatch):
     from enhance_cb_whisper_tpu_torch.ops.mel import log10_mel_plain
 
     def counted(audio, n_mels=80):
-        mel_cuda._count_launch()
+        mel_cuda.kernel.launches += 1
         return log10_mel_plain(audio, n_mels)
 
     monkeypatch.setattr(mel_cuda, "log10_mel", counted)
+    monkeypatch.setattr(mel_cuda.kernel, "launches", 0)
     prepare_features(np.zeros(16000 * 12, np.float32), n_mels=128, device="cpu")
     prepare_features(np.ones(16000 * 40 + 5, np.float32), n_mels=80, device="cpu")
     got = [s for s in profiler.spans() if s["name"] == "ecw.audio.features"]
